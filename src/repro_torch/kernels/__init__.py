@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the DDC hot spots, with plain versions.
+
+- pairwise_dist: DBSCAN ε-neighbour counting + min-label sweeps
+- contour_dist: phase-2 slot×slot contour min-distance merge matrix
+- ref: the plain PyTorch version of each kernel (CPU path, and the
+  comparison on the card)
+
+Use ``repro_torch.kernels.ops``: it dispatches by tensor device.  The
+CUDA sources under ``csrc/`` are built with nvcc at first use
+(``_build``), never at import.
+"""
+from . import contour_dist, ops, pairwise_dist, ref  # noqa: F401

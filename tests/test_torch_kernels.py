@@ -1,0 +1,162 @@
+"""The port's plain kernel versions against the reference package's jnp
+oracles (``repro.kernels.ref``), on the shapes of tests/test_kernels.py,
+and the port's dispatch rules.  Runs on the CPU; the CUDA kernels
+themselves are held against these plain versions on the card by
+tests/test_torch_gpu.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import contour_dist, ops, pairwise_dist  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+RNG = np.random.default_rng(0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+class TestPairwise:
+    @pytest.mark.parametrize("n,m", [(128, 128), (256, 128), (512, 512), (64, 64)])
+    def test_dist_sweep(self, n, m):
+        x = RNG.normal(size=(n, 2)).astype(np.float32)
+        y = RNG.normal(size=(m, 2)).astype(np.float32)
+        want = np.asarray(jref.pairwise_dist_sq(jnp.asarray(x), jnp.asarray(y)))
+        np.testing.assert_allclose(tref.pairwise_dist_sq(t(x), t(y)).numpy(), want,
+                                   rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("eps", [0.1, 0.5, 2.0])
+    def test_neighbor_count(self, eps):
+        # The reference squares a traced (float32) eps inside jit, which is
+        # what the port always does: hand it a float32 eps.
+        x = RNG.normal(size=(256, 2)).astype(np.float32)
+        mask = RNG.random(256) > 0.3
+        want = jref.neighbor_count(jnp.asarray(x), jnp.asarray(mask), jnp.float32(eps))
+        got = tref.neighbor_count(t(x), t(mask), eps)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("eps,n", [(0.4, 128), (0.25, 300)])
+    def test_min_label_sweep(self, eps, n):
+        x = RNG.normal(size=(n, 2)).astype(np.float32)
+        mask = RNG.random(n) > 0.2
+        labels = RNG.permutation(n).astype(np.int32)
+        labels[::5] = tref.SENTINEL
+        core = RNG.random(n) > 0.5
+        want = jref.min_label_sweep(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(labels),
+                                    jnp.asarray(core), eps)
+        got = tref.min_label_sweep(t(x), t(mask), t(labels), t(core), eps)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_row_chunks_change_no_bit(self, monkeypatch):
+        x = t(RNG.normal(size=(300, 2)).astype(np.float32))
+        mask = t(RNG.random(300) > 0.1)
+        whole = tref.neighbor_count(x, mask, 0.3)
+        monkeypatch.setattr(tref, "ROW_CHUNK", 7)
+        assert torch.equal(tref.neighbor_count(x, mask, 0.3), whole)
+
+    def test_eps_squared_in_float32(self):
+        e = 0.1
+        assert tref.eps_sq_f32(e) == float(np.float32(e) * np.float32(e))
+        assert tref.eps_sq_f32(e) != float(np.float32(e * e))
+
+
+def _contours(m, v, seed):
+    rng = np.random.default_rng(seed)
+    contours = rng.uniform(0, 1, (m, v, 2)).astype(np.float32)
+    counts = rng.integers(0, v + 1, m).astype(np.int32)
+    valid = rng.random(m) > 0.25
+    return contours, counts, valid
+
+
+class TestContourMinD2:
+    @pytest.mark.parametrize("m,v", [(16, 32), (32, 64), (8, 16), (24, 8), (11, 16)])
+    def test_sweep(self, m, v):
+        """Within test_kernels.py's tolerance of the jnp oracle: XLA's CPU
+        backend contracts the oracle's dx·dx + dy·dy into an FMA, which
+        rounds once where the port (and its CUDA kernel, which must not
+        contract) rounds twice, so about one entry in ten differs in the
+        last bit."""
+        contours, counts, valid = _contours(m, v, m * v)
+        want = np.asarray(jref.contour_min_d2(jnp.asarray(contours), jnp.asarray(counts),
+                                              jnp.asarray(valid)))
+        got = tref.contour_min_d2(t(contours), t(counts), t(valid)).numpy()
+        np.testing.assert_array_equal(got >= 1e29, want >= 1e29)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+    @pytest.mark.parametrize("m,v", [(16, 32), (11, 16)])
+    def test_exact_difference_form(self, m, v):
+        """Bit-exact against the FMA-free float32 difference form in NumPy —
+        the expression the CUDA kernel reproduces."""
+        contours, counts, valid = _contours(m, v, m + v)
+        vv = (np.arange(v)[None, :] < counts[:, None]) & valid[:, None]
+        want = np.full((m, m), np.float32(1e30))
+        for i in range(m):
+            for j in range(m):
+                d = contours[i][:, None, :] - contours[j][None, :, :]
+                d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                d2 = np.where(vv[i][:, None] & vv[j][None, :], d2, np.float32(1e30))
+                want[i, j] = d2.min()
+        got = tref.contour_min_d2(t(contours), t(counts), t(valid)).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    def test_empty_slots_get_big(self):
+        m, v = 8, 16
+        out = tref.contour_min_d2(torch.zeros((m, v, 2)), torch.zeros(m, dtype=torch.int32),
+                                  torch.zeros(m, dtype=torch.bool))
+        want = np.asarray(jref.contour_min_d2(jnp.zeros((m, v, 2)), jnp.zeros(m, jnp.int32),
+                                              jnp.zeros(m, bool)))
+        np.testing.assert_array_equal(out.numpy(), want)
+        assert (out.numpy() == np.float32(1e30)).all()
+
+
+class TestDispatch:
+    def test_cpu_tensors_never_launch(self):
+        ops.reset_launch_counts()
+        x = t(RNG.normal(size=(64, 2)).astype(np.float32))
+        mask = torch.ones(64, dtype=torch.bool)
+        lab = torch.arange(64, dtype=torch.int32)
+        core = torch.ones(64, dtype=torch.bool)
+        c, cnt, val = (t(a) for a in _contours(6, 8, 1))
+        assert torch.equal(ops.neighbor_count(x, mask, 0.3), tref.neighbor_count(x, mask, 0.3))
+        assert torch.equal(ops.min_label_sweep(x, mask, lab, core, 0.3),
+                           tref.min_label_sweep(x, mask, lab, core, 0.3))
+        assert torch.equal(ops.contour_min_d2(c, cnt, val), tref.contour_min_d2(c, cnt, val))
+        assert torch.equal(pairwise_dist.neighbor_count(x, mask, 0.3),
+                           tref.neighbor_count(x, mask, 0.3))
+        assert torch.equal(contour_dist.contour_min_d2(c, cnt, val),
+                           tref.contour_min_d2(c, cnt, val))
+        assert ops.launch_counts() == {
+            "neighbor_count": 0, "min_label_sweep": 0, "contour_min_d2": 0}
+        assert not ops.use_gpu_kernels(x)
+
+    def test_force_ref_keeps_plain_versions(self, monkeypatch):
+        monkeypatch.setattr(ops, "FORCE", "ref")
+        x = torch.zeros((4, 2))
+        assert not ops.use_gpu_kernels(x)
+        assert ops.neighbor_count(x, torch.ones(4, dtype=torch.bool), 0.1).tolist() == [4] * 4
+
+    def test_other_devices_raise(self):
+        x = torch.zeros((4, 2), device="meta")
+        mask = torch.ones(4, dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError):
+            pairwise_dist.neighbor_count(x, mask, 0.1)
+        with pytest.raises(ValueError):
+            contour_dist.contour_min_d2(torch.zeros((2, 4, 2), device="meta"),
+                                        torch.zeros(2, dtype=torch.int32, device="meta"),
+                                        torch.zeros(2, dtype=torch.bool, device="meta"))
