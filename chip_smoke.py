@@ -10,26 +10,39 @@ failure (non-zero exit):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
-   the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices),
-   through ``make_ddc_fn`` (sync schedule, dense DBSCAN).  eps starts at
-   the 2048-point D2 case's 0.03 scaled to the same expected
-   neighbourhood and grows until no cluster budget overflows.  After the
-   warm-up, launch counts are zeroed, the path runs once with the kernels
-   (every kernel must have launched), then once more with every op on
-   its plain PyTorch version on the card; the two runs must agree bit for
-   bit.  Each kernel is then held against its plain version on the
-   main path's own inputs and timed with CUDA events: one JSON line
-   ``{"kernels": [...]}``.  One more main-path run under torch.profiler
-   gives the device time by kernel and the device's busy share.
-3. Oracle parity: every layout of the reference's phase-2 equivalence
-   table at K in {2, 4, 8} lanes, port on the card against the NumPy
-   host oracle ``ddc_host(..., contour="grid")``; the clusterings must be
-   the same in every cell.
-4. The full-width numbers, then the last line
+   the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
+   ``block_sparse="auto"``, tile 512), through ``make_ddc_fn`` (sync
+   schedule).  eps starts at the 2048-point D2 case's 0.03 scaled to the
+   same expected neighbourhood and grows until no cluster budget
+   overflows.  Two paths, each driven with the launch counts zeroed just
+   before it and read just after:
+   - the default configuration, which takes the block-sparse DBSCAN path
+     (Morton sort, tile-pair pruning, the two sparse kernels) in every
+     lane — it fails otherwise;
+   - ``block_sparse="never"``, the dense path.
+   Each path's kernels must all have launched, each kernel run must equal
+   the same path on the plain PyTorch versions on the card bit for bit,
+   and the two paths must agree in global labels, maps, the merged
+   ClusterSet and every lane's labels, core masks and cluster counts.
+   Each kernel is then held against its plain version on the main path's
+   own inputs and timed with CUDA events: one JSON line ``{"kernels":
+   [...]}``.  One more default-path run under torch.profiler gives the
+   device time by kernel and the device's busy share.
+3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
+   counts must equal the committed ones, and at 4,096 and 16,384 points
+   block-sparse DBSCAN (its sparse kernels forced on) must equal dense
+   DBSCAN in labels and core masks, with the committed cluster counts.
+4. Oracle parity: every layout of the reference's phase-2 equivalence
+   table at K in {2, 4, 8} lanes, with ``block_sparse`` "never" and
+   "auto", port on the card against the NumPy host oracle
+   ``ddc_host(..., contour="grid")``; the clusterings must be the same in
+   every cell.
+5. The full-width numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -48,6 +61,7 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 NC_OPS_PER_PAIR = 6   # mul, mul, add (dot); add (xx+yy); mul by 2; sub
 CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, mul, add
+BENCH_SWEEP_NS = (4096, 16384)  # BENCH_phase1.json rows with cluster counts
 
 
 def log(msg: str) -> None:
@@ -114,6 +128,133 @@ def same(torch, a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
 
 
+def differences(torch, ddc, dbscan, out_a, out_b, trace_a, trace_b, fields) -> list[str]:
+    """Names of the outputs that differ between two full-width runs: global
+    labels, map, every ClusterSet field, and the listed DBSCANResult
+    fields of every lane."""
+    pairs = [("glabels", out_a[0], out_b[0]), ("my_map", out_a[2], out_b[2])]
+    pairs += [(f"gcs.{f}", x, y) for f, x, y in zip(ddc.ClusterSet._fields, out_a[1], out_b[1])]
+    pairs += [(f"lane{i}.{f}", getattr(ra, f), getattr(rb, f))
+              for i, (ra, rb) in enumerate(zip(trace_a["results"], trace_b["results"]))
+              for f in fields]
+    return [name for name, a, b in pairs if not same(torch, a, b)]
+
+
+def full_width_path(torch, ddc, dbscan, ops, cfg, plain_cfg, pts, mask, name: str):
+    """Drive one full-width path: zero the launch counts, run ``cfg`` with
+    the kernels, read the counts, then run ``plain_cfg`` — the same path —
+    on the plain versions and hold the two bit for bit.  Returns (outputs,
+    trace, launches, plain trace)."""
+    run = ddc.make_ddc_fn(cfg, LANES, device="cuda")
+    run(pts, mask)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tk: dict = {}
+    out_k = run(pts, mask, tk)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{name} run: phase1 {tk['phase1_s']:.4f}s phase2 {tk['phase2_s']:.4f}s "
+        f"launches {launches} paths {[p['path'] for p in tk['paths']]}")
+    ops.FORCE = "ref"
+    try:
+        tr: dict = {}
+        out_r = ddc.make_ddc_fn(plain_cfg, LANES, device="cuda")(pts, mask, tr)
+        torch.cuda.synchronize()
+    finally:
+        ops.FORCE = None
+    if ops.launch_counts() != launches:
+        raise RuntimeError(f"{name}: the plain run launched a kernel")
+    diff = differences(torch, ddc, dbscan, out_k, out_r, tk, tr, dbscan.DBSCANResult._fields)
+    if diff or tk["paths"] != tr["paths"]:
+        raise RuntimeError(f"{name}: kernel run differs from the plain run in {diff}, "
+                           f"paths {tk['paths']} vs {tr['paths']}")
+    return out_k, tk, launches, tr
+
+
+def check_output(torch, cfg, out) -> int:
+    glabels, gcs, my_map = out
+    c = cfg.max_clusters
+    if glabels.shape != (FULL_N,) or my_map.shape != (LANES * c,) \
+            or not bool(torch.isfinite(gcs.contours).all()) \
+            or int(glabels.min()) < -1 or int(glabels.max()) >= c:
+        raise RuntimeError("full-width output has the wrong shape or range")
+    n_global = int(gcs.valid.sum())
+    if n_global < 1 or bool(gcs.overflow):
+        raise RuntimeError(f"full-width run found {n_global} clusters, overflow "
+                           f"{bool(gcs.overflow)}")
+    return n_global
+
+
+def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound_by,
+                 launches, launched_in) -> dict:
+    """Hold one kernel against its plain version on the same inputs, and
+    time both."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    exact = same(torch, got, want)
+    err = float((got.double() - want.double()).abs().max())
+    if not exact:
+        raise RuntimeError(f"{name}: kernel differs from its plain version "
+                           f"(max abs err {err})")
+    entry = {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+        "shape": shape, "launches": launches, "launched_in": launched_in, "exact": exact,
+        "max_abs_err": err, "tolerance": 0.0,
+        "ms": median_ms(torch, kern, 20), "plain_ms": median_ms(torch, plain, 3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    log(json.dumps(entry))
+    return entry
+
+
+def phase1_bench(torch, np, dbscan, ops, spatial, dev) -> list[dict]:
+    """BENCH_phase1.json's scenarios on the card: committed pair counts,
+    and sparse == dense DBSCAN where the bench ran the clustering."""
+    bench = json.loads((ROOT / "BENCH_phase1.json").read_text())
+    rows = []
+    for row in bench["rows"]:
+        n, bt, eps = row["n"], row["bt"], row["eps"]
+        if row["scenario"] == "uniform":
+            pts = np.random.default_rng(0).uniform(0, 1, (n, 2)).astype(np.float32)
+        elif row["scenario"] == "clustered":
+            pts = spatial.make_clustered(n, seed=0)
+        else:
+            pts = spatial.make_worm(n, seed=0)
+        x = torch.as_tensor(pts, device=dev)
+        m = torch.ones(n, dtype=torch.bool, device=dev)
+        sp, sm, _ = dbscan.spatial_sort(x, m, bt)
+        pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+        out = {"scenario": row["scenario"], "n": n, "n_active_pairs": int(pairs.n_active),
+               "active_frac": round(float(pairs.frac), 4)}
+        if (out["n_active_pairs"], out["active_frac"]) != (row["n_active_pairs"],
+                                                           row["active_frac"]):
+            raise RuntimeError(f"phase1_bench {out}: committed {row['n_active_pairs']}, "
+                               f"{row['active_frac']}")
+        if n in BENCH_SWEEP_NS:
+            timed = {}
+            for label, kw in (("dense", dict(block_sparse="never")),
+                              ("sparse", dict(block_sparse="always", bt=bt,
+                                              dense_fallback_frac=1.0))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, path = dbscan.dbscan_traced(x, m, eps, 5, **kw)
+                torch.cuda.synchronize()
+                timed[label] = (res, path, time.perf_counter() - t0)
+            (dres, _, d_s), (sres, spath, s_s) = timed["dense"], timed["sparse"]
+            if spath["path"] != "sparse" or not same(torch, dres.labels, sres.labels) \
+                    or not same(torch, dres.core, sres.core) \
+                    or int(sres.n_clusters) != row["n_clusters"] \
+                    or int(dres.n_clusters) != row["n_clusters"]:
+                raise RuntimeError(f"phase1_bench {out}: sparse DBSCAN differs from dense "
+                                   f"or from the committed {row['n_clusters']} clusters")
+            out.update(n_clusters=int(sres.n_clusters), sweeps_sparse=int(sres.n_sweeps),
+                       sweeps_dense=int(dres.n_sweeps), sparse_s=s_s, dense_s=d_s,
+                       sparse_equals_dense=True)
+        rows.append(out)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -141,15 +282,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(json.dumps({"build_s": round(build_s, 3), "built": sorted(built)}), flush=True)
 
-    # -- 2. full width: eps search doubles as the warm-up ----------------
+    # -- 2. full width: eps search on the default configuration ----------
     pts = spatial.make_d2(FULL_N, seed=1)
     mask = np.ones(FULL_N, bool)
     eps = 0.03 * math.sqrt(2048 / FULL_N)
     eps_tried = []
     for _ in range(10):
-        cfg = ddc.DDCConfig(eps=eps, min_pts=4, schedule="sync", block_sparse="never")
-        run = ddc.make_ddc_fn(cfg, LANES, device=dev)
-        _, gcs, _ = run(pts, mask)
+        cfg = ddc.DDCConfig(eps=eps, min_pts=4, schedule="sync")
+        _, gcs, _ = ddc.make_ddc_fn(cfg, LANES, device=dev)(pts, mask)
         eps_tried.append(eps)
         log(f"eps={eps:.6f} overflow={bool(gcs.overflow)}")
         if not bool(gcs.overflow):
@@ -158,55 +298,55 @@ def main() -> int:
     else:
         raise RuntimeError(f"cluster budget overflows at every eps tried: {eps_tried}")
 
-    ops.reset_launch_counts()
-    tk: dict = {}
-    out_k = run(pts, mask, tk)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    log(f"kernel run: phase1 {tk['phase1_s']:.4f}s phase2 {tk['phase2_s']:.4f}s "
-        f"launches {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
-
-    ops.FORCE = "ref"
-    try:
-        tr: dict = {}
-        out_r = run(pts, mask, tr)
-        torch.cuda.synchronize()
-    finally:
-        ops.FORCE = None
-    if ops.launch_counts() != launches:
-        raise RuntimeError("the plain run launched a kernel")
-    mismatches = []
-    for name, a, b in [("glabels", out_k[0], out_r[0]), ("my_map", out_k[2], out_r[2])] + [
-            (f"gcs.{f}", x, y) for f, x, y in zip(ddc.ClusterSet._fields, out_k[1], out_r[1])] + [
-            (f"lane{i}.{f}", x, y)
-            for i, (rk, rr) in enumerate(zip(tk["results"], tr["results"]))
-            for f, x, y in zip(dbscan.DBSCANResult._fields, rk, rr)]:
-        if not same(torch, a, b):
-            mismatches.append(name)
-    if mismatches:
-        raise RuntimeError(f"kernel run differs from the plain run in {mismatches}")
-    glabels, gcs, my_map = out_k
+    # The default path: block-sparse DBSCAN in every lane.  "auto" takes
+    # it only where the ops launch kernels (as the reference's takes it
+    # only with its kernels), so the plain run asks for it with "always".
+    out_s, ts, launches_s, trs = full_width_path(
+        torch, ddc, dbscan, ops, cfg, dataclasses.replace(cfg, block_sparse="always"),
+        pts, mask, "sparse")
+    if [p["path"] for p in ts["paths"]] != ["sparse"] * LANES:
+        raise RuntimeError(f"the default path did not run the sparse kernels in every "
+                           f"lane: {ts['paths']}")
+    for k in ("neighbor_count_sparse", "min_label_sweep_sparse", "contour_min_d2"):
+        if launches_s[k] < 1:
+            raise RuntimeError(f"a kernel of the sparse path never launched: {launches_s}")
+    # The dense path.
+    cfg_d = dataclasses.replace(cfg, block_sparse="never")
+    out_d, td, launches_d, trd = full_width_path(torch, ddc, dbscan, ops, cfg_d, cfg_d, pts,
+                                                 mask, "dense")
+    for k in ("neighbor_count", "min_label_sweep", "contour_min_d2"):
+        if launches_d[k] < 1:
+            raise RuntimeError(f"a kernel of the dense path never launched: {launches_d}")
+    diff = differences(torch, ddc, dbscan, out_s, out_d, ts, td,
+                       ("labels", "core", "n_clusters"))
+    if diff:
+        raise RuntimeError(f"the sparse path differs from the dense path in {diff}")
+    n_global = check_output(torch, cfg, out_s)
     c = cfg.max_clusters
-    if glabels.shape != (FULL_N,) or my_map.shape != (LANES * c,) \
-            or not bool(torch.isfinite(gcs.contours).all()) \
-            or int(glabels.min()) < -1 or int(glabels.max()) >= c:
-        raise RuntimeError("full-width output has the wrong shape or range")
-    n_global = int(gcs.valid.sum())
-    if n_global < 1 or bool(gcs.overflow):
-        raise RuntimeError(f"full-width run found {n_global} clusters, overflow "
-                           f"{bool(gcs.overflow)}")
 
     # Each kernel against its plain version on the main path's inputs
     # (lane 0 for phase 1, the stacked batch for phase 2).
     per = FULL_N // LANES
+    bt = cfg.block_tile
     x0 = torch.as_tensor(pts[:per], device=dev)
     m0 = torch.ones(per, dtype=torch.bool, device=dev)
     xc = dbscan.center_points(x0, m0).contiguous()
-    res0 = tk["results"][0]
+    res0 = td["results"][0]
     lab_in = torch.where(res0.core, res0.labels, dbscan.SENTINEL).to(torch.int32)
-    batch = tk["batch"]
+    sp, sm, order = dbscan.spatial_sort(xc, m0, bt)
+    sp, sm = sp.contiguous(), sm.contiguous()
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    npad = sp.shape[0]
+    core_s = ts["results"][0].core[order].contiguous()
+    lab_s = torch.where(core_s, torch.arange(npad, dtype=torch.int32, device=dev),
+                        dbscan.SENTINEL).to(torch.int32)
+    n_act = int(pairs.n_active)
+    per_tile = sm.reshape(-1, bt).sum(dim=1, dtype=torch.int64)
+    sparse_tests = int((per_tile[pairs.rows[:n_act].long()]
+                        * per_tile[pairs.cols[:n_act].long()]).sum())
+    t_tiles = npad // bt
+    pair_bytes = (t_tiles + 1) * 4 + n_act * 4
+    batch = ts["batch"]
     mslots = LANES * c
     v = cfg.max_verts
     conts = batch.contours.reshape(mslots, v, 2).contiguous()
@@ -214,71 +354,94 @@ def main() -> int:
     valids = batch.valid.reshape(mslots).contiguous()
     n_valid = int(m0.sum())
     p_valid = int(torch.where(valids, cnts.clamp(0, v), 0).sum())
+    nc_src, pd = "pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py"
     cases = [
-        ("neighbor_count", "pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:91",
-         [per], lambda: ops.neighbor_count(xc, m0, eps),
-         lambda: ref.neighbor_count(xc, m0, eps),
-         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4))),
-        ("min_label_sweep", "pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py:147",
-         [per], lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps),
+        ("neighbor_count", nc_src, f"{pd}:91", [per],
+         lambda: ops.neighbor_count(xc, m0, eps), lambda: ref.neighbor_count(xc, m0, eps),
+         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4)), launches_d, "dense"),
+        ("min_label_sweep", nc_src, f"{pd}:147", [per],
+         lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps),
          lambda: ref.min_label_sweep(xc, m0, lab_in, res0.core, eps),
-         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4 + 1 + 4))),
+         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4 + 1 + 4)), launches_d,
+         "dense"),
+        ("neighbor_count_sparse", nc_src, f"{pd}:222", [npad, bt, n_act],
+         lambda: ops.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt),
+         lambda: ref.neighbor_count_sparse(sp, sm, eps, pairs.rows, pairs.cols, pairs.flags,
+                                           bt),
+         bound(sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4) + pair_bytes), launches_s,
+         "sparse"),
+        ("min_label_sweep_sparse", nc_src, f"{pd}:289", [npad, bt, n_act],
+         lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt),
+         lambda: ref.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs.rows,
+                                            pairs.cols, pairs.flags, bt),
+         bound(sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4 + 1 + 4) + pair_bytes),
+         launches_s, "sparse"),
         ("contour_min_d2", "contour_dist.cu", "src/repro/kernels/contour_dist.py:52",
          [mslots, v], lambda: ops.contour_min_d2(conts, cnts, valids),
          lambda: ref.contour_min_d2(conts, cnts, valids),
          bound(p_valid ** 2 * CMD2_OPS_PER_PAIR,
-               mslots * v * 8 + mslots * (4 + 1) + mslots * mslots * 4)),
+               mslots * v * 8 + mslots * (4 + 1) + mslots * mslots * 4), launches_s, "sparse"),
     ]
-    kernels = []
-    for name, src, replaces, shape, kern, plain, (bound_ms, bound_by) in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        exact = same(torch, got, want)
-        err = float((got.double() - want.double()).abs().max())
-        if not exact:
-            raise RuntimeError(f"{name}: kernel differs from its plain version "
-                               f"(max abs err {err})")
-        entry = {
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "shape": shape, "launches": launches[name], "exact": exact,
-            "max_abs_err": err, "tolerance": 0.0,
-            "ms": median_ms(torch, kern, 20), "plain_ms": median_ms(torch, plain, 3),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        }
-        log(json.dumps(entry))
-        kernels.append(entry)
+    kernels = [kernel_entry(torch, name, src, replaces, shape, kern, plain, b_ms, b_by,
+                            launches[name], path)
+               for name, src, replaces, shape, kern, plain, (b_ms, b_by), launches, path
+               in cases]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"profile": profile_main_path(torch, run, pts, mask, tk)}), flush=True)
+    run = ddc.make_ddc_fn(cfg, LANES, device=dev)
+    print(json.dumps({"profile": profile_main_path(torch, run, pts, mask, ts)}), flush=True)
 
-    # -- 3. oracle parity at the tuned 2048-point sizes --------------------
+    # -- 3. BENCH_phase1.json's scenarios ----------------------------------
+    bench_rows = phase1_bench(torch, np, dbscan, ops, spatial, dev)
+    print(json.dumps({"phase1_bench": bench_rows}), flush=True)
+
+    # -- 4. oracle parity at the tuned 2048-point sizes --------------------
     clusters: dict[str, list[int]] = {}
+    auto_paths: dict[str, int] = {}
     for name, (make, p_eps, min_pts, grid, max_verts, max_clusters) in \
             spatial.PARITY_CASES.items():
         lpts = make()
-        for k in PARITY_SHARDS:
-            pcfg = ddc.DDCConfig(eps=p_eps, min_pts=min_pts, grid=grid,
-                                 max_verts=max_verts, max_clusters=max_clusters,
-                                 schedule="sync", block_sparse="never")
-            gl, pgcs, _ = ddc.make_ddc_fn(pcfg, k, device=dev)(lpts, np.ones(len(lpts), bool))
-            host, _, _ = ddc.ddc_host(lpts, k, p_eps, min_pts, contour="grid")
-            if bool(pgcs.overflow) or not ddc.same_clustering(gl.cpu().numpy(), host):
-                raise RuntimeError(f"parity {name} k={k}: port differs from ddc_host "
-                                   f"(overflow {bool(pgcs.overflow)})")
-            clusters.setdefault(name, []).append(len(set(host[host >= 0].tolist())))
-    print(json.dumps({"parity": {"shards": list(PARITY_SHARDS), "all_same_clustering": True,
-                                 "clusters": clusters}}), flush=True)
+        host = {k: ddc.ddc_host(lpts, k, p_eps, min_pts, contour="grid")[0]
+                for k in PARITY_SHARDS}
+        for block_sparse in ("never", "auto"):
+            for k in PARITY_SHARDS:
+                pcfg = ddc.DDCConfig(eps=p_eps, min_pts=min_pts, grid=grid,
+                                     max_verts=max_verts, max_clusters=max_clusters,
+                                     schedule="sync", block_sparse=block_sparse)
+                ptrace: dict = {}
+                gl, pgcs, _ = ddc.make_ddc_fn(pcfg, k, device=dev)(
+                    lpts, np.ones(len(lpts), bool), ptrace)
+                if bool(pgcs.overflow) or not ddc.same_clustering(gl.cpu().numpy(), host[k]):
+                    raise RuntimeError(f"parity {name} k={k} {block_sparse}: port differs "
+                                       f"from ddc_host (overflow {bool(pgcs.overflow)})")
+                if block_sparse == "auto":
+                    for p in ptrace["paths"]:
+                        auto_paths[p["path"]] = auto_paths.get(p["path"], 0) + 1
+                else:
+                    clusters.setdefault(name, []).append(
+                        len(set(host[k][host[k] >= 0].tolist())))
+    print(json.dumps({"parity": {"shards": list(PARITY_SHARDS),
+                                 "block_sparse": ["never", "auto"],
+                                 "all_same_clustering": True, "clusters": clusters,
+                                 "auto_lane_paths": auto_paths}}), flush=True)
 
-    # -- 4. the full-width numbers, then the contract line -----------------
+    # -- 5. the full-width numbers, then the contract line -----------------
+    def path_numbers(trace, plain, launches):
+        return {"phase1_s": trace["phase1_s"], "phase2_s": trace["phase2_s"],
+                "plain_phase1_s": plain["phase1_s"], "plain_phase2_s": plain["phase2_s"],
+                "sweeps_per_lane": [int(r.n_sweeps) for r in trace["results"]],
+                "lane_paths": [p["path"] for p in trace["paths"]],
+                "lane_n_active": [p["n_active"] for p in trace["paths"]],
+                "lane_frac": [p["frac"] for p in trace["paths"]],
+                "launches": launches, "bit_identical_to_plain": True}
+
     print(json.dumps({"full_width": {
         "n": FULL_N, "lanes": LANES, "eps": eps, "eps_tried": eps_tried,
         "min_pts": cfg.min_pts, "grid": cfg.grid, "max_clusters": c,
-        "max_verts": v, "phase1_s": tk["phase1_s"], "phase2_s": tk["phase2_s"],
-        "plain_phase1_s": tr["phase1_s"], "plain_phase2_s": tr["phase2_s"],
-        "sweeps_per_lane": [int(r.n_sweeps) for r in tk["results"]],
-        "lane_clusters": [int(r.n_clusters) for r in tk["results"]],
-        "n_clusters": n_global, "launches": launches,
-        "bit_identical_to_plain": True}}), flush=True)
+        "max_verts": v, "block_tile": bt,
+        "lane_clusters": [int(r.n_clusters) for r in ts["results"]],
+        "n_clusters": n_global, "sparse_equals_dense": True,
+        "sparse": path_numbers(ts, trs, launches_s),
+        "dense": path_numbers(td, trd, launches_d)}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

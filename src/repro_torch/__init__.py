@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the DDC reproduction (the JAX package ``repro``
 is the reference it is held against).
 
-- core: dense DBSCAN, grid contours, the batched phase-2 merge, the
+- core: DBSCAN (dense and block-sparse), grid contours, the batched phase-2 merge, the
   one-device DDC pipeline (``core.ddc.make_ddc_fn``) and the NumPy oracles
 - kernels: hand-written CUDA kernels for Hopper with plain PyTorch versions
 - data: NumPy copies of the synthetic spatial generators

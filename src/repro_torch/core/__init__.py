@@ -1,8 +1,10 @@
 """DDC — the paper's contribution, on one device.
 
-- dbscan: dense DBSCAN on the fused kernels, and the NumPy oracle
+- dbscan: DBSCAN on the fused kernels (dense and block-sparse paths), and
+  the NumPy oracle
+- partitioner: the Morton code that orders the block-sparse path
 - geometry: grid contours (the 1–2 % reduction) + NumPy overlap oracles
 - ddc: ClusterSet buffers, local phase, batched merge, the one-device
   sync pipeline, host oracle
 """
-from . import dbscan, ddc, geometry  # noqa: F401
+from . import dbscan, ddc, geometry, partitioner  # noqa: F401

@@ -1,20 +1,28 @@
 """DBSCAN — the paper's local clustering algorithm, in two forms.
 
 * ``dbscan_ref`` — classic BFS DBSCAN in NumPy (the oracle).
-* ``dbscan`` — the dense device version: ε-neighbour counts and
-  min-label propagation sweeps run in the fused kernels of
+* ``dbscan`` — the device version: ε-neighbour counts and min-label
+  propagation sweeps run in the fused kernels of
   ``kernels/pairwise_dist``, and labels converge by fixed-point
   iteration in a host loop, with pointer-doubling shortcut steps after
   every sweep so convergence takes O(log n) sweeps.
+
+``dbscan`` has two paths, bit-identical to each other and to the
+reference's:
+
+* **dense** — every point pair is tested;
+* **block-sparse** (``block_sparse``) — points are sorted by Morton code
+  so ε-neighbours land in nearby tiles, per-tile bounding boxes prune
+  the tile pairs that are provably farther than ε apart, and the sweeps
+  run the sparse kernels over the active pairs only (the dense kernels
+  on the sorted points when more than ``dense_fallback_frac`` of the
+  pairs are active).  Labels come back in caller order.
 
 Semantics (both): a point is *core* iff its ε-neighbourhood (self
 included) has >= min_pts points.  Core points within ε of each other
 share a cluster; border points adopt the smallest neighbouring core
 label; everything else is noise (-1).  Labels are the smallest point
-index of each cluster's core set, so the two forms agree exactly.
-
-Only the dense path exists here: the block-sparse path (Morton sort and
-active tile-pair kernels) is not ported, and asking for it raises.
+index of each cluster's core set, so all forms agree exactly.
 """
 from __future__ import annotations
 
@@ -24,10 +32,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import partitioner
 from repro_torch.kernels import ops
 
 NOISE = -1
 SENTINEL = 2**30
+
+# Dense fallback of the block-sparse path: when more than this fraction of
+# tile pairs is active, the sweeps use the dense kernels on the sorted
+# points instead (same math, same results).
+DENSE_FALLBACK_FRAC = 0.5
 
 
 def dbscan_ref(points: np.ndarray, eps: float, min_pts: int) -> np.ndarray:
@@ -117,20 +131,34 @@ def center_points(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(m, points - center, 0.0)
 
 
-def _check_block_sparse(block_sparse: str, points: torch.Tensor, bt: int) -> None:
+def spatial_sort(points: torch.Tensor, mask: torch.Tensor, bt: int):
+    """Block-sparse preamble: pad to a ``bt`` multiple and Morton-sort.
+
+    Bounds of the Morton grid come from masked points only, and masked or
+    padding rows get code 2**30, so they sort to the tail tiles.  The sort
+    is stable, as the reference's, so tied codes keep their order.
+    Returns (sorted_points, sorted_mask, order (npad,) int64)."""
+    n = points.shape[0]
+    pad = (-n) % bt
+    pp = torch.cat([points.to(torch.float32), points.new_zeros((pad, 2), dtype=torch.float32)])
+    mm = torch.cat([mask, mask.new_zeros(pad)])
+    lo = torch.where(mm[:, None], pp, 3.4e38).amin(dim=0)
+    hi = torch.where(mm[:, None], pp, -3.4e38).amax(dim=0)
+    code = partitioner.morton_code(pp, bounds=(lo[0], lo[1], hi[0], hi[1]))
+    code = torch.where(mm, code, SENTINEL)
+    order = torch.argsort(code, stable=True)
+    return pp[order], mm[order], order
+
+
+def _use_block_sparse(block_sparse: str, points: torch.Tensor, bt: int) -> bool:
     if block_sparse not in ("never", "auto", "always"):
         raise ValueError(f"block_sparse must be never|auto|always, got {block_sparse!r}")
-    # "auto" takes the sparse path with a kernel backend and at least two
-    # tiles of points, exactly where the reference takes it; off the GPU
-    # it is the dense path.
-    sparse = block_sparse == "always" or (
+    # "auto" takes the sparse path with the GPU kernels and at least two
+    # tiles of points, exactly where the reference takes it with its
+    # kernels, so that each package's plain run takes the other's path.
+    return block_sparse == "always" or (
         block_sparse == "auto" and points.shape[0] >= 2 * bt
         and ops.use_gpu_kernels(points))
-    if sparse:
-        raise NotImplementedError(
-            "block-sparse DBSCAN is not ported yet: it needs the "
-            "neighbor_count_sparse and min_label_sweep_sparse kernels and "
-            "spatial_sort/build_tile_pairs; pass block_sparse='never'")
 
 
 def dbscan(
@@ -143,25 +171,44 @@ def dbscan(
     block_sparse: str = "auto",
     bt: int = 512,
     pointer_doubling: bool = True,
+    dense_fallback_frac: float = DENSE_FALLBACK_FRAC,
 ) -> DBSCANResult:
-    """Dense DBSCAN on a padded point buffer.
+    """DBSCAN on a padded point buffer.
 
     points: (n, 2) float32; mask: (n,) bool (padding excluded everywhere),
     both on the device the work runs on.  Label propagation:
     L_i <- min(L_i, min_{j in N(i) ∩ core} L_j) for core i, iterated to a
     fixed point with ``ceil(log2 n)`` pointer-doubling steps after each
-    sweep.  ``block_sparse`` is accepted for the reference's signature;
-    see ``_check_block_sparse``.
+    sweep.
+
+    ``block_sparse``: "never" | "auto" | "always".  "always" takes the
+    block-sparse path on any device; "auto" takes it for n >= 2·``bt``
+    when the ops launch GPU kernels.  ``bt`` is its tile size;
+    ``dense_fallback_frac`` its dense fallback threshold.
     """
-    _check_block_sparse(block_sparse, points, bt)
-    points = points.to(torch.float32)
+    return dbscan_traced(points, mask, eps, min_pts, max_iters, block_sparse=block_sparse,
+                         bt=bt, pointer_doubling=pointer_doubling,
+                         dense_fallback_frac=dense_fallback_frac)[0]
+
+
+def dbscan_traced(points: torch.Tensor, mask: torch.Tensor, eps: float, min_pts: int,
+                  max_iters: int = 512, *, block_sparse: str = "auto", bt: int = 512,
+                  pointer_doubling: bool = True,
+                  dense_fallback_frac: float = DENSE_FALLBACK_FRAC):
+    """``dbscan`` that also says which path ran: returns (DBSCANResult,
+    {"path": "dense" | "sparse" | "dense_fallback", "n_active": int or
+    None, "frac": float or None}) — the last two from the tile-pair list
+    of the block-sparse path."""
+    sparse = _use_block_sparse(block_sparse, points, bt)
     n = points.shape[0]
-    dev = points.device
-    points = center_points(points, mask).contiguous()
+    points = center_points(points.to(torch.float32), mask).contiguous()
     mask = mask.contiguous()
     doubling_steps = max(1, math.ceil(math.log2(max(n, 2)))) if pointer_doubling else 0
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-
+    if sparse:
+        return _dbscan_block_sparse(points, mask, eps, min_pts, max_iters, bt=bt,
+                                    doubling_steps=doubling_steps,
+                                    dense_fallback_frac=dense_fallback_frac)
+    idx = torch.arange(n, dtype=torch.int32, device=points.device)
     counts = ops.neighbor_count(points, mask, eps)
     core = (counts >= min_pts) & mask
     init = torch.where(core, idx, SENTINEL)
@@ -174,13 +221,68 @@ def dbscan(
     swept = ops.min_label_sweep(points, mask, labels, core, eps)
     labels = torch.where(core, labels, swept)
     labels = torch.where(mask & (labels < SENTINEL), labels, SENTINEL)
+    path = {"path": "dense", "n_active": None, "frac": None}
+    return _result(labels, core, idx, n_sweeps), path
 
-    # Clusters: core points that are their own label.
-    is_root = core & (labels == idx)
-    n_clusters = is_root.sum(dtype=torch.int32)
+
+def _result(labels, core, idx, n_sweeps: int) -> DBSCANResult:
+    """Count the clusters (core points that are their own label) and mark
+    noise; labels and core in caller order."""
+    n_clusters = (core & (labels == idx)).sum(dtype=torch.int32)
     labels = torch.where(labels == SENTINEL, NOISE, labels)
     return DBSCANResult(labels, core, n_clusters,
-                        torch.tensor(n_sweeps, dtype=torch.int32, device=dev))
+                        torch.tensor(n_sweeps, dtype=torch.int32, device=labels.device))
+
+
+def _dbscan_block_sparse(points, mask, eps, min_pts: int, max_iters: int, *, bt: int,
+                         doubling_steps: int, dense_fallback_frac: float):
+    """Morton sort → bbox tile pruning → sparse sweeps → canonicalise →
+    inverse permutation, on centred points.  The dense fallback is decided
+    once, on the host, from the active fraction."""
+    n = points.shape[0]
+    sp, sm, order = spatial_sort(points, mask, bt)
+    npad = sp.shape[0]
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    frac = float(pairs.frac)
+    # Compared in float32, as the reference compares its float32 frac.
+    use_sparse = frac <= float(np.float32(dense_fallback_frac))
+    if use_sparse:
+        counts = ops.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt)
+        sweep = lambda l, c: ops.min_label_sweep_sparse(sp, sm, l, c, eps, pairs, bt=bt)
+    else:
+        counts = ops.neighbor_count(sp, sm, eps)
+        sweep = lambda l, c: ops.min_label_sweep(sp, sm, l, c, eps)
+    core = (counts >= min_pts) & sm
+    sidx = torch.arange(npad, dtype=torch.int32, device=sp.device)
+    init = torch.where(core, sidx, SENTINEL)
+    labels, n_sweeps = _propagate(lambda l: sweep(l, core), init, core, max_iters,
+                                  doubling_steps)
+
+    # Canonicalise: converged labels hold the min *sorted* index of each
+    # cluster; remap every cluster to its min ORIGINAL index so labels (and
+    # the border tie-break below) match the dense path bit for bit.  Core
+    # labels are sorted indices < npad, so every root index is in range.
+    orig = order.to(torch.int32)
+    root = torch.where(core, labels, 0).long()
+    min_orig = torch.full((npad,), SENTINEL, dtype=torch.int32, device=sp.device)
+    min_orig.scatter_reduce_(0, root, torch.where(core, orig, SENTINEL), "amin",
+                             include_self=True)
+    canon = torch.where(core, min_orig[root], SENTINEL)
+
+    # Border points: min canonical core-neighbour label.
+    swept = sweep(canon, core)
+    labels_s = torch.where(core, canon, swept)
+    labels_s = torch.where(sm & (labels_s < SENTINEL), labels_s, SENTINEL)
+
+    # Inverse permutation (order is a permutation of npad): caller order.
+    labels = torch.empty_like(labels_s)
+    labels[order] = labels_s
+    core_o = torch.empty_like(core)
+    core_o[order] = core
+    idx = torch.arange(n, dtype=torch.int32, device=sp.device)
+    path = {"path": "sparse" if use_sparse else "dense_fallback",
+            "n_active": int(pairs.n_active), "frac": frac}
+    return _result(labels[:n], core_o[:n], idx, n_sweeps), path
 
 
 def relabel_dense(labels: torch.Tensor, max_clusters: int) -> torch.Tensor:

@@ -145,12 +145,13 @@ def _check_cfg(cfg: DDCConfig) -> None:
 
 
 def _local_phase(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig):
-    """``local_phase`` that also returns the shard's DBSCANResult."""
+    """``local_phase`` that also returns the shard's DBSCANResult and the
+    DBSCAN path it took (``dbscan_traced``)."""
     _check_cfg(cfg)
     c = cfg.max_clusters
     dev = points.device
-    res = dbscan_mod.dbscan(points, mask, cfg.eps, cfg.min_pts,
-                            block_sparse=cfg.block_sparse, bt=cfg.block_tile)
+    res, path = dbscan_mod.dbscan_traced(points, mask, cfg.eps, cfg.min_pts,
+                                         block_sparse=cfg.block_sparse, bt=cfg.block_tile)
     dense = dbscan_mod.relabel_dense(res.labels, c)
     sizes = torch.zeros((c,), dtype=torch.int32, device=dev)
     sizes.index_add_(0, dense.clamp(min=0).long(), (dense >= 0).to(torch.int32))
@@ -166,7 +167,7 @@ def _local_phase(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig):
         valid=valid,
         overflow=res.n_clusters > c,
     )
-    return res, dense, cs
+    return res, dense, cs, path
 
 
 def local_phase(points: torch.Tensor, mask: torch.Tensor,
@@ -174,7 +175,7 @@ def local_phase(points: torch.Tensor, mask: torch.Tensor,
     """Cluster a shard's points and reduce them to contours, on the
     device the tensors lie on.  Returns (dense local labels (n,) i32,
     ClusterSet).  Zero communication."""
-    _, dense, cs = _local_phase(points, mask, cfg)
+    _, dense, cs, _ = _local_phase(points, mask, cfg)
     return dense, cs
 
 
@@ -314,7 +315,9 @@ def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda"):
     merges the stacked lanes' ClusterSets with one ``merge_many``, and
     returns (global labels (N,) i32, global ClusterSet, local→global slot
     map (shards·C,) i32) — the reference's shapes.  A ``trace`` dict is
-    filled with the per-lane DBSCANResults and ClusterSets and the wall
+    filled with the per-lane DBSCANResults, dense labels and DBSCAN paths
+    (``paths``: {"path": "dense" | "sparse" | "dense_fallback",
+    "n_active", "frac"} per lane), the stacked ClusterSets and the wall
     time of each phase.
     """
     dev = torch.device(device)
@@ -341,18 +344,20 @@ def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda"):
         lanes = [_local_phase(points[i * per:(i + 1) * per],
                               mask[i * per:(i + 1) * per], cfg)
                  for i in range(shards)]
-        batch = stack_clustersets([cs for _, _, cs in lanes])
+        batch = stack_clustersets([cs for _, _, cs, _ in lanes])
         _sync(dev)
         t1 = time.perf_counter()
         gcs, maps = merge_many(batch, cfg)
         my_map = torch.where(batch.valid, maps, -1)                  # (K, C)
         glabels = torch.cat([
             torch.where(dense >= 0, my_map[i][dense.clamp(min=0).long()], -1)
-            for i, (_, dense, _) in enumerate(lanes)])
+            for i, (_, dense, _, _) in enumerate(lanes)])
         _sync(dev)
         t2 = time.perf_counter()
         if trace is not None:
-            trace.update(results=[r for r, _, _ in lanes], dense=[d for _, d, _ in lanes],
+            trace.update(results=[lane[0] for lane in lanes],
+                         dense=[lane[1] for lane in lanes],
+                         paths=[lane[3] for lane in lanes],
                          batch=batch, phase1_s=t1 - t0, phase2_s=t2 - t1)
         return glabels.to(torch.int32), gcs, my_map.reshape(-1)
 

@@ -1,4 +1,5 @@
-"""Public kernel entry points, dispatched by the device of the tensors.
+"""Public kernel entry points, dispatched by the device of the tensors,
+and the active tile-pair list of the block-sparse phase 1.
 
 A CUDA tensor goes to the hand-written CUDA kernel, a CPU tensor to the
 plain version in ``ref``.  Nothing probes for a GPU: where a tensor lies
@@ -11,11 +12,15 @@ to run the same path without the kernels on the card).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import contour_dist as _cd
 from . import pairwise_dist as _pd
 from . import ref
+from .ref import PAIR_FIRST, PAIR_VALID
 
 FORCE: str | None = None
 
@@ -46,6 +51,93 @@ def contour_min_d2(contours: torch.Tensor, counts: torch.Tensor,
     if FORCE == "ref":
         return ref.contour_min_d2(contours, counts, valid)
     return _cd.contour_min_d2(contours, counts, valid)
+
+
+# -- block-sparse spatial pruning (DDC phase 1) ------------------------------
+
+
+class TilePairs(NamedTuple):
+    """Active tile-pair list of spatially sorted points, in the reference's
+    static layout.
+
+    rows/cols/flags: (T²,) int32 — active pairs first, in row-major order,
+    the tail repeating the last active pair with flags 0; flags bit0 =
+    PAIR_VALID (a real pair), bit1 = PAIR_FIRST (first pair of its row
+    tile).  row_ptr (T + 1,) int32: CSR offsets of each row tile's run in
+    that list, for the kernels' launch.  n_active: () int32; frac: () f32,
+    n_active / T²."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    flags: torch.Tensor
+    n_active: torch.Tensor
+    frac: torch.Tensor
+    row_ptr: torch.Tensor
+
+
+def build_tile_pairs(x: torch.Tensor, mask: torch.Tensor, eps, *, bt: int = 512) -> TilePairs:
+    """Bounding-box pruning over ``bt``-point tiles of spatially sorted x.
+
+    A tile pair is *active* when the min distance between the two tiles'
+    bounding boxes (masked points only) is <= eps — every within-eps
+    point pair lies in an active pair, so skipping the others is exact.
+    Diagonal pairs are always active, so every row tile has a run.  The
+    box gap's squared length is float32 fma(g1, g1, g0·g0), the form the
+    jitted reference computes (XLA contracts its gap·gap sum), and frac
+    is its float32 n_active · (1 / T²).  Needs no host sync."""
+    n = x.shape[0]
+    if bt <= 0 or n % bt:
+        raise ValueError(f"n = {n} is not a multiple of the tile size bt = {bt}")
+    t = n // bt
+    dev = x.device
+    xb = x.to(torch.float32).reshape(t, bt, 2)
+    mb = mask.reshape(t, bt, 1)
+    lo = torch.where(mb, xb, 3.4e38).amin(dim=1)                 # (T, 2)
+    hi = torch.where(mb, xb, -3.4e38).amax(dim=1)
+    has_pts = mb.any(dim=1)[:, 0]
+    gap = torch.maximum(lo[:, None, :] - hi[None, :, :],
+                        lo[None, :, :] - hi[:, None, :]).clamp_min(0.0)
+    gap_d2 = ref.fma_f32(gap[..., 1], gap[..., 1], gap[..., 0] * gap[..., 0])
+    eps_sq = torch.tensor(ref.eps_sq_f32(eps), dtype=torch.float32, device=dev)
+    active = (gap_d2 <= eps_sq) & has_pts[:, None] & has_pts[None, :]
+    active |= torch.eye(t, dtype=torch.bool, device=dev)
+    per_row = active.sum(dim=1, dtype=torch.int32)
+    row_ptr = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0, dtype=torch.int32)])
+    n_active = row_ptr[-1]
+    # Active flat indices first, in row-major order (a stable sort keeps
+    # it, and needs no host sync); the tail repeats the last active pair.
+    p = t * t
+    idx = torch.argsort((~active.reshape(p)).to(torch.uint8), stable=True).to(torch.int32)
+    is_real = torch.arange(p, dtype=torch.int32, device=dev) < n_active
+    last = idx[(n_active - 1).clamp_min(0).long()]
+    idx = torch.where(is_real, idx, last)
+    rows, cols = idx // t, idx % t
+    first = is_real & torch.cat([is_real.new_ones(1), rows[1:] != rows[:-1]])
+    flags = is_real.to(torch.int32) * PAIR_VALID | first.to(torch.int32) * PAIR_FIRST
+    # n_active / T² as the jitted reference computes it: XLA folds the
+    # division by a constant into a multiply by its float32 reciprocal.
+    inv = torch.tensor(np.float32(1.0) / np.float32(p), dtype=torch.float32, device=dev)
+    frac = n_active.to(torch.float32) * inv
+    return TilePairs(rows, cols, flags, n_active, frac, row_ptr)
+
+
+def neighbor_count_sparse(x: torch.Tensor, mask: torch.Tensor, eps, pairs: TilePairs,
+                          *, bt: int = 512) -> torch.Tensor:
+    """Block-sparse ``neighbor_count`` over spatially sorted points; n must
+    be a multiple of ``bt`` (the dbscan path sorts and pads)."""
+    if FORCE == "ref":
+        return ref.neighbor_count_sparse(x, mask, eps, pairs.rows, pairs.cols,
+                                         pairs.flags, bt)
+    return _pd.neighbor_count_sparse(x, mask, eps, pairs, bt=bt)
+
+
+def min_label_sweep_sparse(x, mask, labels, core, eps, pairs: TilePairs, *,
+                           bt: int = 512) -> torch.Tensor:
+    """Block-sparse ``min_label_sweep`` over spatially sorted points."""
+    if FORCE == "ref":
+        return ref.min_label_sweep_sparse(x, mask, labels, core, eps, pairs.rows,
+                                          pairs.cols, pairs.flags, bt)
+    return _pd.min_label_sweep_sparse(x, mask, labels, core, eps, pairs, bt=bt)
 
 
 def launch_counts() -> dict[str, int]:

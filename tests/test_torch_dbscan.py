@@ -118,7 +118,10 @@ def test_block_sparse_options():
     never = tdb.dbscan(pts, mask, 0.05, 5, block_sparse="never")
     for a, b in zip(auto, never):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tdb.dbscan(pts, mask, 0.05, 5, block_sparse="always")
+    # "always" takes the block-sparse path on any device, bit-identical to
+    # the dense path but for the sweep count.
+    always = tdb.dbscan(pts, mask, 0.05, 5, block_sparse="always")
+    for a, b in zip(always[:3], never[:3]):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tdb.dbscan(pts, mask, 0.05, 5, block_sparse="sometimes")

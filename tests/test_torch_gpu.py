@@ -14,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ddc  # noqa: E402
+from repro_torch.core import dbscan, ddc  # noqa: E402
 from repro_torch.data import spatial  # noqa: E402
 from repro_torch.kernels import contour_dist, ops, pairwise_dist, ref  # noqa: E402
 
@@ -70,6 +70,81 @@ def test_contour_min_d2(cuda, m, v):
     assert torch.equal(got, want)
 
 
+def _sorted_on_card(layout, n, bt, seed, cuda, empty_tile=False):
+    rng = np.random.default_rng(seed)
+    if layout == "one_cell":  # every tile pair active: frac = 1
+        pts = (0.5 + rng.normal(0, 0.001, (n, 2))).astype(np.float32)
+    elif layout == "clustered":
+        pts = spatial.make_clustered(n, seed=seed)
+    else:
+        pts = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    # Ragged: masked rows in every tile.  They sort to the tail, so one_cell
+    # masks fewer than a tile's worth, or whole tail tiles would be empty
+    # and their pairs inactive.
+    mask = rng.random(n) > (0.02 if layout == "one_cell" else 0.2)
+    if empty_tile:
+        mask[-bt:] = False  # after the sort, the last tile holds only masked rows
+    x, m = torch.as_tensor(pts, device=cuda), torch.as_tensor(mask, device=cuda)
+    sp, sm, _ = dbscan.spatial_sort(dbscan.center_points(x, m), m, bt)
+    return sp.contiguous(), sm.contiguous()
+
+
+SPARSE_CASES = [("clustered", 4096, 64, 0.02, False), ("clustered", 4096, 128, 0.03, True),
+                ("random", 8192, 512, 0.01, False), ("clustered", 32768, 512, 0.005, True),
+                ("one_cell", 2048, 128, 0.01, False), ("random", 1000, 64, 0.05, True)]
+
+
+@pytest.mark.parametrize("layout,n,bt,eps,empty_tile", SPARSE_CASES)
+def test_neighbor_count_sparse(cuda, layout, n, bt, eps, empty_tile):
+    sp, sm = _sorted_on_card(layout, n, bt, n + bt, cuda, empty_tile)
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    if layout == "one_cell":
+        assert float(pairs.frac) == 1.0
+    before = pairwise_dist.launches["neighbor_count_sparse"]
+    got = pairwise_dist.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt)
+    assert pairwise_dist.launches["neighbor_count_sparse"] == before + 1
+    want = ref.neighbor_count_sparse(sp, sm, eps, pairs.rows, pairs.cols, pairs.flags, bt)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.neighbor_count(sp, sm, eps))
+
+
+@pytest.mark.parametrize("layout,n,bt,eps,empty_tile", SPARSE_CASES)
+def test_min_label_sweep_sparse(cuda, layout, n, bt, eps, empty_tile):
+    sp, sm = _sorted_on_card(layout, n, bt, n + bt + 1, cuda, empty_tile)
+    npad = sp.shape[0]
+    rng = np.random.default_rng(npad)
+    labels = torch.as_tensor(rng.integers(0, npad, npad).astype(np.int32), device=cuda)
+    labels[::7] = ref.SENTINEL
+    core = torch.as_tensor(rng.random(npad) > 0.5, device=cuda)
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    got = pairwise_dist.min_label_sweep_sparse(sp, sm, labels, core, eps, pairs, bt=bt)
+    want = ref.min_label_sweep_sparse(sp, sm, labels, core, eps, pairs.rows, pairs.cols,
+                                      pairs.flags, bt)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.min_label_sweep(sp, sm, labels, core, eps))
+
+
+def test_sparse_kernels_reject_bad_inputs(cuda):
+    sp, sm = _sorted_on_card("clustered", 1024, 64, 3, cuda)
+    pairs = ops.build_tile_pairs(sp, sm, 0.02, bt=64)
+    lab = torch.arange(1024, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # n not a multiple of bt
+        pairwise_dist.neighbor_count_sparse(sp[:1000].contiguous(), sm[:1000].contiguous(),
+                                            0.02, pairs, bt=64)
+    with pytest.raises(ValueError):  # bt not a multiple of 32
+        pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, ops.build_tile_pairs(
+            sp, sm, 0.02, bt=16), bt=16)
+    with pytest.raises(ValueError):  # the pair list of another tiling
+        pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, pairs, bt=128)
+    with pytest.raises(ValueError):  # wrong dtypes
+        pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, pairs._replace(
+            row_ptr=pairs.row_ptr.long()), bt=64)
+    with pytest.raises(ValueError):
+        pairwise_dist.min_label_sweep_sparse(sp, sm, lab.long(), sm, 0.02, pairs, bt=64)
+    with pytest.raises(ValueError):
+        pairwise_dist.min_label_sweep_sparse(sp.double(), sm, lab, sm, 0.02, pairs, bt=64)
+
+
 def test_kernels_reject_bad_inputs(cuda):
     x = torch.zeros((8, 3), device=cuda)
     mask = torch.ones(8, dtype=torch.bool, device=cuda)
@@ -89,7 +164,26 @@ def test_make_ddc_fn_card_equals_cpu(cuda):
     mask = np.ones(len(pts), bool)
     ops.reset_launch_counts()
     on_card = ddc.make_ddc_fn(cfg, 4)(pts, mask)
-    assert all(v > 0 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("neighbor_count", "min_label_sweep", "contour_min_d2"))
     on_cpu = ddc.make_ddc_fn(cfg, 4, device="cpu")(pts, mask)
+    for a, b in zip((on_card[0], *on_card[1], on_card[2]), (on_cpu[0], *on_cpu[1], on_cpu[2])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_make_ddc_fn_default_config_card_equals_cpu(cuda):
+    """The default configuration ("auto") takes the block-sparse path on
+    the card and the dense path on the CPU; the two are bit-identical."""
+    pts = spatial.make_clustered(8192, seed=0)
+    mask = np.ones(len(pts), bool)
+    cfg = ddc.DDCConfig(eps=0.02, min_pts=5, schedule="sync")
+    ops.reset_launch_counts()
+    trace: dict = {}
+    on_card = ddc.make_ddc_fn(cfg, 2)(pts, mask, trace)
+    counts = ops.launch_counts()
+    assert [p["path"] for p in trace["paths"]] == ["sparse", "sparse"]
+    assert counts["neighbor_count_sparse"] == 2 and counts["min_label_sweep_sparse"] > 2
+    assert counts["neighbor_count"] == counts["min_label_sweep"] == 0
+    on_cpu = ddc.make_ddc_fn(cfg, 2, device="cpu")(pts, mask)
     for a, b in zip((on_card[0], *on_card[1], on_card[2]), (on_cpu[0], *on_cpu[1], on_cpu[2])):
         assert torch.equal(a.cpu(), b)

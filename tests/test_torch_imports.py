@@ -42,7 +42,8 @@ def test_imports_without_jax():
 def test_every_submodule_listed():
     names = set(_port_modules())
     assert {"repro_torch.kernels.ops", "repro_torch.kernels._build",
-            "repro_torch.core.ddc", "repro_torch.data.spatial"} <= names
+            "repro_torch.core.ddc", "repro_torch.core.partitioner",
+            "repro_torch.data.spatial"} <= names
     for name in names:
         importlib.import_module(name)
 

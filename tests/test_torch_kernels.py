@@ -39,6 +39,42 @@ class TestPairwise:
         np.testing.assert_allclose(tref.pairwise_dist_sq(t(x), t(y)).numpy(), want,
                                    rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("n", [64, 256, 1024])
+    def test_dist_is_the_jitted_form(self, n):
+        """Bit for bit the jitted reference's d2: XLA contracts both depth-2
+        sums (|x|² and x·y) into an FMA, and the port computes that single
+        rounding.  The FMA-free form differs in the last bit, which at
+        scale moves points across the eps boundary."""
+        x = np.random.default_rng(n).uniform(0, 1, (n, 2)).astype(np.float32)
+        want = np.asarray(jax.jit(jref.pairwise_dist_sq)(jnp.asarray(x), jnp.asarray(x)))
+        np.testing.assert_array_equal(tref.pairwise_dist_sq(t(x), t(x)).numpy(), want)
+        xx = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]
+        dot = x[:, None, 0] * x[None, :, 0] + x[:, None, 1] * x[None, :, 1]
+        fma_free = np.maximum((xx[:, None] + xx[None, :]) - np.float32(2) * dot, 0)
+        assert (fma_free != want).any()
+
+    def test_fma_rounds_once(self):
+        """fma_f32 against exact rational arithmetic, including sums that
+        a float64 evaluation alone would round twice."""
+        from fractions import Fraction
+        rng = np.random.default_rng(5)
+        a = rng.uniform(0.5, 1, 2000).astype(np.float32)
+        b = rng.uniform(0.5, 1, 2000).astype(np.float32)
+        c = (rng.uniform(0.5, 1, 2000) * 2.0 ** rng.integers(-40, 2, 2000)).astype(np.float32)
+        # (1 + 2^-12)² is a float32 midpoint and ±2^-60 is below float64's
+        # half ulp there: a float64 sum alone would round to the tie.
+        a, b, c = (np.append(v, np.float32(w)) for v, w in (
+            (a, [1 + 2**-12] * 2), (b, [1 + 2**-12] * 2), (c, [2**-60, -2**-60])))
+        got = tref.fma_f32(t(a), t(b), t(c)).numpy()
+        assert got[-2] == np.float32(1 + 2**-11 + 2**-23) and got[-1] == np.float32(1 + 2**-11)
+        for x, y, z, g in zip(a, b, c, got):
+            exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+            lo = np.float32(float(exact))
+            cands = [lo, np.nextafter(lo, np.float32(-np.inf)), np.nextafter(lo, np.float32(np.inf))]
+            best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                             int(np.float32(v).view(np.int32)) & 1))
+            assert g == best
+
     @pytest.mark.parametrize("eps", [0.1, 0.5, 2.0])
     def test_neighbor_count(self, eps):
         # The reference squares a traced (float32) eps inside jit, which is
@@ -142,7 +178,8 @@ class TestDispatch:
         assert torch.equal(contour_dist.contour_min_d2(c, cnt, val),
                            tref.contour_min_d2(c, cnt, val))
         assert ops.launch_counts() == {
-            "neighbor_count": 0, "min_label_sweep": 0, "contour_min_d2": 0}
+            "neighbor_count": 0, "min_label_sweep": 0, "neighbor_count_sparse": 0,
+            "min_label_sweep_sparse": 0, "contour_min_d2": 0}
         assert not ops.use_gpu_kernels(x)
 
     def test_force_ref_keeps_plain_versions(self, monkeypatch):
