@@ -11,33 +11,50 @@ failure (non-zero exit):
 1. The card (``nvidia-smi`` name and power limit) and the kernel build.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
-   ``block_sparse="auto"``, tile 512), through ``make_ddc_fn`` (sync
-   schedule).  eps starts at the 2048-point D2 case's 0.03 scaled to the
-   same expected neighbourhood and grows until no cluster budget
-   overflows.  Two paths, each driven with the launch counts zeroed just
-   before it and read just after:
-   - the default configuration, which takes the block-sparse DBSCAN path
-     (Morton sort, tile-pair pruning, the two sparse kernels) in every
-     lane — it fails otherwise;
-   - ``block_sparse="never"``, the dense path.
-   Each path's kernels must all have launched, each kernel run must equal
-   the same path on the plain PyTorch versions on the card bit for bit,
-   and the two paths must agree in global labels, maps, the merged
-   ClusterSet and every lane's labels, core masks and cluster counts.
-   Each kernel is then held against its plain version on the main path's
-   own inputs and timed with CUDA events: one JSON line ``{"kernels":
-   [...]}``.  One more default-path run under torch.profiler gives the
-   device time by kernel and the device's busy share.
+   ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
+   starts at the 2048-point D2 case's 0.03 scaled to the same expected
+   neighbourhood and grows until no cluster budget overflows (sync
+   schedule).  Each path below is driven with the launch counts zeroed
+   just before it and read just after; each of its kernels must have
+   launched, two kernel runs must be identical, and the kernel run must
+   equal the same path on the plain PyTorch versions on the card bit for
+   bit:
+   - the default configuration (sync), which takes the block-sparse
+     DBSCAN path (Morton sort, tile-pair pruning, the two sparse kernels)
+     in every lane — it fails otherwise;
+   - ``block_sparse="never"``, the dense path, which must agree with the
+     sparse one in global labels, maps, the merged ClusterSet and every
+     lane's labels, core masks and cluster counts;
+   - the default path under the ``async`` and ``tree`` schedules
+     (phase-2 times and the ``CommMeter``'s counts printed).  Their
+     clustering equals sync's only under the reference's vertex-budget
+     rule (DESIGN.md §7), which the full-width lanes break at grid 128
+     (their outlines fill any budget up to 4,096 vertices), so agreement
+     with sync is reported there and held on a 64 × 64 raster with
+     max_verts 2,048, which no contour fills;
+   - K-Means (``local_algo="kmeans"``, k 8, 25 Lloyd steps, async merge):
+     208 ``pairwise_dist_sq`` launches, and every lane's labels, centroids
+     and inertia equal to the plain run's, both seeded alike.
+   Each kernel is then held against its plain version on the main paths'
+   own inputs and timed with CUDA events (``pairwise_dist_sq`` also
+   beside ``torch.cdist``): one JSON line ``{"kernels": [...]}``.  One
+   more default-path run and one more K-Means run under torch.profiler
+   give the device time by kernel and the device's busy share.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
    DBSCAN in labels and core masks, with the committed cluster counts.
 4. Oracle parity: every layout of the reference's phase-2 equivalence
-   table at K in {2, 4, 8} lanes, with ``block_sparse`` "never" and
-   "auto", port on the card against the NumPy host oracle
-   ``ddc_host(..., contour="grid")``; the clusterings must be the same in
-   every cell.
-5. The full-width numbers, then the last line
+   table at K in {2, 4, 8} lanes, under sync with ``block_sparse``
+   "never" and "auto", and under async and tree with "never", port on the
+   card against the NumPy host oracle ``ddc_host(..., contour="grid")``;
+   the clusterings must be the same in all 108 runs (81 layout × K ×
+   schedule cells).
+5. ``BENCH_phase2.json``'s 60 rows (4 layouts × 3 schedules × K in {2,
+   …, 32}) on the card: the ``CommMeter``'s merge steps, merge slots,
+   bytes and collectives, the global cluster count and the match with
+   ``ddc_host`` must equal the committed values.
+6. The full-width numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -55,13 +72,19 @@ ROOT = Path(__file__).resolve().parent
 FULL_N = 262_144
 LANES = 8
 PARITY_SHARDS = (2, 4, 8)
+UNCUT_GRID, UNCUT_VERTS = 64, 2048  # raster and budget of the schedule-equivalence check
+# (schedule, block_sparse) of the parity runs: sync on both phase-1 paths,
+# then the two other schedules.
+PARITY_RUNS = (("sync", "never"), ("sync", "auto"), ("async", "never"), ("tree", "never"))
 # Published peaks of the H100 SXM (NVIDIA data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 NC_OPS_PER_PAIR = 6   # mul, mul, add (dot); add (xx+yy); mul by 2; sub
 CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, mul, add
+PD_OPS_PER_PAIR = 6    # as NC_OPS_PER_PAIR; the clip at 0 is a select
 BENCH_SWEEP_NS = (4096, 16384)  # BENCH_phase1.json rows with cluster counts
+SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
 
 
 def log(msg: str) -> None:
@@ -73,18 +96,25 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def median_ms(torch, fn, reps: int) -> float:
+def median_ms(torch, fn, reps: int, per: int = 1) -> float:
+    """Device time of one call of ``fn``, by CUDA events: the median over
+    ``reps`` batches of ``per`` calls, each batch enqueued behind a spin
+    kernel so that the calls run back to back at the device's pace, not
+    the host's launch rate (a call that syncs with the host still waits
+    for it, and is timed with that wait)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -140,14 +170,22 @@ def differences(torch, ddc, dbscan, out_a, out_b, trace_a, trace_b, fields) -> l
     return [name for name, a, b in pairs if not same(torch, a, b)]
 
 
-def full_width_path(torch, ddc, dbscan, ops, cfg, plain_cfg, pts, mask, name: str):
-    """Drive one full-width path: zero the launch counts, run ``cfg`` with
-    the kernels, read the counts, then run ``plain_cfg`` — the same path —
-    on the plain versions and hold the two bit for bit.  Returns (outputs,
-    trace, launches, plain trace)."""
-    run = ddc.make_ddc_fn(cfg, LANES, device="cuda")
-    run(pts, mask)  # warm-up
+def full_width_path(torch, ddc, dbscan, ops, cfg, plain_cfg, pts, mask, name: str,
+                    fields=None, meter=None):
+    """Drive one full-width path: run ``cfg`` with the kernels once as a
+    warm-up, zero the launch counts, run it again, read the counts, and
+    hold the two kernel runs equal; then run ``plain_cfg`` — the same path
+    — on the plain versions and hold the two bit for bit (outputs and the
+    per-lane result ``fields``, by default every DBSCANResult field).
+    ``meter`` is filled by the counted run.  Returns (outputs, trace,
+    launches, plain trace)."""
+    fields = fields or dbscan.DBSCANResult._fields
+    run = ddc.make_ddc_fn(cfg, LANES, device="cuda", meter=meter)
+    tw: dict = {}
+    out_w = run(pts, mask, tw)  # warm-up
     torch.cuda.synchronize()
+    if meter is not None:
+        meter.reset()
     ops.reset_launch_counts()
     tk: dict = {}
     out_k = run(pts, mask, tk)
@@ -155,6 +193,9 @@ def full_width_path(torch, ddc, dbscan, ops, cfg, plain_cfg, pts, mask, name: st
     launches = ops.launch_counts()
     log(f"{name} run: phase1 {tk['phase1_s']:.4f}s phase2 {tk['phase2_s']:.4f}s "
         f"launches {launches} paths {[p['path'] for p in tk['paths']]}")
+    diff = differences(torch, ddc, dbscan, out_k, out_w, tk, tw, fields)
+    if diff:
+        raise RuntimeError(f"{name}: two kernel runs differ in {diff}")
     ops.FORCE = "ref"
     try:
         tr: dict = {}
@@ -164,7 +205,7 @@ def full_width_path(torch, ddc, dbscan, ops, cfg, plain_cfg, pts, mask, name: st
         ops.FORCE = None
     if ops.launch_counts() != launches:
         raise RuntimeError(f"{name}: the plain run launched a kernel")
-    diff = differences(torch, ddc, dbscan, out_k, out_r, tk, tr, dbscan.DBSCANResult._fields)
+    diff = differences(torch, ddc, dbscan, out_k, out_r, tk, tr, fields)
     if diff or tk["paths"] != tr["paths"]:
         raise RuntimeError(f"{name}: kernel run differs from the plain run in {diff}, "
                            f"paths {tk['paths']} vs {tr['paths']}")
@@ -186,9 +227,10 @@ def check_output(torch, cfg, out) -> int:
 
 
 def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound_by,
-                 launches, launched_in) -> dict:
+                 launches, launched_in, library=None) -> dict:
     """Hold one kernel against its plain version on the same inputs, and
-    time both."""
+    time both, and ``library`` (one PyTorch call computing the same
+    function, timed only) where there is one."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     exact = same(torch, got, want)
@@ -201,8 +243,9 @@ def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound
         "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
         "shape": shape, "launches": launches, "launched_in": launched_in, "exact": exact,
         "max_abs_err": err, "tolerance": 0.0,
-        "ms": median_ms(torch, kern, 20), "plain_ms": median_ms(torch, plain, 3),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms": median_ms(torch, kern, 20, per=10), "plain_ms": median_ms(torch, plain, 3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if library is None else median_ms(torch, library, 20, per=10),
     }
     log(json.dumps(entry))
     return entry
@@ -255,6 +298,44 @@ def phase1_bench(torch, np, dbscan, ops, spatial, dev) -> list[dict]:
     return rows
 
 
+def phase2_bench(np, ddc, spatial, dev) -> dict:
+    """BENCH_phase2.json's 60 rows on the card: each row's layout and
+    schedule through make_ddc_fn with a CommMeter; the meter's four
+    columns, the global cluster count and the match with ddc_host must
+    equal the committed ones."""
+    bench = json.loads((ROOT / "BENCH_phase2.json").read_text())
+    keys = ("merge_steps", "merge_slots", "bytes_exchanged", "collectives", "n_clusters",
+            "matches_host")
+    layouts, hosts, rows = {}, {}, 0
+    t0 = time.perf_counter()
+    for row in bench["rows"]:
+        name, k = row["layout"], row["shards"]
+        spec = bench["layouts"][name]
+        if name not in layouts:
+            layouts[name] = spatial.PHASE2_LAYOUTS[name]["make"](spec["n"])
+        pts = layouts[name]
+        if (name, k) not in hosts:
+            hosts[name, k] = ddc.ddc_host(pts, k, spec["eps"], spec["min_pts"],
+                                          contour="grid")[0]
+        cfg = ddc.DDCConfig(eps=spec["eps"], min_pts=spec["min_pts"], grid=spec["grid"],
+                            max_verts=spec["max_verts"], max_clusters=spec["max_clusters"],
+                            schedule=row["schedule"])
+        meter = ddc.CommMeter()
+        glabels, gcs, _ = ddc.make_ddc_fn(cfg, k, device=dev, meter=meter)(
+            pts, np.ones(len(pts), bool))
+        snap = meter.snapshot()
+        got = {"merge_steps": snap["merge_steps"], "merge_slots": snap["merge_slots"],
+               "bytes_exchanged": snap["bytes_total"], "collectives": snap["collectives"],
+               "n_clusters": int(gcs.valid.sum()),
+               "matches_host": ddc.same_clustering(glabels.cpu().numpy(), hosts[name, k])}
+        want = {key: row[key] for key in keys}
+        if got != want:
+            raise RuntimeError(f"BENCH_phase2 {name} k={k} {row['schedule']}: {got} != {want}")
+        rows += 1
+    return {"rows": rows, "all_equal_committed": True, "columns": list(keys),
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -301,9 +382,10 @@ def main() -> int:
     # The default path: block-sparse DBSCAN in every lane.  "auto" takes
     # it only where the ops launch kernels (as the reference's takes it
     # only with its kernels), so the plain run asks for it with "always".
+    meter_s = ddc.CommMeter()
     out_s, ts, launches_s, trs = full_width_path(
         torch, ddc, dbscan, ops, cfg, dataclasses.replace(cfg, block_sparse="always"),
-        pts, mask, "sparse")
+        pts, mask, "sparse", meter=meter_s)
     if [p["path"] for p in ts["paths"]] != ["sparse"] * LANES:
         raise RuntimeError(f"the default path did not run the sparse kernels in every "
                            f"lane: {ts['paths']}")
@@ -323,6 +405,79 @@ def main() -> int:
         raise RuntimeError(f"the sparse path differs from the dense path in {diff}")
     n_global = check_output(torch, cfg, out_s)
     c = cfg.max_clusters
+
+    # The async and tree schedules on the default path, each driven as a
+    # full-width path.  They give sync's clustering only under the
+    # reference's vertex-budget rule (DESIGN.md §7: every local and merged
+    # contour fits max_verts); at grid 128 the full-width lanes' outlines
+    # fill any budget up to 4,096 and are cut, and a cut outline merges
+    # differently in pairs than all at once, in the reference too.  So
+    # agreement is reported on the default path and held on a 64 × 64
+    # raster with max_verts 2,048, which no contour fills there (the check
+    # fails if one does).  That raster merges the data into one global
+    # cluster, so the check compares the noise sets and whether every
+    # lane's clusters reach it.
+    schedules = {"sync": {"phase1_s": ts["phase1_s"], "phase2_s": ts["phase2_s"],
+                          "merge_calls": ts["merge_calls"], "meter": meter_s.snapshot()}}
+    for sched in ("async", "tree"):
+        scfg = dataclasses.replace(cfg, schedule=sched)
+        meter = ddc.CommMeter()
+        out_x, tx, launches_x, trx = full_width_path(
+            torch, ddc, dbscan, ops, scfg, dataclasses.replace(scfg, block_sparse="always"),
+            pts, mask, sched, meter=meter)
+        for k in ("neighbor_count_sparse", "min_label_sweep_sparse", "contour_min_d2"):
+            if launches_x[k] < 1:
+                raise RuntimeError(f"a kernel of the {sched} path never launched: {launches_x}")
+        schedules[sched] = {
+            "phase1_s": tx["phase1_s"], "phase2_s": tx["phase2_s"],
+            "plain_phase2_s": trx["phase2_s"], "merge_calls": tx["merge_calls"],
+            "meter": meter.snapshot(), "n_clusters": check_output(torch, scfg, out_x),
+            "launches": launches_x, "bit_identical_to_plain": True,
+            "same_clustering_as_sync": ddc.same_clustering(out_x[0].cpu().numpy(),
+                                                           out_s[0].cpu().numpy())}
+    uncut = dataclasses.replace(cfg, grid=UNCUT_GRID, max_verts=UNCUT_VERTS)
+    held = {}
+    for sched in ("sync", "async", "tree"):
+        tu: dict = {}
+        out_u = ddc.make_ddc_fn(dataclasses.replace(uncut, schedule=sched), LANES,
+                                device=dev)(pts, mask, tu)
+        held[sched] = {"labels": out_u[0].cpu().numpy(), "n_clusters": int(out_u[1].valid.sum()),
+                       "phase2_s": tu["phase2_s"],
+                       "max_count": max(int(tu["batch"].counts.max()),
+                                        int(out_u[1].counts.max()))}
+        if held[sched]["max_count"] >= uncut.max_verts or bool(out_u[1].overflow):
+            raise RuntimeError(f"{sched} on the {UNCUT_GRID}-cell raster: a contour fills "
+                               f"max_verts or the budget overflows")
+        if not ddc.same_clustering(held[sched]["labels"], held["sync"]["labels"]):
+            raise RuntimeError(f"the {sched} schedule's clustering differs from sync's on the "
+                               f"{UNCUT_GRID} x {UNCUT_GRID} raster, where no contour is cut")
+    print(json.dumps({"schedules_full_width": {
+        **schedules, "uncut": {"grid": UNCUT_GRID, "max_verts": uncut.max_verts,
+                               "merge_radius": uncut.merge_radius,
+                               "same_clustering_as_sync": True,
+                               **{k: {f: v[f] for f in ("n_clusters", "phase2_s", "max_count")}
+                                  for k, v in held.items()}}}}), flush=True)
+
+    # K-Means (this slice's path): the defaults (k 8, 25 Lloyd steps, async
+    # merge) at the eps found above, which sets only the merge radius.
+    cfg_km = dataclasses.replace(cfg, local_algo="kmeans", schedule="async")
+    out_km, tkm, launches_km, trkm = full_width_path(
+        torch, ddc, dbscan, ops, cfg_km, cfg_km, pts, mask, "kmeans",
+        fields=("labels", "centroids", "inertia"))
+    want_launches = (25 + 1) * LANES
+    if launches_km["pairwise_dist_sq"] != want_launches or launches_km["contour_min_d2"] < 1:
+        raise RuntimeError(f"the K-Means path launched {launches_km}, expected "
+                           f"{want_launches} pairwise_dist_sq")
+    n_global_km = check_output(torch, cfg_km, out_km)
+    print(json.dumps({"kmeans_full_width": {
+        "n": FULL_N, "lanes": LANES, "kmeans_k": cfg_km.kmeans_k, "iters": 25,
+        "schedule": cfg_km.schedule, "merge_radius": cfg_km.merge_radius,
+        "phase1_s": tkm["phase1_s"], "phase2_s": tkm["phase2_s"],
+        "plain_phase1_s": trkm["phase1_s"], "plain_phase2_s": trkm["phase2_s"],
+        "launches": launches_km, "merge_calls": tkm["merge_calls"],
+        "lane_inertia": [float(r.inertia) for r in tkm["results"]],
+        "n_clusters": n_global_km, "bit_identical_to_plain": True,
+        "two_runs_identical": True}}), flush=True)
 
     # Each kernel against its plain version on the main path's inputs
     # (lane 0 for phase 1, the stacked batch for phase 2).
@@ -353,6 +508,8 @@ def main() -> int:
     cnts = batch.counts.reshape(mslots).contiguous()
     valids = batch.valid.reshape(mslots).contiguous()
     n_valid = int(m0.sum())
+    cents0 = tkm["results"][0].centroids.contiguous()
+    k_cents = cents0.shape[0]
     p_valid = int(torch.where(valids, cnts.clamp(0, v), 0).sum())
     nc_src, pd = "pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py"
     cases = [
@@ -381,14 +538,23 @@ def main() -> int:
          lambda: ref.contour_min_d2(conts, cnts, valids),
          bound(p_valid ** 2 * CMD2_OPS_PER_PAIR,
                mslots * v * 8 + mslots * (4 + 1) + mslots * mslots * 4), launches_s, "sparse"),
+        ("pairwise_dist_sq", nc_src, f"{pd}:48", [per, cfg_km.kmeans_k],
+         lambda: ops.pairwise_dist_sq(x0, cents0), lambda: ref.pairwise_dist_sq(x0, cents0),
+         bound(per * k_cents * PD_OPS_PER_PAIR, per * 8 + k_cents * 8 + per * k_cents * 4),
+         launches_km, "kmeans"),
     ]
+    libraries = {"pairwise_dist_sq": lambda: torch.cdist(
+        x0, cents0, compute_mode="use_mm_for_euclid_dist")}
     kernels = [kernel_entry(torch, name, src, replaces, shape, kern, plain, b_ms, b_by,
-                            launches[name], path)
+                            launches[name], path, libraries.get(name))
                for name, src, replaces, shape, kern, plain, (b_ms, b_by), launches, path
                in cases]
     print(json.dumps({"kernels": kernels}), flush=True)
     run = ddc.make_ddc_fn(cfg, LANES, device=dev)
     print(json.dumps({"profile": profile_main_path(torch, run, pts, mask, ts)}), flush=True)
+    run_km = ddc.make_ddc_fn(cfg_km, LANES, device=dev)
+    print(json.dumps({"profile_kmeans": profile_main_path(torch, run_km, pts, mask, tkm)}),
+          flush=True)
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------
     bench_rows = phase1_bench(torch, np, dbscan, ops, spatial, dev)
@@ -397,34 +563,42 @@ def main() -> int:
     # -- 4. oracle parity at the tuned 2048-point sizes --------------------
     clusters: dict[str, list[int]] = {}
     auto_paths: dict[str, int] = {}
+    parity_cells = 0
     for name, (make, p_eps, min_pts, grid, max_verts, max_clusters) in \
             spatial.PARITY_CASES.items():
         lpts = make()
         host = {k: ddc.ddc_host(lpts, k, p_eps, min_pts, contour="grid")[0]
                 for k in PARITY_SHARDS}
-        for block_sparse in ("never", "auto"):
+        for schedule, block_sparse in PARITY_RUNS:
             for k in PARITY_SHARDS:
                 pcfg = ddc.DDCConfig(eps=p_eps, min_pts=min_pts, grid=grid,
                                      max_verts=max_verts, max_clusters=max_clusters,
-                                     schedule="sync", block_sparse=block_sparse)
+                                     schedule=schedule, block_sparse=block_sparse)
                 ptrace: dict = {}
                 gl, pgcs, _ = ddc.make_ddc_fn(pcfg, k, device=dev)(
                     lpts, np.ones(len(lpts), bool), ptrace)
                 if bool(pgcs.overflow) or not ddc.same_clustering(gl.cpu().numpy(), host[k]):
-                    raise RuntimeError(f"parity {name} k={k} {block_sparse}: port differs "
-                                       f"from ddc_host (overflow {bool(pgcs.overflow)})")
+                    raise RuntimeError(f"parity {name} k={k} {schedule} {block_sparse}: port "
+                                       f"differs from ddc_host (overflow "
+                                       f"{bool(pgcs.overflow)})")
+                parity_cells += 1
                 if block_sparse == "auto":
                     for p in ptrace["paths"]:
                         auto_paths[p["path"]] = auto_paths.get(p["path"], 0) + 1
-                else:
+                elif schedule == "sync":
                     clusters.setdefault(name, []).append(
                         len(set(host[k][host[k] >= 0].tolist())))
     print(json.dumps({"parity": {"shards": list(PARITY_SHARDS),
-                                 "block_sparse": ["never", "auto"],
+                                 "runs": [list(r) for r in PARITY_RUNS],
+                                 "cells": parity_cells,
                                  "all_same_clustering": True, "clusters": clusters,
                                  "auto_lane_paths": auto_paths}}), flush=True)
 
-    # -- 5. the full-width numbers, then the contract line -----------------
+    # -- 5. BENCH_phase2.json's rows ---------------------------------------
+    bench2 = phase2_bench(np, ddc, spatial, dev)
+    print(json.dumps({"phase2_bench": bench2}), flush=True)
+
+    # -- 6. the full-width numbers, then the contract line -----------------
     def path_numbers(trace, plain, launches):
         return {"phase1_s": trace["phase1_s"], "phase2_s": trace["phase2_s"],
                 "plain_phase1_s": plain["phase1_s"], "plain_phase2_s": plain["phase2_s"],

@@ -2,17 +2,20 @@
 device.
 
 Phase 1 (per shard, zero communication): every shard clusters its local
-points with DBSCAN and reduces each cluster to a fixed-size contour
-buffer.  Phase 2: the shards' contours merge by contour proximity into
-global clusters, in one batched fold over all K·C cluster slots
-(``merge_many``): the slot×slot min-distance matrix comes from one
-kernel call, the overlap graph's components from pointer-doubled label
-propagation, and merged contours are re-extracted on the global raster.
+points with DBSCAN or K-Means and reduces each cluster to a fixed-size
+contour buffer.  Phase 2: the shards' contours merge by contour
+proximity into global clusters.  A merge folds a stacked batch of
+ClusterSets (``merge_many``): the slot×slot min-distance matrix comes
+from one kernel call, the overlap graph's components from pointer-doubled
+label propagation, and merged contours are re-extracted on the global
+raster (or subsampled, ``merge_refine="fps"``).
 
 ``make_ddc_fn`` is the one-device form of the reference's distributed
-entry point with the ``sync`` schedule: the K shard lanes run one after
-another on one device, and the merge sees the same stacked batch the
-all-gather would deliver.
+entry point: the K shard lanes run one after another on one device, and
+the phase-2 schedules (``merge_sync``, ``merge_async``, ``merge_tree``)
+fold the lanes' ClusterSets exactly as the reference's collectives would
+deliver them, giving every lane the map its reference lane computes.  A
+``CommMeter`` counts what the reference's collectives would move.
 
 Host path: ``ddc_host`` (NumPy, exact polygon-overlap merge) is the
 paper-faithful oracle.
@@ -28,7 +31,14 @@ import torch
 
 from repro_torch.core import dbscan as dbscan_mod
 from repro_torch.core import geometry
+from repro_torch.core import kmeans as kmeans_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import fma_f32
+from repro_torch.parallel import compress
+
+LOCAL_ALGOS = ("dbscan", "kmeans")
+SCHEDULES = ("sync", "async", "tree")
+MERGE_REFINES = ("grid", "fps")
 
 SENTINEL = 2**30
 
@@ -130,13 +140,12 @@ def clusterset_to_numpy(cs: ClusterSet) -> ClusterSet:
 
 
 def _check_cfg(cfg: DDCConfig) -> None:
-    if cfg.local_algo != "dbscan":
-        raise NotImplementedError(
-            f"local_algo={cfg.local_algo!r} is not ported yet (kmeans needs "
-            "the pairwise_dist_sq kernel); use 'dbscan'")
-    if cfg.merge_refine != "grid":
-        raise NotImplementedError(
-            f"merge_refine={cfg.merge_refine!r} is not ported yet; use 'grid'")
+    for field, allowed in (("local_algo", LOCAL_ALGOS), ("schedule", SCHEDULES),
+                           ("merge_refine", MERGE_REFINES)):
+        if getattr(cfg, field) not in allowed:
+            raise ValueError(f"{field}={getattr(cfg, field)!r}: expected one of {allowed}")
+    if cfg.schedule == "tree" and cfg.tree_degree < 2:
+        raise ValueError(f"tree_degree must be >= 2, got {cfg.tree_degree}")
 
 
 # ---------------------------------------------------------------------------
@@ -144,38 +153,59 @@ def _check_cfg(cfg: DDCConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _local_phase(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig):
-    """``local_phase`` that also returns the shard's DBSCANResult and the
-    DBSCAN path it took (``dbscan_traced``)."""
+def _local_phase(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig, seed: int = 0,
+                 init: torch.Tensor | None = None):
+    """``local_phase`` that also returns the shard's DBSCANResult or
+    KMeansResult and its path: the DBSCAN path (``dbscan_traced``), or
+    ``{"path": "kmeans"}``."""
     _check_cfg(cfg)
     c = cfg.max_clusters
     dev = points.device
-    res, path = dbscan_mod.dbscan_traced(points, mask, cfg.eps, cfg.min_pts,
-                                         block_sparse=cfg.block_sparse, bt=cfg.block_tile)
-    dense = dbscan_mod.relabel_dense(res.labels, c)
+    points = points.to(torch.float32)
+    if cfg.local_algo == "dbscan":
+        res, path = dbscan_mod.dbscan_traced(points, mask, cfg.eps, cfg.min_pts,
+                                             block_sparse=cfg.block_sparse,
+                                             bt=cfg.block_tile)
+        dense = dbscan_mod.relabel_dense(res.labels, c)
+        overflow = res.n_clusters > c
+    else:
+        generator = None if init is not None else \
+            torch.Generator(device=dev).manual_seed(seed)
+        res = kmeans_mod.kmeans(points, mask, min(cfg.kmeans_k, c), init=init,
+                                generator=generator)
+        path = {"path": "kmeans"}
+        dense = res.labels
+        # min(kmeans_k, C) clusters never exceed the budget C.
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
     sizes = torch.zeros((c,), dtype=torch.int32, device=dev)
     sizes.index_add_(0, dense.clamp(min=0).long(), (dense >= 0).to(torch.int32))
     valid = sizes > 0
     slot = torch.arange(c, dtype=torch.int32, device=dev)
     members = mask[None, :] & (dense[None, :] == slot[:, None])          # (C, n)
     contours, counts = geometry.extract_contour(
-        points.to(torch.float32), members, cfg.bounds, cfg.grid, cfg.max_verts)
+        points, members, cfg.bounds, cfg.grid, cfg.max_verts)
     cs = ClusterSet(
         contours=contours,
         counts=torch.where(valid, counts, 0),
         sizes=sizes,
         valid=valid,
-        overflow=res.n_clusters > c,
+        overflow=overflow,
     )
     return res, dense, cs, path
 
 
-def local_phase(points: torch.Tensor, mask: torch.Tensor,
-                cfg: DDCConfig) -> Tuple[torch.Tensor, ClusterSet]:
+def local_phase(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig, *,
+                seed: int = 0, init: torch.Tensor | None = None
+                ) -> Tuple[torch.Tensor, ClusterSet]:
     """Cluster a shard's points and reduce them to contours, on the
     device the tensors lie on.  Returns (dense local labels (n,) i32,
-    ClusterSet).  Zero communication."""
-    _, dense, cs, _ = _local_phase(points, mask, cfg)
+    ClusterSet).  Zero communication.
+
+    With ``local_algo="kmeans"``, ``seed`` seeds the k-means++ draw (a
+    ``torch.Generator`` on the points' device, the counterpart of the
+    reference's ``key``, whose default is ``PRNGKey(0)``), or ``init``
+    ((k, 2), k = min(kmeans_k, max_clusters)) gives the initial centres."""
+    _, dense, cs, _ = _local_phase(points, mask, cfg, seed, init)
     return dense, cs
 
 
@@ -261,13 +291,17 @@ def merge_from_d2(batch: ClusterSet, pair_d2: torch.Tensor, cfg: DDCConfig,
     shard_overflow = batch.overflow if exclude is None else batch.overflow & ~exclude
     overflow = shard_overflow.any() | (n_components > c)
 
-    # Merged contours: one raster per new slot over its members' vertices.
+    # Merged contours: one raster (or one farthest-point subsample) per new
+    # slot over its members' vertices.
     flat_pts = contours.reshape(m * v, 2)
     vert_valid = geometry.vert_validity(counts, valid, v)       # (M, V)
     slot = torch.arange(c, dtype=torch.int32, device=dev)
     member = slot_of_old[None, :] == slot[:, None]               # (C, M)
     pmask = (member[:, :, None] & vert_valid[None]).reshape(c, m * v)
-    nc, ncnt = geometry.extract_contour(flat_pts, pmask, cfg.bounds, cfg.grid, v)
+    if cfg.merge_refine == "grid":
+        nc, ncnt = geometry.extract_contour(flat_pts, pmask, cfg.bounds, cfg.grid, v)
+    else:
+        nc, ncnt = geometry.farthest_point_subsample(flat_pts, pmask, v)
     nsize = torch.where(member, sizes[None, :], 0).sum(dim=1, dtype=torch.int32)
     nvalid = nsize > 0
     merged = ClusterSet(
@@ -297,6 +331,203 @@ def merge_pair(a: ClusterSet, b: ClusterSet, cfg: DDCConfig):
 
 
 # ---------------------------------------------------------------------------
+# Phase-2 schedules on one device
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CommMeter:
+    """Comm-volume accounting for the phase-2 schedules: the same fields,
+    hooks and ``snapshot()`` as the reference's trace-time meter.
+
+    The reference counts while its schedules trace, so each collective
+    and each merge of the schedule counts once, not once per lane; the
+    one-device schedules here count the same way, on every run (``reset()``
+    between runs).  ``bytes_total`` sums message bytes over every
+    lane→lane link (an all-gather among K lanes of a B-byte buffer counts
+    K·(K−1)·B, a ppermute B per (src, dst) pair).  ``merge_steps`` counts
+    merges on the critical path; ``merge_slots`` sums the K·C slot counts
+    those merges closed over.
+    """
+
+    bytes_total: int = 0
+    collectives: int = 0
+    merge_steps: int = 0
+    merge_slots: int = 0
+
+    def add_collective(self, links: int, nbytes: int) -> None:
+        self.bytes_total += links * nbytes
+        self.collectives += 1
+
+    def add_merge(self, batch: int, slots: int) -> None:
+        self.merge_steps += 1
+        self.merge_slots += batch * slots
+
+    def reset(self) -> None:
+        self.bytes_total = self.collectives = 0
+        self.merge_steps = self.merge_slots = 0
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def lane_set(batch: ClusterSet, i: int) -> ClusterSet:
+    """Lane ``i``'s ClusterSet of a stacked batch."""
+    return ClusterSet(*(t[i] for t in batch))
+
+
+def _merge(batch: ClusterSet, cfg: DDCConfig, stats: dict | None):
+    if stats is not None:
+        stats["merge_calls"] = stats.get("merge_calls", 0) + 1
+    return merge_many(batch, cfg)
+
+
+def _lane_bytes(batch: ClusterSet) -> int:
+    return compress.pytree_wire_bytes(lane_set(batch, 0))
+
+
+def merge_sync(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None,
+               stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """Barrier schedule: every lane all-gathers the K ClusterSets of the
+    stacked ``batch`` and folds them in ONE ``merge_many``.  Returns (global
+    ClusterSet, maps (K, C): each lane's local-slot → global-slot map, -1
+    for invalid slots).  ``stats["merge_calls"]`` counts the merges run."""
+    k = batch.valid.shape[0]
+    if meter is not None:
+        meter.add_collective(k * (k - 1), _lane_bytes(batch))
+        meter.add_merge(k, cfg.max_clusters)
+    gcs, maps = _merge(batch, cfg, stats)
+    return gcs, torch.where(batch.valid, maps, -1)
+
+
+def merge_async(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None,
+                stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """Butterfly (recursive-doubling) schedule: log2(K) rounds in which
+    lane ``me`` exchanges its accumulated ClusterSet with lane
+    ``me ^ stride`` and both fold the pair, lower lane first, in a batch-2
+    merge.  The lanes of one aligned block of 2·stride lanes hold equal
+    accumulators, so every pair of the block folds the same two sets: the
+    fold runs once per block and every lane of the block takes its side's
+    map from it.  K must be a power of two."""
+    k = batch.valid.shape[0]
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"the async schedule needs a power-of-two lane count, got {k}")
+    c = cfg.max_clusters
+    maps = torch.where(batch.valid, torch.arange(c, dtype=torch.int32,
+                                                 device=batch.valid.device), -1)
+    acc = [lane_set(batch, i) for i in range(k)]
+    stride = 1
+    while stride < k:
+        if meter is not None:
+            meter.add_collective(k, _lane_bytes(batch))
+            meter.add_merge(2, c)
+        for base in range(0, k, 2 * stride):
+            pair = stack_clustersets([acc[base], acc[base + stride]])
+            merged, pair_maps = _merge(pair, cfg, stats)
+            for me in range(base, base + 2 * stride):
+                mine = pair_maps[0 if me < base + stride else 1]
+                old = maps[me]
+                maps[me] = torch.where(old >= 0, mine[old.clamp(min=0).long()], -1)
+                acc[me] = merged
+        stride *= 2
+    return acc[0], maps
+
+
+def merge_tree(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None,
+               stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """The paper's Algorithm 2 with degree D = ``cfg.tree_degree``: at each
+    level lanes form groups {base, base + stride, …, base + (D−1)·stride}
+    of the aligned block of D·stride lanes, the members send to the leader
+    ``base`` and the leader folds its group in one batch-D merge (a member
+    past the last lane arrives as the all-invalid set, as a ppermute
+    delivers zeros); then the root broadcasts the global set down the
+    tree, lane 0 keeps the map it composed and every other lane matches
+    its local slots to the global set (``match_to_global``).
+
+    Only the chain of leaders whose index is a multiple of every stride so
+    far reaches the root, so only their folds run here: the other lanes'
+    folds in the reference change nothing that any lane returns.  The
+    meter counts every ppermute the reference issues, with its full
+    permutation list."""
+    k = batch.valid.shape[0]
+    d = cfg.tree_degree
+    if d < 2:
+        raise ValueError(f"tree_degree must be >= 2, got {d}")
+    c = cfg.max_clusters
+    nbytes = _lane_bytes(batch)
+    acc = [lane_set(batch, i) for i in range(k)]
+    empty = empty_clusterset(cfg, batch.valid.device)
+    root_map = torch.where(batch.valid[0], torch.arange(c, dtype=torch.int32,
+                                                        device=batch.valid.device), -1)
+    strides = []
+    stride = 1
+    while stride < k:
+        strides.append(stride)
+        members = [j for j in range(1, d) if j * stride < k]
+        if meter is not None:
+            for j in members:
+                off = j * stride
+                perm = [(i, i - off) for i in range(k) if i - off >= 0
+                        and (i // stride) % d == j
+                        and (i - off) // (stride * d) == i // (stride * d)]
+                meter.add_collective(len(perm), nbytes)
+            meter.add_merge(1 + len(members), c)
+        for base in range(0, k, stride * d):
+            group = [acc[base]] + [acc[base + j * stride] if base + j * stride < k else empty
+                                   for j in members]
+            acc[base], group_maps = _merge(stack_clustersets(group), cfg, stats)
+            if base == 0:
+                root_map = torch.where(root_map >= 0,
+                                       group_maps[0][root_map.clamp(min=0).long()], root_map)
+        stride *= d
+    gcs = acc[0]
+    if meter is not None:
+        for stride in reversed(strides):
+            for j in range(1, d):
+                if j * stride < k:
+                    perm = [(b, b + j * stride) for b in range(0, k, stride * d)
+                            if b + j * stride < k]
+                    meter.add_collective(len(perm), nbytes)
+    maps = [root_map] + [match_to_global(lane_set(batch, i), gcs, cfg) for i in range(1, k)]
+    return gcs, torch.stack(maps)
+
+
+MATCH_CHUNK = 1 << 21  # vertex pairs per chunk of match_to_global
+
+
+def match_to_global(cs: ClusterSet, gcs: ClusterSet, cfg: DDCConfig) -> torch.Tensor:
+    """Map each local cluster to the global cluster whose contour comes
+    nearest (min vertex-pair squared distance, within ``merge_radius``);
+    (C,) int32 slot ids, -1 for invalid slots and slots with no global
+    cluster in reach.  Ties go to the lower global slot.  The squared
+    distance is fma(dy, dy, dx·dx), as the compiled reference's
+    ``sum((a − b) ** 2, -1)``."""
+    c, v = cfg.max_clusters, cfg.max_verts
+    dev = cs.contours.device
+    gvalid = geometry.vert_validity(gcs.counts, gcs.valid, v).reshape(c * v)
+    gflat = gcs.contours.reshape(c * v, 2)
+    vi = geometry.vert_validity(cs.counts, cs.valid, v)                   # (C, V)
+    r = cfg.merge_radius
+    thr = torch.tensor(r * r, dtype=torch.float32, device=dev)
+    out = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    rows = torch.nonzero(cs.valid).flatten()       # an invalid slot maps to -1
+    step = max(1, MATCH_CHUNK // (v * c * v))
+    for r0 in range(0, rows.shape[0], step):
+        idx = rows[r0:r0 + step]
+        diff = cs.contours[idx][:, :, None, :] - gflat[None, None, :, :]  # (s, V, C·V, 2)
+        d2 = fma_f32(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0])
+        d2 = torch.where(vi[idx][:, :, None] & gvalid[None, None, :], d2, geometry.BIG)
+        per_g = d2.reshape(idx.shape[0], v, c, v).amin(dim=(1, 3))       # (s, C)
+        best = per_g.argmin(dim=1)
+        ok = per_g.gather(1, best[:, None])[:, 0] <= thr
+        out[idx] = torch.where(ok, best, -1).to(torch.int32)
+    return out
+
+
+SCHEDULE_FNS = {"sync": merge_sync, "async": merge_async, "tree": merge_tree}
+
+
+# ---------------------------------------------------------------------------
 # Whole pipeline on one device
 # ---------------------------------------------------------------------------
 
@@ -306,31 +537,39 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda"):
-    """Build the one-device DDC entry point with the ``sync`` schedule.
+def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda",
+                meter: CommMeter | None = None, seed: int = 0, init=None):
+    """Build the one-device DDC entry point for any ``DDCConfig``.
 
     ``run(points, mask, trace=None)`` takes (N, 2) points and an (N,)
     mask (tensors or arrays; moved to ``device``), splits them into
     ``shards`` equal lanes, runs ``local_phase`` on each lane in turn,
-    merges the stacked lanes' ClusterSets with one ``merge_many``, and
-    returns (global labels (N,) i32, global ClusterSet, local→global slot
-    map (shards·C,) i32) — the reference's shapes.  A ``trace`` dict is
-    filled with the per-lane DBSCANResults, dense labels and DBSCAN paths
-    (``paths``: {"path": "dense" | "sparse" | "dense_fallback",
-    "n_active", "frac"} per lane), the stacked ClusterSets and the wall
-    time of each phase.
+    folds the lanes' ClusterSets with ``cfg.schedule``, and returns
+    (global labels (N,) i32, global ClusterSet, local→global slot map
+    (shards·C,) i32) — the reference's shapes and values.
+
+    ``meter`` (a ``CommMeter``) is filled on every run with what the
+    reference's collectives would move.  K-Means lanes all seed from
+    ``seed``, as the reference's lanes all seed from one key; ``init``
+    ((shards, k, 2)) gives each lane's initial centres instead.  A
+    ``trace`` dict is filled with the per-lane DBSCANResults or
+    KMeansResults (``results``), dense labels, paths (``paths``: {"path":
+    "dense" | "sparse" | "dense_fallback", "n_active", "frac"} per DBSCAN
+    lane, {"path": "kmeans"} per K-Means lane), the stacked ClusterSets,
+    the schedule, the number of ``merge_many`` calls (``merge_calls``) and
+    the wall time of each phase.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "make_ddc_fn: device 'cuda' requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
-    if cfg.schedule != "sync":
-        raise NotImplementedError(
-            f"schedule={cfg.schedule!r} is not ported yet; use 'sync'")
     _check_cfg(cfg)
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
+    if cfg.schedule == "async" and shards & (shards - 1):
+        raise ValueError(f"the async schedule needs a power-of-two shard count, got {shards}")
+    schedule = SCHEDULE_FNS[cfg.schedule]
 
     def run(points, mask, trace: dict | None = None):
         points = torch.as_tensor(points, device=dev).to(torch.float32)
@@ -341,16 +580,17 @@ def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda"):
         per = n // shards
         _sync(dev)
         t0 = time.perf_counter()
-        lanes = [_local_phase(points[i * per:(i + 1) * per],
-                              mask[i * per:(i + 1) * per], cfg)
+        lanes = [_local_phase(points[i * per:(i + 1) * per], mask[i * per:(i + 1) * per],
+                              cfg, seed, None if init is None else
+                              torch.as_tensor(init[i], device=dev))
                  for i in range(shards)]
         batch = stack_clustersets([cs for _, _, cs, _ in lanes])
         _sync(dev)
         t1 = time.perf_counter()
-        gcs, maps = merge_many(batch, cfg)
-        my_map = torch.where(batch.valid, maps, -1)                  # (K, C)
+        stats: dict = {"merge_calls": 0}
+        gcs, maps = schedule(batch, cfg, meter, stats)                   # maps (K, C)
         glabels = torch.cat([
-            torch.where(dense >= 0, my_map[i][dense.clamp(min=0).long()], -1)
+            torch.where(dense >= 0, maps[i][dense.clamp(min=0).long()], -1)
             for i, (_, dense, _, _) in enumerate(lanes)])
         _sync(dev)
         t2 = time.perf_counter()
@@ -358,8 +598,10 @@ def make_ddc_fn(cfg: DDCConfig, shards: int, *, device="cuda"):
             trace.update(results=[lane[0] for lane in lanes],
                          dense=[lane[1] for lane in lanes],
                          paths=[lane[3] for lane in lanes],
-                         batch=batch, phase1_s=t1 - t0, phase2_s=t2 - t1)
-        return glabels.to(torch.int32), gcs, my_map.reshape(-1)
+                         batch=batch, schedule=cfg.schedule,
+                         merge_calls=stats["merge_calls"],
+                         phase1_s=t1 - t0, phase2_s=t2 - t1)
+        return glabels.to(torch.int32), gcs, maps.reshape(-1)
 
     return run
 

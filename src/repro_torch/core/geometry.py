@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import fma_f32
+
 Bounds = Tuple[float, float, float, float]
 
 # ---------------------------------------------------------------------------
@@ -253,3 +255,42 @@ def vert_validity(counts: torch.Tensor, valid: torch.Tensor, max_verts: int) -> 
     first ``counts[i]`` vertices of each valid slot are real."""
     ar = torch.arange(max_verts, device=counts.device)
     return (ar[None, :] < counts[:, None]) & valid[:, None]
+
+
+def _d2_rows(pts: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Squared distance of every point of pts (..., n, 2) to p (..., 2), as
+    the compiled reference computes ``sum((pts - p) ** 2, -1)``: its
+    compiler contracts the depth-2 sum into fma(dy, dy, dx·dx)."""
+    d = pts - p[..., None, :]
+    return fma_f32(d[..., 1], d[..., 1], d[..., 0] * d[..., 0])
+
+
+def farthest_point_subsample(points: torch.Tensor, mask: torch.Tensor, k: int):
+    """Greedy k-centre subsampling of masked point sets, batched: points
+    (n, 2), mask (..., n) → (subset (..., k, 2), count (...,) i32).
+
+    Starts at the first masked point and takes, k − 1 times, the point
+    farthest from those taken (the first on ties).  Masked-out points sit
+    at (1e30, 1e30), whose squared distances overflow to inf before they
+    are replaced by −1, as in the reference.  Rows past ``count`` are 0.
+    """
+    lead = mask.shape[:-1]
+    pts = torch.where(mask[..., None], points.to(torch.float32), BIG)   # (..., n, 2)
+    n_valid = mask.sum(dim=-1, dtype=torch.int32)
+
+    def point(idx: torch.Tensor) -> torch.Tensor:
+        return torch.gather(pts, -2, idx[..., None, None].expand(*lead, 1, 2))[..., 0, :]
+
+    start = mask.to(torch.uint8).argmax(dim=-1)                          # first masked
+    d2 = torch.where(mask, _d2_rows(pts, point(start)), -1.0)
+    taken = [start]
+    for _ in range(k - 1):
+        nxt = d2.argmax(dim=-1)
+        taken.append(nxt)
+        d2 = torch.minimum(d2, torch.where(mask, _d2_rows(pts, point(nxt)), -1.0))
+    idx = torch.stack(taken, dim=-1)                                     # (..., k)
+    subset = torch.gather(pts, -2, idx[..., None].expand(*lead, k, 2))
+    count = n_valid.clamp(max=k)
+    keep = torch.arange(k, device=mask.device) < count[..., None]
+    return torch.where(keep[..., None], subset, 0.0), count
+

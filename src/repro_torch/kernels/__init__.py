@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the DDC hot spots, with plain versions.
 
-- pairwise_dist: DBSCAN ε-neighbour counting + min-label sweeps
+- pairwise_dist: DBSCAN ε-neighbour counting + min-label sweeps, K-Means'
+  squared distances
 - contour_dist: phase-2 slot×slot contour min-distance merge matrix
 - ref: the plain PyTorch version of each kernel (CPU path, and the
   comparison on the card)

@@ -13,6 +13,9 @@
 //                                                        active tile pairs
 //   min_label_sweep_sparse (_min_label_sparse_kernel) -- the sweep over the
 //                                                        active tile pairs
+//   pairwise_dist_sq       (_dist_kernel)             -- the (n, m) squared
+//                                                        distance matrix of
+//                                                        K-Means' assignment
 //
 // What bounds them: pair tests at d = 2 on fp32 CUDA cores (no tensor-core
 // form exists for a depth-2 product at IEEE fp32), about six fp32
@@ -38,6 +41,13 @@
 // min-reduces) the splits in a fixed order.  Integer results and a fixed
 // order make the output deterministic without atomics.  Ragged ranges are
 // masked by the loop bounds; nothing is padded.
+//
+// pairwise_dist_sq is the exception: it writes its whole (n, m) output, at
+// m = k = 8 centres on K-Means' path, so it is bound by the bytes it writes
+// (4 a pair against six operations).  One thread owns one output element;
+// a block covers whole rows of at most kThreads columns, with those
+// columns' (y0, y1, |y|^2) staged once in shared memory, so that a warp
+// writes consecutive addresses.
 //
 // Exactness: the pair test is the same float32 expression as the plain
 // version (repro_torch/kernels/ref.py::_d2_rows) and as the jitted
@@ -205,6 +215,29 @@ min_label_sparse_kernel(const float2* __restrict__ x, const uint8_t* __restrict_
               part);
 }
 
+// Squared distances, clipped at 0 as the plain version's clamp_min (which
+// keeps a NaN).  The block's columns are [blockIdx.y * cols, + cols) and its
+// rows [blockIdx.x * rows, + rows), rows * cols <= blockDim.x.
+__global__ void __launch_bounds__(kThreads)
+dist_kernel(const float2* __restrict__ x, const float2* __restrict__ y, int n, int m,
+            int cols, int rows, float* __restrict__ out) {
+  __shared__ float4 ys[kThreads];  // y0, y1, |y|^2
+  const int c0 = blockIdx.y * cols;
+  const int width = min(cols, m - c0);
+  for (int k = threadIdx.x; k < width; k += blockDim.x) {
+    const float2 q = y[c0 + k];
+    ys[k] = make_float4(q.x, q.y, sqnorm(q.x, q.y), 0.f);
+  }
+  __syncthreads();
+  const int lr = threadIdx.x / cols, lc = threadIdx.x % cols;
+  const int i = blockIdx.x * rows + lr;
+  if (lr >= rows || i >= n || lc >= width) return;
+  const float2 p = x[i];
+  const float4 q = ys[lc];
+  const float d2 = pair_d2(p.x, p.y, sqnorm(p.x, p.y), q.x, q.y, q.z);
+  out[(size_t)i * m + c0 + lc] = d2 < 0.f ? 0.f : d2;
+}
+
 __global__ void sum_splits(const int* __restrict__ part, int n, int splits,
                            int* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -307,6 +340,20 @@ int min_label_sweep_sparse_launch(const void* x, const void* mask, const void* l
       (const float2*)x, (const uint8_t*)mask, (const int*)labels, (const uint8_t*)core,
       (const int*)row_ptr, (const int*)col_tiles, n, bt, eps_sq, dst);
   reduce_splits(false, part, n, splits, out, s);
+  return (int)cudaGetLastError();
+}
+
+// x: (n, 2), y: (m, 2) float32, out: (n, m) float32, all contiguous.
+int pairwise_dist_sq_launch(const void* x, const void* y, int n, int m, void* out,
+                            void* stream) {
+  if (n <= 0 || m <= 0) return (int)cudaGetLastError();
+  const int cols = m < kThreads ? m : kThreads;
+  const int rows = kThreads / cols;
+  const int col_blocks = (m + cols - 1) / cols;
+  if (col_blocks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + rows - 1) / rows, col_blocks);
+  dist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float2*)x, (const float2*)y, n, m, cols, rows, (float*)out);
   return (int)cudaGetLastError();
 }
 

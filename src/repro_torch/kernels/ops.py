@@ -30,6 +30,14 @@ def use_gpu_kernels(t: torch.Tensor) -> bool:
     return FORCE != "ref" and t.device.type == "cuda"
 
 
+def pairwise_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(n, m) squared distances between 2-D points, clipped at 0 (K-Means'
+    assignment step)."""
+    if FORCE == "ref":
+        return ref.pairwise_dist_sq(x, y)
+    return _pd.pairwise_dist_sq(x, y)
+
+
 def neighbor_count(x: torch.Tensor, mask: torch.Tensor, eps) -> torch.Tensor:
     if FORCE == "ref":
         return ref.neighbor_count(x, mask, eps)

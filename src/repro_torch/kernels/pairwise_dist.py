@@ -1,10 +1,10 @@
-"""Phase-1 DBSCAN kernels: the fused ε-neighbour count and one min-label
-sweep, dense and over a list of active tile pairs (CUDA source:
-``csrc/pairwise_dist.cu``).
+"""Phase-1 kernels: DBSCAN's fused ε-neighbour count and one min-label
+sweep, dense and over a list of active tile pairs, and K-Means' squared
+distance matrix (CUDA source: ``csrc/pairwise_dist.cu``).
 
 Counterpart of the Pallas kernels in ``repro/kernels/pairwise_dist.py``
 (``neighbor_count``, ``min_label_sweep``, ``neighbor_count_sparse``,
-``min_label_sweep_sparse``).  A CUDA tensor launches the kernel on the
+``min_label_sweep_sparse``, ``pairwise_dist_sq``).  A CUDA tensor launches the kernel on the
 current stream; a CPU tensor runs the plain version in ``ref``; any
 other device raises.  ``launches`` counts kernel launches per wrapper
 and nothing else.
@@ -22,7 +22,8 @@ TILE = 256            # columns per shared-memory tile (csrc kThreads/kTile)
 TARGET_BLOCKS = 1024  # enough blocks to fill 132 SMs several times over
 
 launches = {"neighbor_count": 0, "min_label_sweep": 0,
-            "neighbor_count_sparse": 0, "min_label_sweep_sparse": 0}
+            "neighbor_count_sparse": 0, "min_label_sweep_sparse": 0,
+            "pairwise_dist_sq": 0}
 
 _P = ctypes.c_void_p
 
@@ -44,6 +45,8 @@ def _lib():
         _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, _P, _P, _P]
     lib.min_label_sweep_sparse_launch.restype = ctypes.c_int
+    lib.pairwise_dist_sq_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P]
+    lib.pairwise_dist_sq_launch.restype = ctypes.c_int
     lib.pairwise_dist_error_string.argtypes = [ctypes.c_int]
     lib.pairwise_dist_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,6 +89,23 @@ def _device_kind(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     return x.device.type
+
+
+def pairwise_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances x (n, 2) × y (m, 2) float32 → (n, m) float32,
+    clipped at 0, bit for bit ``ref.pairwise_dist_sq``.  Points are 2-D,
+    as everywhere on DDC's path: any other width raises ``ValueError``."""
+    if _device_kind(x) == "cpu":
+        return ref.pairwise_dist_sq(x, y)
+    n = _check_points(x)
+    m = _check_points(y)
+    if y.device != x.device:
+        raise ValueError(f"x on {x.device}, y on {y.device}")
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n and m:
+        _launch(x, _lib().pairwise_dist_sq_launch, "pairwise_dist_sq",
+                x.data_ptr(), y.data_ptr(), n, m, out.data_ptr())
+    return out
 
 
 def neighbor_count(x: torch.Tensor, mask: torch.Tensor, eps) -> torch.Tensor:

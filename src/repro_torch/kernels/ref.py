@@ -76,7 +76,11 @@ def _d2_rows(xr: torch.Tensor, xxr: torch.Tensor, y: torch.Tensor,
 
 def pairwise_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Squared distances (n, 2) × (m, 2) → (n, m), clipped at 0, in the
-    expansion form the phase-1 kernels use."""
+    expansion form the phase-1 kernels use.  Only 2-D points: the order of
+    a wider sum is not defined here, so any other width raises."""
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != 2 or y.shape[1] != 2:
+        raise ValueError(f"points must be (n, 2) and (m, 2), got {tuple(x.shape)} "
+                         f"and {tuple(y.shape)}")
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     xx, yy = _sqnorm(x), _sqnorm(y)

@@ -196,12 +196,25 @@ class TestMakeDDCFn:
         assert trace["phase1_s"] >= 0 and trace["phase2_s"] >= 0
         with pytest.raises(ValueError):
             run(pts[:255], np.ones(255, bool))
-        for bad, err in ((dict(schedule="async"), NotImplementedError),
-                         (dict(schedule="tree"), NotImplementedError),
-                         (dict(local_algo="kmeans"), NotImplementedError),
-                         (dict(merge_refine="fps"), NotImplementedError)):
-            with pytest.raises(err):
-                tddc.make_ddc_fn(dataclasses.replace(cfg, **bad), 2, device="cpu")
+        for bad, k in ((dict(schedule="async"), 3), (dict(schedule="async"), 6),
+                       (dict(schedule="tree", tree_degree=1), 4),
+                       (dict(local_algo="spectral"), 2), (dict(schedule="ring"), 2),
+                       (dict(merge_refine="hull"), 2)):
+            with pytest.raises(ValueError):
+                tddc.make_ddc_fn(dataclasses.replace(cfg, **bad), k, device="cpu")
+        # Every schedule, local algorithm and merge refinement runs, with
+        # the reference's defaults among them.
+        assert tddc.DDCConfig().schedule == "async"
+        for good, k in ((dict(schedule="async"), 4), (dict(schedule="tree"), 2),
+                        (dict(schedule="tree", tree_degree=3), 4),
+                        (dict(local_algo="kmeans", kmeans_k=4), 2),
+                        (dict(merge_refine="fps"), 2)):
+            trace = {}
+            glabels, gcs, _ = tddc.make_ddc_fn(dataclasses.replace(cfg, **good), k,
+                                               device="cpu")(pts, np.ones(256, bool), trace)
+            assert glabels.shape == (256,) and int(gcs.valid.sum()) >= 1
+            assert trace["schedule"] == dataclasses.replace(cfg, **good).schedule
+            assert trace["merge_calls"] >= 1
 
 
 class TestHostOracle:

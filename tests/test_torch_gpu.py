@@ -6,8 +6,9 @@ use); elsewhere they skip.  Run on a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Kernels and plain versions compute the same float32 expressions without
-FMA contraction, so every comparison is exact.
+Kernels and plain versions compute the same float32 expressions, each
+FMA where the other has one and no other contraction, so every
+comparison is exact.
 """
 import numpy as np
 import pytest
@@ -55,6 +56,61 @@ def test_min_label_sweep(cuda, n, eps):
     got = pairwise_dist.min_label_sweep(x, mask, labels, core, eps)
     torch.testing.assert_close(got, ref.min_label_sweep(x, mask, labels, core, eps),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (1000, 7), (32768, 8), (4097, 300), (513, 256)])
+def test_pairwise_dist_sq(cuda, n, m):
+    """Ragged n, m below, at and above the block's 256 columns."""
+    rng = np.random.default_rng(n * m)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)).astype(np.float32), device=cuda)
+    y = torch.as_tensor(rng.uniform(0, 1, (m, 2)).astype(np.float32), device=cuda)
+    y[0] = x[0]  # a zero distance
+    before = pairwise_dist.launches["pairwise_dist_sq"]
+    got = pairwise_dist.pairwise_dist_sq(x, y)
+    assert pairwise_dist.launches["pairwise_dist_sq"] == before + 1
+    assert got.shape == (n, m) and torch.equal(got, ref.pairwise_dist_sq(x, y))
+    assert float(got[0, 0]) == 0.0
+    with pytest.raises(ValueError):
+        pairwise_dist.pairwise_dist_sq(x, y.cpu())
+
+
+def test_kmeans_kernel_run_equals_plain_run(cuda):
+    """K-Means on the card: labels, centroids and inertia of the kernel
+    run equal the plain run's bit for bit, from the same seed."""
+    pts = torch.as_tensor(spatial.make_d2(32768, seed=1), device=cuda)
+    mask = torch.ones(32768, dtype=torch.bool, device=cuda)
+    from repro_torch.core import kmeans
+
+    def run():
+        return kmeans.kmeans(pts, mask, 8, generator=torch.Generator(device=cuda).manual_seed(0))
+
+    before = pairwise_dist.launches["pairwise_dist_sq"]
+    got = run()
+    assert pairwise_dist.launches["pairwise_dist_sq"] == before + 26
+    ops.FORCE = "ref"
+    try:
+        want = run()
+    finally:
+        ops.FORCE = None
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.parametrize("schedule,refine", [("async", "grid"), ("tree", "grid"),
+                                             ("tree", "fps")])
+def test_schedules_card_equal_cpu(cuda, schedule, refine):
+    make, eps, min_pts, grid, max_verts, max_clusters = spatial.PARITY_CASES["rings"]
+    pts = make()
+    cfg = ddc.DDCConfig(eps=eps, min_pts=min_pts, grid=grid, max_verts=max_verts,
+                        max_clusters=max_clusters, schedule=schedule, merge_refine=refine,
+                        block_sparse="never")
+    mask = np.ones(len(pts), bool)
+    meters = ddc.CommMeter(), ddc.CommMeter()
+    on_card = ddc.make_ddc_fn(cfg, 8, meter=meters[0])(pts, mask)
+    on_cpu = ddc.make_ddc_fn(cfg, 8, device="cpu", meter=meters[1])(pts, mask)
+    for a, b in zip((on_card[0], *on_card[1], on_card[2]), (on_cpu[0], *on_cpu[1], on_cpu[2])):
+        assert torch.equal(a.cpu(), b)
+    assert meters[0].snapshot() == meters[1].snapshot()
 
 
 @pytest.mark.parametrize("m,v", [(1, 16), (11, 16), (24, 8), (64, 128), (256, 128),

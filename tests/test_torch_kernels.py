@@ -177,9 +177,10 @@ class TestDispatch:
                            tref.neighbor_count(x, mask, 0.3))
         assert torch.equal(contour_dist.contour_min_d2(c, cnt, val),
                            tref.contour_min_d2(c, cnt, val))
+        assert torch.equal(ops.pairwise_dist_sq(x, x[:5]), tref.pairwise_dist_sq(x, x[:5]))
         assert ops.launch_counts() == {
             "neighbor_count": 0, "min_label_sweep": 0, "neighbor_count_sparse": 0,
-            "min_label_sweep_sparse": 0, "contour_min_d2": 0}
+            "min_label_sweep_sparse": 0, "pairwise_dist_sq": 0, "contour_min_d2": 0}
         assert not ops.use_gpu_kernels(x)
 
     def test_force_ref_keeps_plain_versions(self, monkeypatch):
