@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DDC main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them:
+DDC's pipeline and the LM stack's serving path.
 
     python3 chip_smoke.py
 
@@ -9,6 +10,28 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (non-zero exit):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build.
+LM. The serving path at full width and depth: qwen3-8b (36 layers, d_model
+   4096, GQA 32/8, the flash_attention kernel) and mamba2-1.3b (48 layers,
+   d_model 2048, the ssd_scan kernel), bf16 weights drawn from a seeded
+   ``torch.Generator`` with the reference's scales, 4 requests of 2,048
+   prompt tokens each (seeded), ``greedy_generate`` for 16 tokens
+   (max_len 2,064).  Per model: the kernel launches once per layer in
+   prefill and nowhere else (launch counts zeroed just before the run and
+   read just after); a second kernel run gives bit-identical tokens and
+   logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
+   routed as the reference routes off the TPU), teacher-forced on the
+   kernel run's tokens, is held to the kernel run on the prefill's
+   last-token logits and on every decode step's logits, in bf16 and with
+   the weights cast to float32 (tolerances at ``LM_F32_TOL`` and
+   ``LM_BF16_NOISE``); how many greedy tokens the plain run would pick
+   alike is reported, not gated.  Prefill time, decode time per token,
+   tokens/s and peak memory are printed beside the card.  Each LM kernel
+   is held against its plain version on the inputs the main path gave its
+   first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
+   ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
+   bf16), at ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; flash_attention is
+   also timed at prefill_32k's length (one sequence, one layer's q/k/v)
+   beside ``scaled_dot_product_attention``, not gated.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
    ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
@@ -37,7 +60,8 @@ failure (non-zero exit):
      and inertia equal to the plain run's, both seeded alike.
    Each kernel is then held against its plain version on the main paths'
    own inputs and timed with CUDA events (``pairwise_dist_sq`` also
-   beside ``torch.cdist``): one JSON line ``{"kernels": [...]}``.  One
+   beside ``torch.cdist``): one JSON line ``{"kernels": [...]}`` that also
+   lists the LM phase's two kernels.  One
    more default-path run and one more K-Means run under torch.profiler
    give the device time by kernel and the device's busy share.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
@@ -85,14 +109,83 @@ CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, mul, add
 PD_OPS_PER_PAIR = 6    # as NC_OPS_PER_PAIR; the clip at 0 is a select
 BENCH_SWEEP_NS = (4096, 16384)  # BENCH_phase1.json rows with cluster counts
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
+# The LM phase: two full-width models that fit one card, each with one of
+# the two LM kernels on its prefill path.
+LM_ARCHS = {"qwen3-8b": "flash_attention", "mamba2-1.3b": "ssd_scan"}
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
+LONG_PREFILL = 32_768  # prefill_32k's sequence length
+PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+# The kernel run against the plain run of the same path, per step's logits
+# (prefill's last token, then each decode step teacher-forced on the kernel
+# run's tokens):
+# - in float32 (the same weights cast up): |kernel − plain| <= atol +
+#   rtol·|plain| with (rtol, atol) = LM_F32_TOL, tests/test_models.py's
+#   whole-model 5e-4;
+# - in bf16, as served: the two sum in another order, so single bf16
+#   roundings differ and grow through the layers.  The RMS of kernel −
+#   plain must stay within LM_BF16_NOISE times the RMS of the plain bf16
+#   run's own distance from the plain float32 run: the kernel may differ
+#   from the plain version by no more than bf16 arithmetic differs from
+#   float32 on the same path.
+LM_F32_TOL = (5e-4, 5e-4)
+LM_BF16_NOISE = 2.0
+# Each LM kernel against its plain version on the same inputs.  Both
+# compute in float32 and round once to the output's dtype, so:
+# - in float32 they differ only by the order of their sums:
+#   tests/test_kernels.py's (rtol, atol), LM_KERNEL_F32_TOL;
+# - in bf16 a correct kernel differs by at most one bf16 unit in the last
+#   place (<= 2^-7 of the value: 8 significant bits), where the two float32
+#   results fall on either side of a rounding edge, plus float32 noise near
+#   zero: rtol LM_KERNEL_BF16_RTOL and an atol of LM_KERNEL_BF16_ATOL_FRAC
+#   times the largest |plain| output.
+LM_KERNEL_F32_TOL = {"flash_attention": (3e-4, 3e-4), "ssd_scan": (5e-4, 5e-4)}
+LM_KERNEL_BF16_RTOL = 2.0 ** -7
+LM_KERNEL_BF16_ATOL_FRAC = 2.0 ** -12
+# tests/test_kernels.py's TestFlashAttention and TestSSDScan shapes, then
+# ragged lengths, decode (sq = 1), the head-dim buckets' edges and the
+# models' own heads in bf16; each case held as the LM kernels are above.
+FLASH_SWEEP = [
+    # b, h, hkv, sq, skv, d, causal, window, bf16
+    (1, 4, 4, 128, 128, 32, True, None, False),     # MHA square
+    (2, 8, 2, 128, 256, 64, True, None, False),     # GQA, decode-style kv > q
+    (1, 4, 1, 256, 256, 32, True, None, False),     # MQA
+    (2, 2, 2, 64, 64, 128, True, None, False),      # large head dim
+    (1, 2, 2, 128, 128, 32, False, None, False),    # non-causal
+    (1, 2, 2, 192, 192, 32, True, 32, False),       # windowed
+    (1, 2, 2, 192, 192, 32, True, 100, False),
+    (1, 2, 2, 128, 128, 32, True, None, True),      # bf16
+    (1, 4, 2, 100, 173, 64, True, None, False),     # ragged sq and skv
+    (1, 4, 2, 100, 173, 64, True, 50, True),        # ragged, windowed, bf16
+    (2, 4, 4, 1, 77, 128, True, None, False),       # one decode query
+    (1, 3, 1, 45, 45, 80, False, 7, False),         # d between buckets
+    (1, 2, 2, 33, 70, 16, True, None, False),       # smallest bucket
+    (1, 2, 1, 65, 65, 256, True, None, False),      # largest bucket
+    (1, 32, 8, 300, 300, 128, True, None, True),    # qwen3-8b heads
+]
+SSD_SWEEP = [
+    # b, l, h, dh, ds, bf16
+    (1, 64, 2, 16, 8, False),
+    (2, 128, 3, 16, 8, False),
+    (1, 256, 1, 32, 16, False),
+    (2, 96, 4, 8, 4, False),
+    (2, 100, 3, 16, 8, False),                      # test_chunked_ref's ragged l
+    (2, 100, 3, 16, 8, True),
+    (1, 1, 2, 16, 8, False),
+    (1, 333, 4, 64, 128, False),                    # mamba2-1.3b's head, ragged
+    (2, 70, 3, 40, 256, False),
+    (1, 300, 4, 64, 128, True),
+]
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """The least time (ms) the card could take: operations over ``peak``
+    (the rate for the inputs' type) or bytes over the memory rate,
+    whichever is longer."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -122,36 +215,6 @@ def _short(name: str) -> str:
     """A kernel's name without its return type, template and arguments."""
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
     return name.split("(")[0].split("<")[0].strip()[:60]
-
-
-def profile_main_path(torch, run, pts, mask, timed: dict) -> dict:
-    """Device time by kernel over one more main-path run under
-    torch.profiler, and the device's busy share of the unprofiled run's
-    wall time (``timed``).  Kernels run on one stream, so their times do
-    not overlap and their sum is the busy time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(pts, mask)
-        torch.cuda.synchronize()
-    rows = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        ms, count = rows.get(_short(e.key), (0.0, 0))
-        rows[_short(e.key)] = (ms + us / 1e3, count + e.count)
-    wall_s = timed["phase1_s"] + timed["phase2_s"]
-    if not rows:
-        return {"device_ms": "not measured", "wall_s": wall_s}
-    device_ms = sum(ms for ms, _ in rows.values())
-    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"wall_s": wall_s, "device_ms": device_ms,
-            "busy_share": device_ms / 1e3 / wall_s, "device_calls": sum(
-                c for _, c in rows.values()),
-            "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in top]}
 
 
 def same(torch, a, b) -> bool:
@@ -226,26 +289,51 @@ def check_output(torch, cfg, out) -> int:
     return n_global
 
 
+def tensor_bytes(t) -> int:
+    """Bytes of the distinct elements ``t`` addresses: an axis broadcast
+    with stride 0 is read once."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0) * t.element_size()
+
+
+def bf16_tol(want) -> tuple[float, float]:
+    """(rtol, atol) of a bf16 kernel output against its plain version."""
+    return LM_KERNEL_BF16_RTOL, LM_KERNEL_BF16_ATOL_FRAC * float(want.double().abs().max())
+
+
+def within(torch, got, want, tol) -> bool:
+    """|got − want| <= atol + rtol·|want| everywhere, in float64, and the
+    same shape and dtype; ``tol`` = (rtol, atol)."""
+    rtol, atol = tol
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    g, w = got.double(), want.double()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
 def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound_by,
-                 launches, launched_in, library=None) -> dict:
-    """Hold one kernel against its plain version on the same inputs, and
-    time both, and ``library`` (one PyTorch call computing the same
+                 launches, launched_in, library=None, tol=None, extra=None) -> dict:
+    """Hold one kernel against its plain version on the same inputs (bit
+    for bit, or within ``tol`` = (rtol, atol), or ``tol(plain output)``),
+    and time both, and ``library`` (one PyTorch call computing the same
     function, timed only) where there is one."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     exact = same(torch, got, want)
     err = float((got.double() - want.double()).abs().max())
-    if not exact:
+    tol = tol(want) if callable(tol) else tol
+    if not (exact if tol is None else within(torch, got, want, tol)):
         raise RuntimeError(f"{name}: kernel differs from its plain version "
-                           f"(max abs err {err})")
+                           f"(max abs err {err}, tolerance {tol or 0.0})")
     entry = {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
         "shape": shape, "launches": launches, "launched_in": launched_in, "exact": exact,
-        "max_abs_err": err, "tolerance": 0.0,
+        "max_abs_err": err, "max_abs_plain": float(want.double().abs().max()),
+        "tolerance": list(tol) if tol else 0.0,
         "ms": median_ms(torch, kern, 20, per=10), "plain_ms": median_ms(torch, plain, 3),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None if library is None else median_ms(torch, library, 20, per=10),
+        **(extra or {}),
     }
     log(json.dumps(entry))
     return entry
@@ -336,6 +424,343 @@ def phase2_bench(np, ddc, spatial, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _flash_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs a causal (right-aligned) or full attention row
+    set sees."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(min(skv, max(0, off + r + 1)) for r in range(sq))
+
+
+def lm_kernel_entries(torch, ops, ref, ssd, captured: dict, launches: dict) -> list[dict]:
+    """The two LM kernels against their plain versions (the routes
+    ``ops`` takes under FORCE="ref") on the inputs the main path gave its
+    first layer, in bf16 as served and cast up to float32 (the float32
+    build), timed beside the plain versions and, for attention,
+    ``scaled_dot_product_attention``.  Bounds use the bf16 tensor-core
+    rate (the inputs are bf16); ``bound_fp32_ms`` gives the float32
+    CUDA-core bound the kernels run against.  Bytes count each distinct
+    input element once (ssd_scan's c is broadcast over the heads)."""
+    q, k, v = captured["flash_attention"]
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    ops_fa = b * h * _flash_pairs(s, s, True) * 4 * d      # q·k and p·v, 2d each
+    bytes_fa = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)   # q, k, v, out
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    f32_fa = f32_check(torch, "flash_attention",
+                       lambda: ops.flash_attention(q32, k32, v32, causal=True),
+                       lambda: ref.flash_attention_chunked(q32, k32, v32, causal=True))
+    del q32, k32, v32
+    b_ms, b_by = bound(ops_fa, bytes_fa, PEAK_BF16)
+    entries = [kernel_entry(
+        torch, "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:99", [b, h, hkv, s, d, str(q.dtype)],
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_chunked(q, k, v, causal=True), b_ms, b_by,
+        launches["flash_attention"], "qwen3-8b prefill",
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        tol=bf16_tol,
+        extra={"bound_fp32_ms": bound(ops_fa, bytes_fa)[0], "operations": ops_fa,
+               "bytes": bytes_fa, **f32_fa})]
+    x, a, bb, c = captured["ssd_scan"]
+    bsz, l, hs, dh = x.shape
+    ds = bb.shape[-1]
+    lc = ssd.CHUNK
+    # The chunked form per (batch, step, head): c·b and G·x over the causal
+    # half of each chunk, c·S and the state update over (ds, dh).
+    ops_ssd = bsz * l * hs * ((lc + 1) * (ds + dh) + 4 * ds * dh)
+    bytes_ssd = tensor_bytes(x) * 2 + tensor_bytes(a) + tensor_bytes(bb) + tensor_bytes(c)
+    # Cast up as the main path hands them over: c stays a broadcast view.
+    c32 = c[:, :, :1].float().expand(c.shape) if c.stride(2) == 0 else c.float()
+    x32, b32 = x.float(), bb.float()
+    f32_ssd = f32_check(torch, "ssd_scan", lambda: ops.ssd_scan(x32, a, b32, c32),
+                        lambda: ref.ssd_scan_chunked(x32, a, b32, c32,
+                                                     chunk=ops.PLAIN_SSD_CHUNK))
+    del x32, b32, c32
+    b_ms, b_by = bound(ops_ssd, bytes_ssd, PEAK_BF16)
+    entries.append(kernel_entry(
+        torch, "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:78",
+        [bsz, l, hs, dh, ds, str(x.dtype)], lambda: ops.ssd_scan(x, a, bb, c),
+        lambda: ref.ssd_scan_chunked(x, a, bb, c, chunk=ops.PLAIN_SSD_CHUNK), b_ms, b_by,
+        launches["ssd_scan"], "mamba2-1.3b prefill", tol=bf16_tol,
+        extra={"bound_fp32_ms": bound(ops_ssd, bytes_ssd)[0], "operations": ops_ssd,
+               "bytes": bytes_ssd, "c_head_stride": c.stride(2), "chunk": lc, **f32_ssd}))
+    return entries
+
+
+def held(torch, what, got, want, tol) -> dict:
+    """Raise unless ``got`` is within ``tol`` of ``want``; returns the
+    error, the plain output's scale and the tolerance."""
+    err = float((got.double() - want.double()).abs().max())
+    if not within(torch, got, want, tol):
+        raise RuntimeError(f"{what}: kernel differs from its plain version (max abs err "
+                           f"{err}, tolerance {tol})")
+    return {"max_abs_err": err, "max_abs_plain": float(want.double().abs().max()),
+            "tolerance": list(tol)}
+
+
+def f32_check(torch, name, kern, plain) -> dict:
+    """The float32 build of an LM kernel against its plain version, within
+    LM_KERNEL_F32_TOL."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    out = held(torch, f"{name} (float32)", got, want, LM_KERNEL_F32_TOL[name])
+    return {f"f32_{k}": v for k, v in out.items()}
+
+
+def lm_kernel_sweep(torch, ops, ref, dev) -> list[dict]:
+    """FLASH_SWEEP and SSD_SWEEP: each case from a seeded generator, one
+    kernel launch (counted) against the plain version tests/test_kernels.py
+    holds it to (exact attention, sequential SSD), float32 at
+    LM_KERNEL_F32_TOL and bf16 at ``bf16_tol``; a second launch must give
+    the same bits."""
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(shape, bf16):
+        t = torch.randn(shape, generator=g, device=dev)
+        return t.bfloat16() if bf16 else t
+
+    def hold(name, case, kern, plain, bf16):
+        before = ops.launch_counts()[name]
+        got = kern()
+        torch.cuda.synchronize()
+        if ops.launch_counts()[name] != before + 1:
+            raise RuntimeError(f"{name} {case}: the kernel did not launch")
+        want = plain()
+        out = held(torch, f"{name} {case}", got, want,
+                   bf16_tol(want) if bf16 else LM_KERNEL_F32_TOL[name])
+        if not same(torch, got, kern()):
+            raise RuntimeError(f"{name} {case}: two kernel launches differ")
+        return {"kernel": name, "case": list(case), **out}
+
+    rows = []
+    for case in FLASH_SWEEP:
+        b, h, hkv, sq, skv, d, causal, window, bf16 = case
+        q, k, v = (randn(shape, bf16) for shape in
+                   ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+        rows.append(hold("flash_attention", case,
+                         lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                         lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
+                         bf16))
+    for case in SSD_SWEEP:
+        b, l, h, dh, ds, bf16 = case
+        x, bb, c = randn((b, l, h, dh), bf16), randn((b, l, h, ds), bf16), randn((b, l, h, ds), bf16)
+        a = -0.1 * randn((b, l, h), False).abs()
+        rows.append(hold("ssd_scan", case, lambda: ops.ssd_scan(x, a, bb, c),
+                         lambda: ref.ssd_scan(x, a, bb, c), bf16))
+    return rows
+
+
+def long_prefill_attention(torch, ops, dev) -> dict:
+    """flash_attention at prefill_32k's length: one sequence, one qwen3-8b
+    layer's q/k/v shapes (random bf16), kernel and SDPA timed, not gated."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    h, hkv, d = 32, 8, 128
+    q = torch.randn((1, h, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((1, hkv, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn((1, hkv, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
+    ops_fa = h * _flash_pairs(LONG_PREFILL, LONG_PREFILL, True) * 4 * d
+    before = ops.launch_counts()["flash_attention"]
+    out = {"shape": [1, h, hkv, LONG_PREFILL, d, "bfloat16"],
+           "ms": median_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), 3),
+           "sdpa_ms": median_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True), 5, per=3),
+           "bound_ms": ops_fa / PEAK_BF16 * 1e3, "bound_fp32_ms": ops_fa / PEAK_FP32 * 1e3}
+    if ops.launch_counts()["flash_attention"] == before:
+        raise RuntimeError("the 32k attention timing did not launch the kernel")
+    return out
+
+
+def profile_fn(torch, fn, wall_s: float, top: int = 6) -> dict:
+    """Device time by kernel over one call of ``fn`` under torch.profiler,
+    and its share of ``wall_s`` (the same work's unprofiled wall time).
+    Kernels run on one stream, so their times do not overlap and their sum
+    is the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms, count = rows.get(_short(e.key), (0.0, 0))
+        rows[_short(e.key)] = (ms + us / 1e3, count + e.count)
+    if not rows:
+        return {"device_ms": "not measured", "wall_s": wall_s}
+    device_ms = sum(ms for ms, _ in rows.values())
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_s": wall_s, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall_s,
+            "device_calls": sum(c for _, c in rows.values()),
+            "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in ranked]}
+
+
+def cast_model(torch, T, cfg, model, dtype):
+    """A copy of ``model`` with every parameter cast to ``dtype``."""
+    out = T.LM(cfg, None, device=model.embed.device, dtype=dtype)
+    for (name, dst), (name_src, src) in zip(out.named_parameters(), model.named_parameters()):
+        assert name == name_src
+        dst.copy_(src)
+    return out
+
+
+def forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, *, plain: bool):
+    """Prefill ``prompt``, then decode teacher-forced on ``toks``: each
+    step's logits (prefill's first), with the kernels or (``plain``) the
+    plain versions, which must launch no kernel; and the prefill's wall
+    time."""
+    before = ops.launch_counts()
+    ops.FORCE = "ref" if plain else None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, pos = engine.build_prefill(cfg, scfg)(model, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [lg]
+        decode = engine.build_decode(cfg, scfg)
+        for i in range(toks.shape[1] - 1):
+            lg, cache = decode(model, toks[:, i:i + 1], cache, pos + i)
+            out.append(lg)
+        torch.cuda.synchronize()
+    finally:
+        ops.FORCE = None
+    if plain and ops.launch_counts() != before:
+        raise RuntimeError(f"{cfg.name}: the plain run launched a kernel")
+    return out, prefill_s
+
+
+def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
+    """Serve each LM_ARCHS model at full width and depth (see the module
+    docstring) and print its numbers.  Returns ({kernel: main-path
+    launches}, {kernel: first-layer inputs})."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("float32 matmuls must run in IEEE float32 (TF32 off)")
+    launches_by_kernel, captured = {}, {}
+    for arch, kname in LM_ARCHS.items():
+        cfg = configs.get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                              dtype=torch.bfloat16)
+        prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        scfg = engine.ServeConfig(max_len=LM_PROMPT + LM_STEPS)
+        n_params = sum(p.numel() for p in model.parameters())
+
+        # Two kernel runs: the first counted, the second (warm, so its times
+        # are the ones reported) captures the first layer's kernel inputs;
+        # both must agree bit for bit.
+        runs = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            orig = getattr(ops, kname)
+            if i == 1:
+                def capture(*args, _orig=orig, _name=kname, **kw):
+                    captured.setdefault(_name, args)
+                    return _orig(*args, **kw)
+                setattr(ops, kname, capture)
+            ops.reset_launch_counts()
+            try:
+                tr: dict = {}
+                toks = engine.greedy_generate(cfg, model, prompt, LM_STEPS, scfg, trace=tr)
+                torch.cuda.synchronize()
+            finally:
+                setattr(ops, kname, orig)
+            runs.append((toks, tr, ops.launch_counts(), torch.cuda.max_memory_allocated(dev)))
+        (toks, tr, launches, peak), (toks2, tr2, _, _) = runs
+        want = {k: (cfg.n_layers if k == kname else 0) for k in launches}
+        log(f"{arch}: launches {launches}, prefill {tr['prefill_s']:.4f}s, decode "
+            f"{tr['decode_s']:.4f}s")
+        if launches != want:
+            raise RuntimeError(f"{arch}: launches {launches}, expected {want} (one per layer "
+                               "in prefill, none in decode)")
+        if not same(torch, toks, toks2) or not all(
+                same(torch, a, b) for a, b in zip(tr["logits"], tr2["logits"])):
+            raise RuntimeError(f"{arch}: two kernel runs differ")
+        if toks.shape != (LM_BATCH, LM_STEPS) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab or not all(
+                    bool(torch.isfinite(lg).all()) for lg in tr["logits"]):
+            raise RuntimeError(f"{arch}: tokens or logits out of range")
+
+        # One more prefill and one decode step under the profiler: device
+        # time by kernel.
+        prof = {"prefill": profile_fn(torch, lambda: engine.build_prefill(cfg, scfg)(
+            model, prompt), tr2["prefill_s"])}
+        _, cache_p, pos_p = engine.build_prefill(cfg, scfg)(model, prompt)
+        prof["decode_step"] = profile_fn(torch, lambda: engine.build_decode(cfg, scfg)(
+            model, toks[:, :1], cache_p, pos_p), tr2["decode_s"] / (LM_STEPS - 1))
+        del cache_p
+
+        # The plain run of the same path, teacher-forced on the kernel run's
+        # tokens, in bf16; then both runs again with the weights in float32.
+        plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
+                                            toks, plain=True)
+        model32 = cast_model(torch, T, cfg, model, torch.float32)
+        kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks, plain=False)
+        plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks, plain=True)
+        del model32
+        torch.cuda.empty_cache()
+
+        def rms(a, b):
+            return float((a.double() - b.double()).pow(2).mean().sqrt())
+
+        errs = [float((a.double() - b.double()).abs().max()) for a, b in zip(tr["logits"], plain)]
+        errs32 = [float((a.double() - b.double()).abs().max()) for a, b in zip(kern32, plain32)]
+        rms_kp = [rms(a, b) for a, b in zip(tr["logits"], plain)]
+        rms_p32 = [rms(a, b) for a, b in zip(plain, plain32)]
+        rms_k32 = [rms(a, b) for a, b in zip(tr["logits"], plain32)]
+        scale = max(float(p.double().abs().max()) for p in plain)
+        agree = sum(int((torch.argmax(p[..., :cfg.vocab], -1) == toks[:, i]).sum())
+                    for i, p in enumerate(plain))
+        log(f"{arch}: float32 kernel vs plain max abs err per step {errs32}; bf16 kernel vs "
+            f"plain max abs {errs}, RMS {rms_kp}, bf16 plain vs float32 plain RMS {rms_p32} "
+            f"(max |logit| {scale}); greedy agreement {agree}/{toks.numel()}")
+        if not all(within(torch, a, b, LM_F32_TOL) for a, b in zip(kern32, plain32)):
+            raise RuntimeError(f"{arch}: float32 kernel run differs from the plain run beyond "
+                               f"{LM_F32_TOL}: {errs32}")
+        if not all(kp <= LM_BF16_NOISE * p32 for kp, p32 in zip(rms_kp, rms_p32)):
+            raise RuntimeError(f"{arch}: bf16 kernel run differs from the plain run by more "
+                               f"than {LM_BF16_NOISE} x bf16's own error: {rms_kp} vs {rms_p32}")
+        launches_by_kernel[kname] = launches[kname]
+        decode_tokens = LM_BATCH * (LM_STEPS - 1)
+        numbers = {
+            "card": card, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params": n_params, "param_dtype": "bfloat16", "batch": LM_BATCH,
+            "prompt": LM_PROMPT, "steps": LM_STEPS, "max_len": scfg.max_len,
+            "init_s": init_s, "prefill_s": tr2["prefill_s"],
+            "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / tr2["prefill_s"],
+            "decode_s": tr2["decode_s"],
+            "decode_ms_per_token": tr2["decode_s"] / (LM_STEPS - 1) * 1e3,
+            "decode_tokens_per_s": decode_tokens / tr2["decode_s"],
+            "first_run_prefill_s": tr["prefill_s"], "first_run_decode_s": tr["decode_s"],
+            "plain_prefill_s": plain_prefill_s, "peak_mem_gb": peak / 1e9,
+            "launches": launches, "two_runs_identical": True, "profile": prof,
+            "f32_tolerance": list(LM_F32_TOL), "f32_max_abs_err": errs32,
+            "bf16_noise_factor": LM_BF16_NOISE, "bf16_max_abs_err": errs,
+            "bf16_rms_kernel_vs_plain": rms_kp, "bf16_rms_plain_vs_f32": rms_p32,
+            "bf16_rms_kernel_vs_f32": rms_k32, "max_abs_logit": scale,
+            "greedy_agreement": [agree, toks.numel()], "first_tokens": toks[0, :8].tolist()}
+        print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
+        del model, tr, tr2, runs, toks, toks2, plain, kern32, plain32
+        torch.cuda.empty_cache()
+    return launches_by_kernel, captured
+
+
 def main() -> int:
     import torch
 
@@ -348,6 +773,7 @@ def main() -> int:
     from repro_torch.core import dbscan, ddc
     from repro_torch.data import spatial
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -362,6 +788,17 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     print(json.dumps({"build_s": round(build_s, 3), "built": sorted(built)}), flush=True)
+
+    # -- LM: the serving path at full width and depth ----------------------
+    t_lm = time.perf_counter()
+    lm_launches, captured = lm_phase(torch, dev, card.splitlines()[0])
+    lm_kernels = lm_kernel_entries(torch, ops, ref, ssd, captured, lm_launches)
+    del captured
+    print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, dev)}), flush=True)
+    long_attn = long_prefill_attention(torch, ops, dev)
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm_long_prefill_attention": long_attn,
+                      "lm_phase_s": time.perf_counter() - t_lm}), flush=True)
 
     # -- 2. full width: eps search on the default configuration ----------
     pts = spatial.make_d2(FULL_N, seed=1)
@@ -549,11 +986,16 @@ def main() -> int:
                             launches[name], path, libraries.get(name))
                for name, src, replaces, shape, kern, plain, (b_ms, b_by), launches, path
                in cases]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
+    # One more default-path run and one more K-Means run under the profiler,
+    # against the unprofiled runs' wall time.
     run = ddc.make_ddc_fn(cfg, LANES, device=dev)
-    print(json.dumps({"profile": profile_main_path(torch, run, pts, mask, ts)}), flush=True)
+    print(json.dumps({"profile": profile_fn(torch, lambda: run(pts, mask),
+                                            ts["phase1_s"] + ts["phase2_s"], top=10)}),
+          flush=True)
     run_km = ddc.make_ddc_fn(cfg_km, LANES, device=dev)
-    print(json.dumps({"profile_kmeans": profile_main_path(torch, run_km, pts, mask, tkm)}),
+    print(json.dumps({"profile_kmeans": profile_fn(torch, lambda: run_km(pts, mask),
+                                                   tkm["phase1_s"] + tkm["phase2_s"], top=10)}),
           flush=True)
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------

@@ -8,7 +8,10 @@ padded here.
 
 ``FORCE = "ref"`` sends every op to the plain version whatever the
 device (the tests and the comparison phase of ``chip_smoke.py`` use it
-to run the same path without the kernels on the card).
+to run the same path without the kernels on the card).  The LM ops
+(``flash_attention``, ``ssd_scan``) route their plain versions exactly
+as the reference's ``kernels/ops.py`` routes off the TPU: the chunked
+forms for long sequences, the exact ones otherwise.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import numpy as np
 import torch
 
 from . import contour_dist as _cd
+from . import flash_attention as _fa
 from . import pairwise_dist as _pd
 from . import ref
+from . import ssd_scan as _ssd
 from .ref import PAIR_FIRST, PAIR_VALID
 
 FORCE: str | None = None
@@ -148,11 +153,50 @@ def min_label_sweep_sparse(x, mask, labels, core, eps, pairs: TilePairs, *,
     return _pd.min_label_sweep_sparse(x, mask, labels, core, eps, pairs, bt=bt)
 
 
+# -- LM stack: attention and the Mamba-2 SSD scan ----------------------------
+
+CHUNKED_ATTENTION_MIN = 2**21  # sq·skv above which the plain route is chunked
+PLAIN_SSD_CHUNK = 128          # the plain route's SSD chunk (the reference's default)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """q: (b, h, sq, d); k, v: (b, hkv, skv, d) → (b, h, sq, d).
+
+    A CUDA tensor launches the kernel at any length; unequal q/v head
+    dims (MLA) raise ``ValueError`` there.  The plain route (CPU tensors,
+    or ``FORCE == "ref"``) is the reference's off the TPU: the chunked
+    online softmax when sq·skv > 2**21 and the dims are equal, the exact
+    version otherwise."""
+    if FORCE == "ref" or q.device.type == "cpu":
+        if (q.shape[2] * k.shape[2] > CHUNKED_ATTENTION_MIN
+                and v.shape[-1] == q.shape[-1]):
+            return ref.flash_attention_chunked(q, k, v, causal=causal, scale=scale,
+                                               window=window)
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD scan; x: (b, l, h, dh), a: (b, l, h) f32, b/c: (b, l, h,
+    ds) → (b, l, h, dh).  A CUDA tensor launches the kernel (its own chunk,
+    ``ssd_scan.CHUNK``: the result depends on the chunk only through
+    rounding).  The plain route (CPU tensors, or ``FORCE == "ref"``) is the
+    reference's off the TPU: chunked at ``PLAIN_SSD_CHUNK`` when l >=
+    2·PLAIN_SSD_CHUNK, the sequential recurrence otherwise."""
+    if FORCE == "ref" or x.device.type == "cpu":
+        if x.shape[1] >= 2 * PLAIN_SSD_CHUNK:
+            return ref.ssd_scan_chunked(x, a, b, c, chunk=PLAIN_SSD_CHUNK)
+        return ref.ssd_scan(x, a, b, c)
+    return _ssd.ssd_scan(x, a, b, c)
+
+
 def launch_counts() -> dict[str, int]:
-    return {**_pd.launches, **_cd.launches}
+    return {**_pd.launches, **_cd.launches, **_fa.launches, **_ssd.launches}
 
 
 def reset_launch_counts() -> None:
-    for d in (_pd.launches, _cd.launches):
+    for d in (_pd.launches, _cd.launches, _fa.launches, _ssd.launches):
         for k in d:
             d[k] = 0

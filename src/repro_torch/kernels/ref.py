@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the phase-1 and phase-2 kernels.
+"""Plain PyTorch versions of the kernels: DDC's phase-1 and phase-2
+kernels, and the LM stack's attention and SSD scan.
 
-Each function defines the semantics its CUDA kernel must reproduce bit
-for bit on the card, and is what the ops run for CPU tensors.  Every
+DDC's functions define the semantics their CUDA kernels must reproduce
+bit for bit on the card, and are what the ops run for CPU tensors.  Every
 floating-point step is a separate elementwise op in a fixed order, never
 a matrix product: a BLAS may contract or reorder the depth-2 dot product,
 and the kernels promise the exact float32 expression written here.  Where
@@ -12,6 +13,12 @@ The row loops bound peak memory to ``ROW_CHUNK`` rows of the (n, n)
 matrix, and the block-sparse versions to ``PAIR_CHUNK`` pair tests at a
 time; each entry is computed independently and folded with an integer
 sum or min, which no order changes, so chunking changes no bit.
+
+The LM functions (``flash_attention``, ``flash_attention_chunked``,
+``ssd_scan``, ``ssd_scan_chunked``) mirror ``repro/kernels/ref.py``
+function by function: float32 einsums (IEEE float32 on the card: the
+callers keep TF32 off), the result in the input's dtype.  Their kernels
+sum in another order, so they are held to these within a tolerance.
 """
 from __future__ import annotations
 
@@ -213,3 +220,146 @@ def contour_min_d2(contours: torch.Tensor, counts: torch.Tensor,
         d2 = torch.where(ok, d2, BIG)
         out[r0:r1] = d2.reshape(r1 - r0, v, m, v).amin(dim=(1, 3))
     return out
+
+
+# -- LM stack: attention and the Mamba-2 SSD scan ----------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Exact attention.  q: (b, h, sq, d), k/v: (b, hkv, skv, d); GQA with
+    h a multiple of hkv (head i reads kv head i // rep).  Positions are
+    right-aligned (query row r sits at skv − sq + r, so decode sees the
+    whole cache); ``window``: attend to keys in (pos − window, pos].
+    Masked logits are −inf, as in the reference, so a row with no visible
+    key is NaN."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    skv = k.shape[2]
+    dev = q.device
+    qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=dev)[None, :]
+    if causal:
+        logits = logits.masked_fill(~(kpos <= qpos), -torch.inf)
+    if window is not None:
+        logits = logits.masked_fill(~(kpos > qpos - window), -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, scale: float | None = None,
+                            window: int | None = None, bq: int = 512,
+                            bk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over (bq, bk) blocks, as the reference's
+    ``flash_attention_chunked``: the (sq, skv) logits never exist whole.
+    Padding keys and masked logits get −1e30 (not −inf), every kv block
+    is visited, and the sum is divided by max(l, 1e-30)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    bq, bk = min(bq, sq), min(bk, skv)
+    pq, pk = (-sq) % bq, (-skv) % bk
+    qp = torch.nn.functional.pad(q, (0, 0, 0, pq)) if pq else q
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pk)) if pk else k
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pk)) if pk else v
+    nq, nk = qp.shape[2] // bq, kp.shape[2] // bk
+    qb = qp.reshape(b, hkv, rep, nq, bq, d).float() * scale
+    kb = kp.reshape(b, hkv, nk, bk, d).float()
+    vb = vp.reshape(b, hkv, nk, bk, d).float()
+    q_off = skv - sq
+    dev = q.device
+    blocks = []
+    for qi in range(nq):
+        m_run = torch.full((b, hkv, rep, bq), -1e30, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((b, hkv, rep, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, rep, bq, d), dtype=torch.float32, device=dev)
+        qpos = q_off + qi * bq + torch.arange(bq, device=dev)[:, None]
+        for j in range(nk):
+            s = torch.einsum("bgrqd,bgkd->bgrqk", qb[:, :, :, qi], kb[:, :, j])
+            kpos = j * bk + torch.arange(bk, device=dev)[None, :]
+            mask = kpos < skv
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p, vb[:, :, j])
+            m_run = m_new
+        blocks.append(acc / torch.clamp_min(l_run, 1e-30)[..., None])
+    out = torch.stack(blocks, dim=3).reshape(b, h, nq * bq, d)[:, :, :sq]
+    return out.to(q.dtype)
+
+
+def ssd_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     *, chunk: int = 128) -> torch.Tensor:
+    """Chunked SSD, as the reference's ``ssd_scan_chunked``: per chunk the
+    causal (C·Bᵀ ⊙ decay)·X product plus the carried state's
+    contribution, then the state update.  Shapes as ``ssd_scan``.
+
+    One deliberate difference: the decay above the diagonal is masked with
+    ``where`` (as the reference's Pallas kernel masks it), not multiplied
+    by 0.  There exp(cum_i − cum_j) grows, and once a chunk's decay sums to
+    more than ~88 it overflows to inf, and the reference's inf·0 turns the
+    whole output NaN (a Mamba-2 layer at init decays by ~0.7 a step, so a
+    128-step chunk does).  Wherever the reference is finite the two agree
+    bit for bit."""
+    bsz, l, h, dh = x.shape
+    ds = b.shape[-1]
+    ch = min(chunk, l)
+    pad = (-l) % ch
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
+    n = x.shape[1] // ch
+    causal = torch.tril(torch.ones((ch, ch), dtype=torch.bool, device=x.device))
+    state = torch.zeros((bsz, h, ds, dh), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(n):
+        sl = slice(i * ch, (i + 1) * ch)
+        xc, ac, bc, cc = (t[:, sl].float() for t in (x, a, b, c))
+        cum = torch.cumsum(ac, dim=1)                                   # (bsz, ch, h)
+        decay = torch.where(causal[None, :, :, None],
+                            torch.exp(cum[:, :, None] - cum[:, None, :]), 0.0)
+        cb = torch.einsum("bihs,bjhs->bijh", cc, bc)
+        y = torch.einsum("bijh,bjhd->bihd", cb * decay, xc)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("bihs,bhsd->bihd", cc, state)
+        last = cum[:, -1]                                               # (bsz, h)
+        w = torch.exp(last[:, None] - cum)                              # (bsz, ch, h)
+        state = torch.exp(last)[..., None, None] * state + torch.einsum(
+            "bihs,bihd,bih->bhsd", bc, xc, w)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :l].to(x.dtype)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD, the sequential recurrence.  x: (b, l, h, dh); a: (b, l,
+    h) log-decay (≤ 0); b, c: (b, l, h, ds).  Returns y (b, l, h, dh) in
+    x's dtype, with S_t = exp(a_t)·S_{t−1} + b_tᵀ x_t (ds, dh) and
+    y_t = c_t · S_t, from S_0 = 0, all in float32."""
+    bsz, l, h, dh = x.shape
+    ds = b.shape[-1]
+    state = torch.zeros((bsz, h, ds, dh), dtype=torch.float32, device=x.device)
+    x32, a32, b32, c32 = x.float(), a.float(), b.float(), c.float()
+    ys = []
+    for t in range(l):
+        state = state * torch.exp(a32[:, t])[..., None, None] \
+            + b32[:, t][..., :, None] * x32[:, t][..., None, :]
+        ys.append(torch.einsum("bhs,bhsd->bhd", c32[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)

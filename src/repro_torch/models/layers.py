@@ -1,0 +1,334 @@
+"""Layers of the LM stack's serving path: the port of
+``repro/models/layers.py`` for dense GQA/MQA attention (qk-norm, rope,
+windows), the MLP and the Mamba-2 (SSD) block.
+
+Parameters live in ``nn.Module``s whose leaves keep the reference's names
+(``wq``, ``k_norm``, ``w_in``, ``a_log``, ...); the math lives in plain
+functions named as in the reference (``rmsnorm``, ``attn_apply``,
+``mamba_decode``, ...), which take such a module where the reference takes
+a parameter dict.  Matmuls run in the parameters' dtype; norms, softmax,
+rope, decode attention and the SSM state in float32, as in the reference.
+On the card, float32 matmuls must run in IEEE float32 (the callers keep
+TF32 off).  Prefill reaches the two CUDA kernels through
+``kernels.ops.flash_attention`` and ``kernels.ops.ssd_scan``; decode runs
+no kernel (float32 einsums and an elementwise recurrence, as in the
+reference).
+
+Not here yet: MLA, MoE and cross-attention (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+
+
+def _init(gen: torch.Generator | None, shape, scale=None, *, device=None,
+          dtype=torch.float32) -> nn.Parameter:
+    """normal(shape) · scale (default 1/√shape[0]) drawn in float32 from
+    ``gen`` on ``device``, then cast to ``dtype``, as the reference's
+    ``_init``; uninitialised when ``gen`` is None (parameters that are
+    loaded afterwards)."""
+    if gen is None:
+        t = torch.empty(shape, device=device, dtype=dtype)
+    else:
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        t = (torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+             * scale).to(dtype)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _const(shape, value: float, *, device=None, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms / positional
+# ---------------------------------------------------------------------------
+
+
+class Norm(nn.Module):
+    """{"w"} for rmsnorm, {"w", "b"} for layernorm."""
+
+    def __init__(self, cfg, d: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.w = _const((d,), 1.0, device=device, dtype=dtype)
+        if cfg.norm == "layernorm":
+            self.b = _const((d,), 0.0, device=device, dtype=dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalised in float32, rounded to x's dtype, THEN scaled by w (the
+    reference's order)."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def norm_apply(cfg, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p.w, p.b, cfg.norm_eps)
+    return rmsnorm(x, p.w, cfg.norm_eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, S, D) with even D; positions: (S,) or (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    if positions.dim() == 1:
+        ang = positions.float()[None, None, :, None] * freqs
+    else:
+        ang = positions.float()[:, None, :, None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rot.to(x.dtype)
+
+
+def sinusoid_pos(seq: int, d: int, offset: int = 0, *, device=None) -> torch.Tensor:
+    pos = np.arange(offset, offset + seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * dim / d))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(emb, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, d: int, ff: int, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.w1 = _init(gen, (d, ff), **kw)
+        self.w2 = _init(gen, (ff, d), **kw)
+        if cfg.act == "silu":
+            self.w3 = _init(gen, (d, ff), **kw)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p.w1
+    if cfg.act == "silu":
+        h = F.silu(h) * (x @ p.w3)
+    else:
+        h = gelu(h)
+    return h @ p.w2
+
+
+# ---------------------------------------------------------------------------
+# Attention — GQA/MQA (+ qk-norm, windows)
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kw = dict(device=device, dtype=dtype)
+        self.wq = _init(gen, (d, h * hd), **kw)
+        self.wk = _init(gen, (d, kv * hd), **kw)
+        self.wv = _init(gen, (d, kv * hd), **kw)
+        self.wo = _init(gen, (h * hd, d), 1.0 / math.sqrt(h * hd), **kw)
+        if cfg.qk_norm:
+            self.q_norm = _const((hd,), 1.0, **kw)
+            self.k_norm = _const((hd,), 1.0, **kw)
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:  # (B,S,n*hd) -> (B,n,S,hd)
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:  # (B,n,S,hd) -> (B,S,n*hd)
+    b, n, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, n * hd)
+
+
+def gqa_qkv(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor):
+    q = _split_heads(x @ p.wq, cfg.n_heads)
+    k = _split_heads(x @ p.wk, cfg.n_kv_heads)
+    v = _split_heads(x @ p.wv, cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    if cfg.pos_embed == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_apply(cfg, p: Attention, x: torch.Tensor, *, causal: bool = True, window=None,
+               positions: torch.Tensor | None = None):
+    """Full-sequence (prefill) attention through the flash kernel.  Returns
+    (out, (k, v)) so prefill can seed the cache."""
+    b, s, d = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = gqa_qkv(cfg, p, x, positions)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return _merge_heads(o) @ p.wo, (k, v)
+
+
+def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, window=None,
+                ring: bool = False):
+    """One-token decode against a (B, kv, S, hd) cache.  ``pos``: the
+    absolute position written.
+
+    The cache is updated IN PLACE (the reference returns a new one): the
+    new k/v go to slot ``pos`` (``pos % S`` with ``ring``), the start
+    clamped to [0, S − 1] as ``dynamic_update_slice_in_dim`` clamps it.
+    ``ring``: the cache is a circular buffer of exactly ``window`` slots,
+    and every slot's absolute position is recovered arithmetically for the
+    mask.  Attention runs in float32 einsums, as in the reference."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    b = x.shape[0]
+    s_max = k_cache.shape[2]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = gqa_qkv(cfg, p, x, positions)
+    slot = pos % s_max if ring else pos
+    slot = min(max(slot, 0), s_max - 1)
+    k_cache[:, :, slot] = k_new[:, :, 0]
+    v_cache[:, :, slot] = v_new[:, :, 0]
+    kv = k_cache.shape[1]
+    rep = cfg.n_heads // kv
+    qg = q.reshape(b, kv, rep, cfg.head_dim)  # (B,kv,rep,hd) from (B,H,1,hd)
+    logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), k_cache.float()) \
+        / math.sqrt(cfg.head_dim)
+    slots = torch.arange(s_max, device=x.device)
+    if ring:
+        # Absolute position stored in each slot: the largest value <= pos
+        # congruent to the slot index (mod s_max); negative = never written.
+        abs_pos = pos - torch.remainder(pos - slots, s_max)
+        mask = abs_pos >= 0
+    else:
+        mask = slots <= pos
+        if window is not None:
+            mask = mask & (slots > pos - window)
+    logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return o @ p.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+class Mamba(nn.Module):
+    def __init__(self, cfg, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        d, di, st, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        kw = dict(device=device, dtype=dtype)
+        conv_dim = di + 2 * st
+        self.w_in = _init(gen, (d, 2 * di + 2 * st + h), **kw)
+        self.conv = _init(gen, (cfg.conv_kernel, conv_dim), 0.2, **kw)
+        self.a_log = _const((h,), 0.0, **kw)
+        self.dt_bias = _const((h,), 0.0, **kw)
+        self.d_skip = _const((h,), 1.0, **kw)
+        self.out_norm = _const((di,), 1.0, **kw)
+        self.w_out = _init(gen, (di, d), **kw)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = logaddexp(x, 0) = max(x, 0) + log1p(exp(−|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C).  ``state``: (B, K-1, C)
+    tail from the previous segment (decode).  Returns (y, new_state)."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    return F.silu(y), xp[:, -(k - 1):]
+
+
+def _mamba_project(cfg, p: Mamba, x: torch.Tensor):
+    di, st, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = x @ p.w_in
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * st]
+    dt = softplus(zxbcdt[..., -h:] + p.dt_bias)                 # (B,S,h)
+    return z, xbc, dt
+
+
+def _mamba_ssd_inputs(cfg, p: Mamba, xbc: torch.Tensor, dt: torch.Tensor):
+    b_, s_ = xbc.shape[0], xbc.shape[1]
+    di, st, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    xs = xbc[..., :di].reshape(b_, s_, h, hd)
+    bmat = xbc[..., di:di + st][:, :, None, :]                  # (B,S,1,st)
+    cmat = xbc[..., di + st:][:, :, None, :]
+    a = -torch.exp(p.a_log.float())                             # (h,) < 0
+    a_dt = a[None, None, :] * dt                                # (B,S,h) f32 log-decay
+    b_eff = bmat.expand(b_, s_, h, st) * dt[..., None]
+    c_eff = cmat.expand(b_, s_, h, st)                          # a view: no copy
+    return xs, a_dt, b_eff, c_eff
+
+
+def mamba_apply(cfg, p: Mamba, x: torch.Tensor, conv_state=None, return_state: bool = False):
+    """Full-sequence Mamba-2 block through the SSD kernel.  Returns (out,
+    cache|None); with ``return_state`` the cache {"conv", "ssm"} seeds
+    decode."""
+    z, xbc, dt = _mamba_project(cfg, p, x)
+    xbc, conv_tail = _causal_conv(xbc, p.conv, conv_state)
+    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)
+    y = ops.ssd_scan(xs, a_dt, b_eff, c_eff)                    # (B,S,h,hd)
+    y = y + xs * p.d_skip[None, None, :, None]
+    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+    y = rmsnorm(y * F.silu(z), p.out_norm, cfg.norm_eps)
+    out = y @ p.w_out
+    cache = None
+    if return_state:
+        # Final SSM state: S = sum_j exp(cum_last - cum_j) b_j^T x_j
+        # (decayed contributions of every step; old steps underflow to 0,
+        # which is the mathematically correct limit).
+        cum = torch.cumsum(a_dt.float(), dim=1)                 # (B,S,h)
+        w = torch.exp(cum[:, -1:, :] - cum)                     # (B,S,h)
+        s_fin = torch.einsum("bsht,bshd->bhtd", b_eff.float() * w[..., None], xs.float())
+        cache = {"conv": conv_tail, "ssm": s_fin}
+    return out, cache
+
+
+def mamba_decode(cfg, p: Mamba, x: torch.Tensor, cache: dict, pos: int):
+    """One-step Mamba-2 recurrence.  cache: {"conv": (B,K-1,C), "ssm":
+    (B,h,st,hd) float32}, updated IN PLACE (the reference returns a new
+    one)."""
+    z, xbc, dt = _mamba_project(cfg, p, x)                      # S = 1
+    xbc, conv_tail = _causal_conv(xbc, p.conv, cache["conv"])
+    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)
+    s_prev = cache["ssm"]                                       # (B,h,st,hd)
+    decay = torch.exp(a_dt[:, 0])[..., None, None]              # (B,h,1,1)
+    s_new = s_prev * decay + b_eff[:, 0][..., :, None] * xs[:, 0][..., None, :]
+    y = torch.einsum("bhs,bhsd->bhd", c_eff[:, 0].float(), s_new)[:, None]  # (B,1,h,hd)
+    y = y + xs * p.d_skip[None, None, :, None]
+    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), p.out_norm, cfg.norm_eps)
+    cache["conv"].copy_(conv_tail)
+    cache["ssm"].copy_(s_new)
+    return y @ p.w_out, cache

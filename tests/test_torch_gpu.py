@@ -6,9 +6,12 @@ use); elsewhere they skip.  Run on a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Kernels and plain versions compute the same float32 expressions, each
-FMA where the other has one and no other contraction, so every
-comparison is exact.
+DDC's kernels and plain versions compute the same float32 expressions,
+each FMA where the other has one and no other contraction, so every
+comparison of theirs is exact.  The LM kernels (flash_attention,
+ssd_scan) sum in another order than their plain versions and are held to
+tests/test_kernels.py's tolerances: 3e-4 (attention) and 5e-4 (SSD) in
+float32, 0.05 in bfloat16.
 """
 import numpy as np
 import pytest
@@ -17,7 +20,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import dbscan, ddc  # noqa: E402
 from repro_torch.data import spatial  # noqa: E402
-from repro_torch.kernels import contour_dist, ops, pairwise_dist, ref  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import contour_dist, flash_attention, ops, pairwise_dist, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -243,3 +250,199 @@ def test_make_ddc_fn_default_config_card_equals_cpu(cuda):
     on_cpu = ddc.make_ddc_fn(cfg, 2, device="cpu")(pts, mask)
     for a, b in zip((on_card[0], *on_card[1], on_card[2]), (on_cpu[0], *on_cpu[1], on_cpu[2])):
         assert torch.equal(a.cpu(), b)
+
+
+# -- the LM kernels: flash_attention (B7) and ssd_scan (B8) --------------------
+
+TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (0.05, 0.05)}
+SSD_TOL = {torch.float32: (5e-4, 5e-4), torch.bfloat16: (0.05, 0.05)}
+
+
+def _randn(rng, shape, cuda, dtype=torch.float32):
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=cuda).to(dtype)
+
+
+# tests/test_kernels.py's TestFlashAttention shapes, then ragged lengths,
+# decode (sq = 1), odd and extreme head dims, and qwen3-8b's GQA in bf16.
+FLASH_CASES = [
+    # b, h, hkv, sq, skv, d, causal, window, dtype
+    (1, 4, 4, 128, 128, 32, True, None, torch.float32),      # MHA square
+    (2, 8, 2, 128, 256, 64, True, None, torch.float32),      # GQA, decode-style kv > q
+    (1, 4, 1, 256, 256, 32, True, None, torch.float32),      # MQA
+    (2, 2, 2, 64, 64, 128, True, None, torch.float32),       # large head dim
+    (1, 2, 2, 128, 128, 32, False, None, torch.float32),     # non-causal
+    (1, 2, 2, 192, 192, 32, True, 32, torch.float32),        # windowed
+    (1, 2, 2, 192, 192, 32, True, 100, torch.float32),
+    (1, 2, 2, 128, 128, 32, True, None, torch.bfloat16),     # bf16
+    (1, 4, 2, 100, 173, 64, True, None, torch.float32),      # ragged sq and skv
+    (2, 4, 4, 1, 77, 128, True, None, torch.float32),        # one decode query
+    (1, 3, 1, 45, 45, 80, False, 7, torch.float32),          # d between buckets
+    (1, 2, 2, 33, 70, 16, True, None, torch.float32),        # smallest bucket
+    (1, 2, 1, 65, 65, 256, True, None, torch.float32),       # largest bucket
+    (1, 32, 8, 300, 300, 128, True, None, torch.bfloat16),   # qwen3-8b heads
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,dtype", FLASH_CASES)
+def test_flash_attention(cuda, b, h, hkv, sq, skv, d, causal, window, dtype):
+    rng = np.random.default_rng(sq * skv + d)
+    q = _randn(rng, (b, h, sq, d), cuda, dtype)
+    k = _randn(rng, (b, hkv, skv, d), cuda, dtype)
+    v = _randn(rng, (b, hkv, skv, d), cuda, dtype)
+    before = flash_attention.launches["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    # Deterministic: no atomics, a fixed order of every sum.
+    assert torch.equal(got, flash_attention.flash_attention(q, k, v, causal=causal,
+                                                            window=window))
+
+
+def test_flash_attention_strided_inputs(cuda):
+    """The model hands over transposed (b, s, h, d) views: no copy needed."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 40, 8, 64), cuda).transpose(1, 2)
+    k = _randn(rng, (2, 40, 2, 64), cuda).transpose(1, 2)
+    v = _randn(rng, (2, 40, 2, 64), cuda).transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v), rtol=3e-4, atol=3e-4)
+
+
+def test_flash_attention_long_matches_chunked_route(cuda):
+    """At sq·skv > 2**21 the plain route is the chunked version."""
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (1, 4, 1536, 64), cuda, torch.bfloat16)
+    k = _randn(rng, (1, 2, 1536, 64), cuda, torch.bfloat16)
+    v = _randn(rng, (1, 2, 1536, 64), cuda, torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_chunked(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.05, atol=0.05)
+
+
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q = torch.zeros((1, 4, 8, 32), device=cuda)
+    k = torch.zeros((1, 2, 8, 32), device=cuda)
+    with pytest.raises(ValueError):  # k on another device
+        flash_attention.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):  # float16
+        flash_attention.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):  # mixed dtypes
+        flash_attention.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):  # rank 3
+        flash_attention.flash_attention(q[0], k[0], k[0])
+    with pytest.raises(ValueError):  # unequal q/v head dims (MLA): no plain fallback
+        ops.flash_attention(q, k, torch.zeros((1, 2, 8, 16), device=cuda))
+    with pytest.raises(ValueError):  # head dim below the smallest bucket
+        flash_attention.flash_attention(q[..., :8], k[..., :8], k[..., :8])
+    with pytest.raises(ValueError):  # heads not a multiple of kv heads
+        flash_attention.flash_attention(q[:, :3], k, k)
+    with pytest.raises(ValueError):  # a zero window
+        flash_attention.flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError):  # a strided last axis
+        flash_attention.flash_attention(q, k, torch.zeros((1, 2, 8, 64), device=cuda)[..., ::2])
+
+
+# tests/test_kernels.py's TestSSDScan shapes (its l = 100 case too), then
+# ragged chunks, mamba2-1.3b's head (dh 64, ds 128) and bf16.
+SSD_CASES = [
+    # b, l, h, dh, ds, dtype
+    (1, 64, 2, 16, 8, torch.float32),
+    (2, 128, 3, 16, 8, torch.float32),
+    (1, 256, 1, 32, 16, torch.float32),
+    (2, 96, 4, 8, 4, torch.float32),
+    (2, 100, 3, 16, 8, torch.float32),
+    (1, 1, 2, 16, 8, torch.float32),
+    (1, 333, 4, 64, 128, torch.float32),
+    (2, 70, 3, 40, 256, torch.float32),
+    (1, 300, 4, 64, 128, torch.bfloat16),
+]
+
+
+def _ssd_inputs(rng, b, l, h, dh, ds, cuda, dtype):
+    x = _randn(rng, (b, l, h, dh), cuda, dtype)
+    a = torch.as_tensor(-np.abs(rng.normal(size=(b, l, h))).astype(np.float32) * 0.1,
+                        device=cuda)
+    bb = _randn(rng, (b, l, h, ds), cuda, dtype)
+    c = _randn(rng, (b, l, h, ds), cuda, dtype)
+    return x, a, bb, c
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,dtype", SSD_CASES)
+def test_ssd_scan(cuda, b, l, h, dh, ds, dtype):
+    rng = np.random.default_rng(l * h + ds)
+    x, a, bb, c = _ssd_inputs(rng, b, l, h, dh, ds, cuda, dtype)
+    before = ssd_scan.launches["ssd_scan"]
+    got = ssd_scan.ssd_scan(x, a, bb, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches["ssd_scan"] == before + 1
+    want = ref.ssd_scan(x, a, bb, c)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol, atol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, ssd_scan.ssd_scan(x, a, bb, c))
+
+
+def test_ssd_scan_broadcast_and_strided_inputs(cuda):
+    """The Mamba layer passes x as a reshaped slice and c as a broadcast
+    over heads (stride 0): the kernel reads both without a copy."""
+    rng = np.random.default_rng(9)
+    b, l, h, dh, ds = 2, 150, 4, 32, 16
+    xbc = _randn(rng, (b, l, h * dh + 2 * ds), cuda)
+    x = xbc[..., :h * dh].reshape(b, l, h, dh)
+    c = xbc[..., h * dh + ds:][:, :, None, :].expand(b, l, h, ds)
+    bb = xbc[..., h * dh:h * dh + ds][:, :, None, :].expand(b, l, h, ds) * 0.5
+    a = torch.as_tensor(-np.abs(rng.normal(size=(b, l, h))).astype(np.float32) * 0.1,
+                        device=cuda)
+    got = ops.ssd_scan(x, a, bb, c)
+    torch.testing.assert_close(got, ref.ssd_scan(x, a, bb, c), rtol=5e-4, atol=5e-4)
+
+
+def test_ssd_scan_rejects_bad_inputs(cuda):
+    rng = np.random.default_rng(1)
+    x, a, bb, c = _ssd_inputs(rng, 1, 16, 2, 8, 4, cuda, torch.float32)
+    with pytest.raises(ValueError):  # a on the CPU
+        ssd_scan.ssd_scan(x, a.cpu(), bb, c)
+    with pytest.raises(ValueError):  # a not float32
+        ssd_scan.ssd_scan(x, a.bfloat16(), bb, c)
+    with pytest.raises(ValueError):  # float16 x
+        ssd_scan.ssd_scan(x.half(), a, bb.half(), c.half())
+    with pytest.raises(ValueError):  # rank
+        ssd_scan.ssd_scan(x[0], a[0], bb[0], c[0])
+    with pytest.raises(ValueError):  # shapes disagree
+        ssd_scan.ssd_scan(x, a, bb, c[:, :8])
+    with pytest.raises(ValueError):  # state larger than the kernel covers
+        big = torch.zeros((1, 16, 2, 300), device=cuda)
+        ssd_scan.ssd_scan(x, a, big, big)
+    with pytest.raises(ValueError):  # state not a multiple of 4
+        odd = torch.zeros((1, 16, 2, 6), device=cuda)
+        ssd_scan.ssd_scan(x, a, odd, odd)
+    with pytest.raises(ValueError):  # a strided last axis
+        ssd_scan.ssd_scan(x, a, bb, torch.zeros((1, 16, 2, 8), device=cuda)[..., ::2])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-1.3b"])
+def test_serving_path_card_equals_cpu(cuda, arch):
+    """The tiny configuration's greedy generation on the card (kernels in
+    prefill) against the CPU (plain versions), float32: one kernel launch
+    per layer in prefill, none in decode, logits within 1e-4 and the same
+    tokens."""
+    cfg = configs.get_config(arch).tiny()
+    model = T.init_params(cfg, 0, device="cpu")
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)))
+    scfg = engine.ServeConfig(max_len=48)
+    tr_cpu: dict = {}
+    want = engine.greedy_generate(cfg, model, prompt, 6, scfg, trace=tr_cpu)
+    model_gpu = model.to(cuda)
+    ops.reset_launch_counts()
+    tr_gpu: dict = {}
+    got = engine.greedy_generate(cfg, model_gpu, prompt.to(cuda), 6, scfg, trace=tr_gpu)
+    counts = ops.launch_counts()
+    name = "flash_attention" if arch == "qwen3-8b" else "ssd_scan"
+    assert counts[name] == cfg.n_layers and sum(counts.values()) == cfg.n_layers
+    for lg, lc in zip(tr_gpu["logits"], tr_cpu["logits"]):
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.cpu(), want)

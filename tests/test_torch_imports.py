@@ -43,7 +43,11 @@ def test_every_submodule_listed():
     names = set(_port_modules())
     assert {"repro_torch.kernels.ops", "repro_torch.kernels._build",
             "repro_torch.core.ddc", "repro_torch.core.partitioner",
-            "repro_torch.data.spatial"} <= names
+            "repro_torch.data.spatial", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.models.config",
+            "repro_torch.configs", "repro_torch.configs.qwen3_8b",
+            "repro_torch.configs.mamba2_1_3b", "repro_torch.serve.engine"} <= names
     for name in names:
         importlib.import_module(name)
 
