@@ -10,13 +10,17 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (non-zero exit):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build.
-LM. The serving path at full width and depth: qwen3-8b (36 layers, d_model
-   4096, GQA 32/8, the flash_attention kernel) and mamba2-1.3b (48 layers,
-   d_model 2048, the ssd_scan kernel), bf16 weights drawn from a seeded
-   ``torch.Generator`` with the reference's scales, 4 requests of 2,048
-   prompt tokens each (seeded), ``greedy_generate`` for 16 tokens
-   (max_len 2,064).  Per model: the kernel launches once per layer in
-   prefill and nowhere else (launch counts zeroed just before the run and
+LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
+   GQA 32/8, the flash_attention kernel) and mamba2-1.3b (48 layers,
+   d_model 2048, the ssd_scan kernel) at full depth, and llama4-scout
+   (d_model 5120, GQA 40/8, 16 experts of 8,192 top-1 plus a shared
+   expert, vocab 202,048: flash_attention and the MoE dispatch_gather)
+   cut to 4 of its 48 layers (``LM_LAYERS``), bf16 weights drawn from a
+   seeded ``torch.Generator`` with the reference's scales, 4 requests of
+   2,048 prompt tokens each (seeded), ``greedy_generate`` for 16 tokens
+   (max_len 2,064).  Per model: attention and SSD launch once per layer in
+   prefill and nowhere else, the MoE gather once per MoE layer in prefill
+   and in each decode step (launch counts zeroed just before the run and
    read just after); a second kernel run gives bit-identical tokens and
    logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
    routed as the reference routes off the TPU), teacher-forced on the
@@ -24,12 +28,16 @@ LM. The serving path at full width and depth: qwen3-8b (36 layers, d_model
    last-token logits and on every decode step's logits, in bf16 and with
    the weights cast to float32 (tolerances at ``LM_F32_TOL`` and
    ``LM_BF16_NOISE``); how many greedy tokens the plain run would pick
-   alike is reported, not gated.  Prefill time, decode time per token,
+   alike is reported, not gated.  For llama4-scout the token-copies
+   dropped at capacity are printed per layer, and the routing decisions
+   that differ between the kernel and plain runs in bf16 and in float32,
+   where there must be none.  Prefill time, decode time per token,
    tokens/s and peak memory are printed beside the card.  Each LM kernel
    is held against its plain version on the inputs the main path gave its
    first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
    ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
-   bf16), at ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; flash_attention is
+   bf16), at ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; the MoE gather bit
+   for bit in both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is
    also timed at prefill_32k's length (one sequence, one layer's q/k/v)
    beside ``scaled_dot_product_attention``, not gated.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
@@ -61,7 +69,7 @@ LM. The serving path at full width and depth: qwen3-8b (36 layers, d_model
    Each kernel is then held against its plain version on the main paths'
    own inputs and timed with CUDA events (``pairwise_dist_sq`` also
    beside ``torch.cdist``): one JSON line ``{"kernels": [...]}`` that also
-   lists the LM phase's two kernels.  One
+   lists the LM phase's three kernels.  One
    more default-path run and one more K-Means run under torch.profiler
    give the device time by kernel and the device's busy share.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
@@ -83,6 +91,7 @@ LM. The serving path at full width and depth: qwen3-8b (36 layers, d_model
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -109,9 +118,14 @@ CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, mul, add
 PD_OPS_PER_PAIR = 6    # as NC_OPS_PER_PAIR; the clip at 0 is a select
 BENCH_SWEEP_NS = (4096, 16384)  # BENCH_phase1.json rows with cluster counts
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
-# The LM phase: two full-width models that fit one card, each with one of
-# the two LM kernels on its prefill path.
-LM_ARCHS = {"qwen3-8b": "flash_attention", "mamba2-1.3b": "ssd_scan"}
+# The LM phase: three full-width models, each with the LM kernel whose
+# first-layer inputs its run captures for the per-kernel check.
+LM_ARCHS = {"qwen3-8b": "flash_attention", "mamba2-1.3b": "ssd_scan",
+            "llama4-scout-17b-a16e": "dispatch_gather"}
+# Depth cut by one card's 80 GB: llama4-scout's 48 layers are 2.202 B
+# parameters each (216 GB in bf16); 4 layers and the embedding and head are
+# 21.8 GB, beside which the float32 anchor copy (43.5 GB) still fits.
+LM_LAYERS = {"llama4-scout-17b-a16e": 4}
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
 LONG_PREFILL = 32_768  # prefill_32k's sequence length
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
@@ -174,6 +188,24 @@ SSD_SWEEP = [
     (1, 333, 4, 64, 128, False),                    # mamba2-1.3b's head, ragged
     (2, 70, 3, 40, 256, False),
     (1, 300, 4, 64, 128, True),
+]
+# The MoE dispatch gather (a copy, or one IEEE division and rounding per
+# element) against its plain version bit for bit, in both modes:
+# tests/test_moe_gather.py's shapes and int8 dtypes, every slot empty, rows
+# that are not 16-byte multiples, a row-strided x, and llama4-scout's decode
+# shape.
+MOE_GATHER_SWEEP = [
+    # t, d, s, dtype, layout
+    (64, 16, 256, "float32", "rows"),
+    (128, 32, 128, "float32", "rows"),
+    (32, 8, 512, "float32", "rows"),
+    (64, 16, 128, "bfloat16", "rows"),
+    (8, 4, 32, "float32", "empty"),
+    (50, 13, 77, "float32", "rows"),
+    (50, 13, 77, "bfloat16", "rows"),
+    (40, 24, 60, "bfloat16", "strided"),
+    (40, 24, 60, "float32", "strided"),
+    (4, 5120, 16, "bfloat16", "rows"),
 ]
 
 
@@ -490,6 +522,105 @@ def lm_kernel_entries(torch, ops, ref, ssd, captured: dict, launches: dict) -> l
     return entries
 
 
+def moe_gather_entry(torch, ops, ref, captured: dict, launches: dict) -> dict:
+    """The MoE dispatch gather against its plain version on the inputs
+    llama4-scout's prefill gave its first MoE layer: buf and scales bit
+    for bit without quantisation in bf16 (as served) and cast up to
+    float32, and int8 and scales with it; timed in both modes beside
+    ``index_select`` of the same rows, which leaves out the empty-slot
+    mask and the quantisation.  Bound by bytes: each kept row read once,
+    the ids read and buf and the scales written once."""
+    from repro_torch import configs
+
+    x, idx = captured["dispatch_gather"]
+    t, d = x.shape
+    s = idx.shape[0]
+    kept = int((idx >= 0).sum())
+    io = kept * d * x.element_size() + s * 4 + s * 4      # rows in, ids in, scales out
+    copy_bytes, quant_bytes = io + s * d * x.element_size(), io + s * d
+    quant_ops = kept * d * 6    # |v| and max; the division, rint, clamp at both ends
+    checks = {}
+    for label, xs, quant in (("bf16", x, False), ("float32", x.float(), False),
+                             ("int8", x, True)):
+        got, want = ops.dispatch_gather(xs, idx, quant=quant), ref.dispatch_gather(
+            xs, idx, quant=quant)
+        torch.cuda.synchronize()
+        if not (same(torch, got[0], want[0]) and same(torch, got[1], want[1])):
+            raise RuntimeError(f"dispatch_gather ({label}): kernel differs from its plain "
+                               "version")
+        checks[label] = True
+
+    def library():
+        return x.index_select(0, idx.clamp_min(0))
+
+    shape = [t, d, s, str(x.dtype)]
+    entry = kernel_entry(
+        torch, "dispatch_gather", "moe_gather.cu", "src/repro/kernels/moe_gather.py:48", shape,
+        lambda: ops.dispatch_gather(x, idx, quant=False)[0],
+        lambda: ref.dispatch_gather(x, idx, quant=False)[0], *bound(0, copy_bytes),
+        launches["dispatch_gather"], "llama4-scout-17b-a16e prefill and decode",
+        library=library,
+        extra={"bytes": copy_bytes, "kept_rows": kept, "bit_identical": checks,
+               "library": "index_select (no mask, no quantisation)"})
+    q = kernel_entry(
+        torch, "dispatch_gather_int8", "moe_gather.cu", "src/repro/kernels/moe_gather.py:48",
+        shape, lambda: ops.dispatch_gather(x, idx, quant=True)[0],
+        lambda: ref.dispatch_gather(x, idx, quant=True)[0], *bound(quant_ops, quant_bytes),
+        0, "none: the int8 mode is the a2a wire format (several cards)", library=library,
+        extra={"bytes": quant_bytes, "operations": quant_ops})
+    entry["int8"] = {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err", "exact", "bytes", "operations",
+                                       "launches")}
+    # The decode shape (4 tokens top-1 over 16 experts at capacity 1), where
+    # 60 of the 64 main-path launches run: launch-bound.
+    e = configs.get_config("llama4-scout-17b-a16e").n_experts
+    x_dec = x[:LM_BATCH]
+    idx_dec = torch.full((e,), -1, dtype=torch.int32, device=x.device)
+    idx_dec[torch.arange(LM_BATCH, device=x.device) * (e // LM_BATCH)] = torch.arange(
+        LM_BATCH, dtype=torch.int32, device=x.device)
+    dec = ops.dispatch_gather(x_dec, idx_dec, quant=False)
+    if not all(same(torch, a, b) for a, b in zip(dec, ref.dispatch_gather(x_dec, idx_dec,
+                                                                          quant=False))):
+        raise RuntimeError("dispatch_gather (decode shape): kernel differs from its plain "
+                           "version")
+    dec_bytes = LM_BATCH * d * x.element_size() + e * 8 + e * d * x.element_size()
+    entry["decode"] = {"shape": [LM_BATCH, d, e, str(x.dtype)], "exact": True,
+                       "ms": median_ms(torch, lambda: ops.dispatch_gather(
+                           x_dec, idx_dec, quant=False), 20, per=10),
+                       "bound_ms": bound(0, dec_bytes)[0], "bound_by": "bytes"}
+    log(f"dispatch_gather at the decode shape: {entry['decode']}")
+    return entry
+
+
+def moe_gather_sweep(torch, ops, ref, dev) -> list[dict]:
+    """MOE_GATHER_SWEEP in both modes: one kernel launch (counted) bit for
+    bit against the plain version, and a second launch giving the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = []
+    for case in MOE_GATHER_SWEEP:
+        t, d, s, dtype, layout = case
+        wide = torch.randn((t, 2 * d + 3), generator=g, device=dev).to(getattr(torch, dtype))
+        x = wide[:, 3:3 + d] if layout == "strided" else wide[:, :d].contiguous()
+        idx = torch.randint(-1, t, (s,), generator=g, device=dev, dtype=torch.int32)
+        if layout == "empty":
+            idx.fill_(-1)
+        for quant in (False, True):
+            before = ops.launch_counts()["dispatch_gather"]
+            got = ops.dispatch_gather(x, idx, quant=quant)
+            torch.cuda.synchronize()
+            if ops.launch_counts()["dispatch_gather"] != before + 1:
+                raise RuntimeError(f"dispatch_gather {case}: the kernel did not launch")
+            want = ref.dispatch_gather(x, idx, quant=quant)
+            again = ops.dispatch_gather(x, idx, quant=quant)
+            if not all(same(torch, a, b) for a, b in zip(got + again, want + want)):
+                raise RuntimeError(f"dispatch_gather {case} quant={quant}: kernel differs "
+                                   "from its plain version or from itself")
+            rows.append({"case": list(case), "quant": quant, "row_stride": x.stride(0),
+                         "exact": True})
+    return rows
+
+
 def held(torch, what, got, want, tol) -> dict:
     """Raise unless ``got`` is within ``tol`` of ``want``; returns the
     error, the plain output's scale and the tolerance."""
@@ -636,12 +767,65 @@ def forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, *, plain: boo
     return out, prefill_s
 
 
+def lm_launch_plan(cfg) -> dict[str, int]:
+    """The launches one greedy_generate of LM_STEPS tokens makes, by kernel:
+    flash_attention once per attention layer and ssd_scan once per Mamba
+    layer, in prefill only; dispatch_gather once per MoE layer in prefill
+    and in each of the LM_STEPS − 1 decode steps."""
+    kinds = cfg.layer_kinds()
+
+    def layers(pred) -> int:
+        return cfg.n_groups * sum(1 for kind, is_moe in kinds if pred(kind, is_moe))
+
+    return {"flash_attention": layers(lambda kind, _: kind == "attn"),
+            "ssd_scan": layers(lambda kind, _: kind == "mamba"),
+            "dispatch_gather": layers(lambda _, is_moe: is_moe) * LM_STEPS}
+
+
+@contextlib.contextmanager
+def record_routes(L):
+    """While active, every MoE layer's routing (its top-k experts and which
+    token-copies it kept) is appended to the yielded list, in call order:
+    prefill's MoE layers, then each decode step's."""
+    calls, orig = [], L._route
+
+    def route(probs, k, capacity):
+        r = orig(probs, k, capacity)
+        calls.append((r.topi, r.keep))
+        return r
+
+    L._route = route
+    try:
+        yield calls
+    finally:
+        L._route = orig
+
+
+def route_diffs(torch, a: list, b: list, n_moe: int) -> dict:
+    """Tokens routed to other experts in run ``b`` than in run ``a`` (the
+    same inputs' route logs), in prefill and in decode."""
+    if len(a) != len(b) or any(x[0].shape != y[0].shape for x, y in zip(a, b)):
+        raise RuntimeError("two runs' route logs do not align")
+    diff = [int((x[0] != y[0]).any(dim=1).sum()) for x, y in zip(a, b)]
+    return {"prefill": sum(diff[:n_moe]), "decode": sum(diff[n_moe:]),
+            "decisions": sum(int(x[0].shape[0]) for x in a)}
+
+
+def route_drops(log: list, n_moe: int) -> dict:
+    """Token-copies dropped at capacity, per MoE layer: in prefill, and
+    summed over the decode steps."""
+    per_call = [int((~keep).sum()) for _, keep in log]
+    return {"prefill": per_call[:n_moe],
+            "decode": [sum(per_call[n_moe + i::n_moe]) for i in range(n_moe)]}
+
+
 def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
-    """Serve each LM_ARCHS model at full width and depth (see the module
-    docstring) and print its numbers.  Returns ({kernel: main-path
-    launches}, {kernel: first-layer inputs})."""
+    """Serve each LM_ARCHS model at full width, at full depth or cut to
+    LM_LAYERS (see the module docstring), and print its numbers.  Returns
+    ({kernel: main-path launches}, {kernel: first-layer inputs})."""
     from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine
 
@@ -649,7 +833,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
         raise RuntimeError("float32 matmuls must run in IEEE float32 (TF32 off)")
     launches_by_kernel, captured = {}, {}
     for arch, kname in LM_ARCHS.items():
-        cfg = configs.get_config(arch)
+        published = configs.get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=LM_LAYERS.get(arch, published.n_layers))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -662,8 +847,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
         n_params = sum(p.numel() for p in model.parameters())
 
         # Two kernel runs: the first counted, the second (warm, so its times
-        # are the ones reported) captures the first layer's kernel inputs;
-        # both must agree bit for bit.
+        # are the ones reported) captures the first layer's kernel inputs
+        # and logs the MoE routing; both must agree bit for bit.
         runs = []
         for i in range(2):
             torch.cuda.synchronize()
@@ -677,18 +862,21 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
             ops.reset_launch_counts()
             try:
                 tr: dict = {}
-                toks = engine.greedy_generate(cfg, model, prompt, LM_STEPS, scfg, trace=tr)
+                with record_routes(L) as routes_k:
+                    toks = engine.greedy_generate(cfg, model, prompt, LM_STEPS, scfg, trace=tr)
                 torch.cuda.synchronize()
             finally:
                 setattr(ops, kname, orig)
             runs.append((toks, tr, ops.launch_counts(), torch.cuda.max_memory_allocated(dev)))
         (toks, tr, launches, peak), (toks2, tr2, _, _) = runs
-        want = {k: (cfg.n_layers if k == kname else 0) for k in launches}
+        plan = lm_launch_plan(cfg)
+        want = {k: plan.get(k, 0) for k in launches}
         log(f"{arch}: launches {launches}, prefill {tr['prefill_s']:.4f}s, decode "
             f"{tr['decode_s']:.4f}s")
         if launches != want:
-            raise RuntimeError(f"{arch}: launches {launches}, expected {want} (one per layer "
-                               "in prefill, none in decode)")
+            raise RuntimeError(f"{arch}: launches {launches}, expected {want} (attention and "
+                               "SSD once per layer in prefill, the MoE gather once per MoE "
+                               "layer in prefill and in every decode step)")
         if not same(torch, toks, toks2) or not all(
                 same(torch, a, b) for a, b in zip(tr["logits"], tr2["logits"])):
             raise RuntimeError(f"{arch}: two kernel runs differ")
@@ -708,13 +896,34 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
 
         # The plain run of the same path, teacher-forced on the kernel run's
         # tokens, in bf16; then both runs again with the weights in float32.
-        plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
-                                            toks, plain=True)
+        # Each logs its MoE routing, call for call beside the kernel run's.
+        with record_routes(L) as routes_p:
+            plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
+                                                toks, plain=True)
         model32 = cast_model(torch, T, cfg, model, torch.float32)
-        kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks, plain=False)
-        plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks, plain=True)
+        with record_routes(L) as routes_k32:
+            kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
+                                   plain=False)
+        with record_routes(L) as routes_p32:
+            plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
+                                    plain=True)
         del model32
         torch.cuda.empty_cache()
+        moe = {}
+        if routes_k:
+            n_moe = len(routes_k) // LM_STEPS
+            moe = {"capacity_factor": cfg.capacity_factor, "moe_layers": n_moe,
+                   "dropped": route_drops(routes_k, n_moe),
+                   "dropped_plain": route_drops(routes_p, n_moe),
+                   "route_diffs_bf16": route_diffs(torch, routes_k, routes_p, n_moe),
+                   "route_diffs_f32": route_diffs(torch, routes_k32, routes_p32, n_moe),
+                   "route_diffs_bf16_vs_f32": route_diffs(torch, routes_p32, routes_p, n_moe)}
+            log(f"{arch}: MoE routing {moe}")
+            f32_diffs = moe["route_diffs_f32"]
+            if f32_diffs["prefill"] or f32_diffs["decode"]:
+                raise RuntimeError(f"{arch}: the float32 kernel run routes tokens to other "
+                                   f"experts than the plain run: {f32_diffs}")
+        del routes_k, routes_p, routes_k32, routes_p32
 
         def rms(a, b):
             return float((a.double() - b.double()).pow(2).mean().sqrt())
@@ -739,7 +948,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
         launches_by_kernel[kname] = launches[kname]
         decode_tokens = LM_BATCH * (LM_STEPS - 1)
         numbers = {
-            "card": card, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "card": card, "layers": cfg.n_layers, "published_layers": published.n_layers,
+            "d_model": cfg.d_model,
             "params": n_params, "param_dtype": "bfloat16", "batch": LM_BATCH,
             "prompt": LM_PROMPT, "steps": LM_STEPS, "max_len": scfg.max_len,
             "init_s": init_s, "prefill_s": tr2["prefill_s"],
@@ -754,7 +964,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
             "bf16_noise_factor": LM_BF16_NOISE, "bf16_max_abs_err": errs,
             "bf16_rms_kernel_vs_plain": rms_kp, "bf16_rms_plain_vs_f32": rms_p32,
             "bf16_rms_kernel_vs_f32": rms_k32, "max_abs_logit": scale,
-            "greedy_agreement": [agree, toks.numel()], "first_tokens": toks[0, :8].tolist()}
+            "greedy_agreement": [agree, toks.numel()], "first_tokens": toks[0, :8].tolist(),
+            **moe}
         print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
         del model, tr, tr2, runs, toks, toks2, plain, kern32, plain32
         torch.cuda.empty_cache()
@@ -793,8 +1004,10 @@ def main() -> int:
     t_lm = time.perf_counter()
     lm_launches, captured = lm_phase(torch, dev, card.splitlines()[0])
     lm_kernels = lm_kernel_entries(torch, ops, ref, ssd, captured, lm_launches)
+    lm_kernels.append(moe_gather_entry(torch, ops, ref, captured, lm_launches))
     del captured
     print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, dev)}), flush=True)
+    print(json.dumps({"moe_gather_sweep": moe_gather_sweep(torch, ops, ref, dev)}), flush=True)
     long_attn = long_prefill_attention(torch, ops, dev)
     torch.cuda.empty_cache()
     print(json.dumps({"lm_long_prefill_attention": long_attn,

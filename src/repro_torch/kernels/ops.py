@@ -22,6 +22,7 @@ import torch
 
 from . import contour_dist as _cd
 from . import flash_attention as _fa
+from . import moe_gather as _mg
 from . import pairwise_dist as _pd
 from . import ref
 from . import ssd_scan as _ssd
@@ -153,7 +154,7 @@ def min_label_sweep_sparse(x, mask, labels, core, eps, pairs: TilePairs, *,
     return _pd.min_label_sweep_sparse(x, mask, labels, core, eps, pairs, bt=bt)
 
 
-# -- LM stack: attention and the Mamba-2 SSD scan ----------------------------
+# -- LM stack: attention, the Mamba-2 SSD scan, the MoE dispatch gather --------
 
 CHUNKED_ATTENTION_MIN = 2**21  # sq·skv above which the plain route is chunked
 PLAIN_SSD_CHUNK = 128          # the plain route's SSD chunk (the reference's default)
@@ -192,11 +193,20 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor)
     return _ssd.ssd_scan(x, a, b, c)
 
 
+def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
+    """MoE dispatch gather: (buf (S, d), scales (S,)) with buf[i] =
+    x[idx[i]], zeros where idx[i] < 0; int8 per-row absmax with
+    ``quant``.  See ``ref.dispatch_gather``."""
+    if FORCE == "ref":
+        return ref.dispatch_gather(x, idx, quant=quant)
+    return _mg.dispatch_gather(x, idx, quant=quant)
+
+
 def launch_counts() -> dict[str, int]:
-    return {**_pd.launches, **_cd.launches, **_fa.launches, **_ssd.launches}
+    return {**_pd.launches, **_cd.launches, **_fa.launches, **_ssd.launches, **_mg.launches}
 
 
 def reset_launch_counts() -> None:
-    for d in (_pd.launches, _cd.launches, _fa.launches, _ssd.launches):
+    for d in (_pd.launches, _cd.launches, _fa.launches, _ssd.launches, _mg.launches):
         for k in d:
             d[k] = 0

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels: DDC's phase-1 and phase-2
-kernels, and the LM stack's attention and SSD scan.
+kernels, and the LM stack's attention, SSD scan and MoE dispatch gather.
 
 DDC's functions define the semantics their CUDA kernels must reproduce
 bit for bit on the card, and are what the ops run for CPU tensors.  Every
@@ -13,6 +13,9 @@ The row loops bound peak memory to ``ROW_CHUNK`` rows of the (n, n)
 matrix, and the block-sparse versions to ``PAIR_CHUNK`` pair tests at a
 time; each entry is computed independently and folded with an integer
 sum or min, which no order changes, so chunking changes no bit.
+
+``dispatch_gather`` (the MoE expert buffer, and its int8 wire form) is
+exact too: a copy, or one float32 division and rounding per element.
 
 The LM functions (``flash_attention``, ``flash_attention_chunked``,
 ``ssd_scan``, ``ssd_scan_chunked``) mirror ``repro/kernels/ref.py``
@@ -363,3 +366,33 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             + b32[:, t][..., :, None] * x32[:, t][..., None, :]
         ys.append(torch.einsum("bhs,bhsd->bhd", c32[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
+    """MoE dispatch gather: ``buf[i] = x[idx[i]]`` for each of the S slots,
+    zeros where ``idx[i] < 0`` (an empty slot).  x: (t, d); idx: (S,)
+    integer.  Returns (buf (S, d), scales (S,) float32).
+
+    Without ``quant``, buf has x's dtype and scales are 1.0 for a valid
+    slot and 0.0 for an empty one.  With ``quant``, each row is computed
+    in float32 as the reference's ``_gather_kernel`` writes it: scale =
+    max(absmax / 127, 1e-12) (a true division), buf = clip(round(v /
+    scale), −127, 127) as int8 (halves to even), and scale 0 for an
+    empty slot.  An id >= t is a caller error: it raises for a CPU
+    tensor; on the card (no host sync) it gives an empty slot, as the
+    kernel does."""
+    t, d = x.shape
+    if idx.device.type == "cpu" and idx.numel() and int(idx.max()) >= t:
+        raise IndexError(f"dispatch_gather: row id {int(idx.max())} >= t = {t}")
+    valid = (idx >= 0) & (idx < t)
+    rows = x[idx.clamp(0, t - 1).long()]
+    rows = torch.where(valid[:, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
+    if not quant:
+        return rows, valid.to(torch.float32)
+    v = rows.to(torch.float32)
+    absmax = v.abs().amax(dim=1)
+    # A tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which is not the true division the kernel does.
+    scale = torch.clamp_min(absmax / torch.full_like(absmax, 127.0), 1e-12)
+    q = torch.round(v / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, torch.where(valid, scale, 0.0)

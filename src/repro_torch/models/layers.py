@@ -1,6 +1,6 @@
 """Layers of the LM stack's serving path: the port of
 ``repro/models/layers.py`` for dense GQA/MQA attention (qk-norm, rope,
-windows), the MLP and the Mamba-2 (SSD) block.
+windows), the MLP, the one-card MoE layer and the Mamba-2 (SSD) block.
 
 Parameters live in ``nn.Module``s whose leaves keep the reference's names
 (``wq``, ``k_norm``, ``w_in``, ``a_log``, ...); the math lives in plain
@@ -9,16 +9,19 @@ functions named as in the reference (``rmsnorm``, ``attn_apply``,
 a parameter dict.  Matmuls run in the parameters' dtype; norms, softmax,
 rope, decode attention and the SSM state in float32, as in the reference.
 On the card, float32 matmuls must run in IEEE float32 (the callers keep
-TF32 off).  Prefill reaches the two CUDA kernels through
-``kernels.ops.flash_attention`` and ``kernels.ops.ssd_scan``; decode runs
-no kernel (float32 einsums and an elementwise recurrence, as in the
-reference).
+TF32 off).  Prefill reaches the CUDA kernels through
+``kernels.ops.flash_attention`` and ``kernels.ops.ssd_scan``; the MoE
+layer builds its expert buffer through ``kernels.ops.dispatch_gather``
+in prefill and decode alike.  Decode runs no other kernel (float32
+einsums and an elementwise recurrence, as in the reference).
 
-Not here yet: MLA, MoE and cross-attention (ROADMAP A10).
+Not here yet: MLA, cross-attention, and the MoE layer's expert-parallel
+(``epsum``, ``a2a``) forms across cards (ROADMAP A10).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -231,6 +234,133 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
     return o @ p.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# MoE — one card (the reference's ``c.mesh is None`` route)
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """router (d, E), w1/w3 (E, d, f), w2 (E, f, d), and ``shared`` (an MLP
+    of n_shared_experts · shared_d_ff) when the config has shared experts.
+    Scales as the reference's ``moe_init``: the router 0.02, w2 1/√f, and
+    w1/w3 ``_init``'s default 1/√shape[0], which for (E, d, f) is 1/√E,
+    not 1/√d (a property of the reference, kept as it is)."""
+
+    def __init__(self, cfg, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_ff
+        kw = dict(device=device, dtype=dtype)
+        self.router = _init(gen, (d, e), 0.02, **kw)
+        self.w1 = _init(gen, (e, d, f), **kw)
+        self.w3 = _init(gen, (e, d, f), **kw)
+        self.w2 = _init(gen, (e, f, d), 1.0 / math.sqrt(f), **kw)
+        if cfg.n_shared_experts:
+            sf = (cfg.shared_d_ff or cfg.expert_ff) * cfg.n_shared_experts
+            self.shared = MLP(cfg, d, sf, gen, **kw)
+
+
+class Routing(NamedTuple):
+    """Where each token goes: the routing half of the reference's
+    ``_moe_local``.  Token-copies are the t·k (token, choice) pairs in
+    row-major order; ``order`` sorts them by expert, stably."""
+
+    topi: torch.Tensor   # (t, k) int64 experts, best first (the lower id first on a tie)
+    gates: torch.Tensor  # (t, k) float32, topv / max(Σ topv, 1e-9)
+    order: torch.Tensor  # (t·k,) int64 copy ids, sorted by expert
+    keep: torch.Tensor   # (t·k,) bool, in sorted order: within the expert's capacity
+    slot: torch.Tensor   # (t·k,) int64 expert slot e·cap + rank; E·cap when dropped
+    idx: torch.Tensor    # (E·cap,) int32: the token in each expert slot, −1 if empty
+
+
+def _route(probs: torch.Tensor, k: int, capacity: int) -> Routing:
+    """Top-k routing with per-expert capacity, as the reference computes
+    it from ``probs`` (t, E): top-k by a stable descending sort (so ties go
+    to the lower expert id, as ``jax.lax.top_k``), the gates' sum folded
+    left to right, a stable argsort of the copies by expert, ``first`` by
+    a left searchsorted, and each copy's rank within its expert; copies
+    ranked at or past ``capacity`` are dropped.  ``idx`` inverts the slot
+    map for ``dispatch_gather``.  Needs no host sync."""
+    t, e = probs.shape
+    dev = probs.device
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    total = topv[:, 0]
+    for i in range(1, k):
+        total = total + topv[:, i]
+    gates = topv / torch.clamp_min(total, 1e-9)[:, None]
+    fe = topi.reshape(-1)
+    order = torch.argsort(fe, stable=True)
+    le_s = fe[order]
+    first = torch.searchsorted(le_s, torch.arange(e + 1, device=dev))
+    rank = torch.arange(t * k, device=dev) - first[le_s]
+    keep = rank < capacity
+    slot = torch.where(keep, le_s * capacity + rank, e * capacity)
+    # A dropped copy writes −1 to the spare last slot, which is cut off.
+    tok = torch.where(keep, order // k, -1).to(torch.int32)
+    idx = torch.full((e * capacity + 1,), -1, dtype=torch.int32, device=dev)
+    idx = idx.scatter_(0, slot, tok)[:-1]
+    return Routing(topi, gates, order, keep, slot, idx)
+
+
+def _moe_local(cfg, p: MoE, x_flat: torch.Tensor, capacity: int):
+    """Route x_flat (t, d) to all E experts on this card.  Returns (y (t,
+    d), aux parts (top-1 counts (E,), prob sums (E,), t)).
+
+    The expert buffer xe (E, cap, d) is ``dispatch_gather``'s copy of each
+    slot's token row (zeros where empty), the reference's gather → mask →
+    scatter.  The combine sums each token's k contributions in the
+    reference's order, ascending position in the expert-sorted list, each
+    add rounded in x's dtype (no float atomics)."""
+    t, d = x_flat.shape
+    e, k = cfg.n_experts, cfg.topk
+    logits = (x_flat @ p.router).float()
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)                   # jax.nn.softmax
+    r = _route(probs, k, capacity)
+
+    xe = ops.dispatch_gather(x_flat, r.idx, quant=False)[0].reshape(e, capacity, d)
+    h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
+    ye = torch.bmm(h, p.w2).reshape(e * capacity, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+
+    gate_s = r.gates.reshape(-1)[r.order]
+    contrib = ye[r.slot] * (gate_s * r.keep).to(ye.dtype)[:, None]
+    # pos[j, i]: where token j's i-th contribution sits in the sorted list.
+    inv = torch.empty_like(r.order).scatter_(
+        0, r.order, torch.arange(t * k, device=x_flat.device))
+    pos = inv.reshape(t, k).sort(dim=1).values
+    y = torch.zeros((t, d), dtype=x_flat.dtype, device=x_flat.device)
+    for i in range(k):
+        y = y + contrib[pos[:, i]]
+
+    counts = torch.bincount(r.topi[:, 0], minlength=e).to(torch.float32)
+    aux_parts = (counts, probs.sum(dim=0),
+                 torch.full((), float(t), dtype=torch.float32, device=x_flat.device))
+    return y, aux_parts
+
+
+def _aux_from_parts(e: int, parts) -> torch.Tensor:
+    f_sum, p_sum, t = parts
+    t = torch.clamp_min(t, 1.0)
+    return e * torch.sum((f_sum / t) * (p_sum / t))
+
+
+def moe_apply(cfg, p: MoE, x: torch.Tensor):
+    """x: (B, S, d) -> (y, aux loss), the reference's one-device route:
+    capacity ⌈t·k / E · capacity_factor⌉ over the t = B·S tokens, then
+    the shared expert, if any, added to the routed output."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.topk
+    t = b * s
+    cap = int(math.ceil(t * k / e * cfg.capacity_factor))
+    y, parts = _moe_local(cfg, p, x.reshape(t, d), cap)
+    y = y.reshape(x.shape)
+    aux = _aux_from_parts(e, parts)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(cfg, p.shared, x)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The LM stack's serving path: the port of ``repro/models/transformer.py``
-for decoder-only dense (GQA/MQA) and Mamba-2 models.
+for decoder-only dense (GQA/MQA), MoE and Mamba-2 models, on one card.
 
 Layers are organised in *pattern groups* as in the reference:
 ``cfg.block_pattern`` repeats ``cfg.n_groups`` times.  The model is an
@@ -13,7 +13,7 @@ holds each leaf stacked over groups.
 Entry points: ``init_params`` (seeded random weights, on the card unless
 ``device="cpu"``), ``forward`` (the teacher-forced oracle), ``init_cache``,
 ``prefill`` and ``decode_step``.  ``decode_step`` updates the cache in
-place.  MLA, MoE, encoder-decoder and prefix (VLM) configurations raise
+place.  MLA, encoder-decoder and prefix (VLM) configurations raise
 ``NotImplementedError``: they are later slices of the port (ROADMAP A10).
 """
 from __future__ import annotations
@@ -27,8 +27,6 @@ from repro_torch.models.config import ModelConfig
 
 # What each configuration kind this slice does not run waits for (ROADMAP A10).
 _NOT_YET = (
-    (lambda c: c.n_experts > 0, "MoE (moe_apply, with the moe_gather kernel B9)",
-     "A10 left item 1"),
     (lambda c: c.attn_kind == "mla", "MLA (mla_apply/mla_decode)", "A10 left item 2"),
     (lambda c: c.encoder_layers > 0, "the encoder and cross-attention (whisper)",
      "A10 left item 3"),
@@ -51,17 +49,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 + mixer (Attention or Mamba), then norm2 + ffn when d_ff > 0."""
+    """norm1 + mixer (Attention or Mamba), then norm2 + ffn when d_ff > 0
+    or the layer is MoE: an MoE layer's ffn is ``MoE``, another's ``MLP``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, gen=None, *, device=None,
+    def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, gen=None, *, device=None,
                  dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = L.Norm(cfg, cfg.d_model, **kw)
         self.mixer = L.Attention(cfg, gen, **kw) if kind == "attn" else L.Mamba(cfg, gen, **kw)
-        if cfg.d_ff > 0:
+        if cfg.d_ff > 0 or is_moe:
             self.norm2 = L.Norm(cfg, cfg.d_model, **kw)
-            self.ffn = L.MLP(cfg, cfg.d_model, cfg.d_ff, gen, **kw)
+            self.ffn = (L.MoE(cfg, gen, **kw) if is_moe
+                        else L.MLP(cfg, cfg.d_model, cfg.d_ff, gen, **kw))
 
 
 class LM(nn.Module):
@@ -77,8 +77,8 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = L._init(gen, (v, d), 0.02, **kw)
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({f"l{i}": Block(cfg, kind, gen, **kw)
-                           for i, (kind, _) in enumerate(cfg.layer_kinds())})
+            nn.ModuleDict({f"l{i}": Block(cfg, kind, is_moe, gen, **kw)
+                           for i, (kind, is_moe) in enumerate(cfg.layer_kinds())})
             for _ in range(cfg.n_groups))
 
     @property
@@ -99,7 +99,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cud
     """Seeded random weights with the reference's shapes and scales:
     embeddings and the head normal·0.02, matrices normal/√fan_in (the
     output projection of attention normal/√(h·hd), the Mamba conv
-    normal·0.2), norms 1, ``a_log`` and ``dt_bias`` 0, ``d_skip`` 1.  Drawn
+    normal·0.2; the MoE router normal·0.02 and its experts as ``L.MoE``
+    says), norms 1, ``a_log`` and ``dt_bias`` 0, ``d_skip`` 1.  Drawn
     in float32 from ``gen`` (a ``torch.Generator`` on ``device``, or a
     seed for one) and cast to ``dtype``.  The numbers differ from the
     reference's ``jax.random`` draws; ``params_from_jax`` carries those
@@ -163,7 +164,18 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None], rows, torch.nan)
 
 
+def _ffn_apply(cfg, bp: Block, x):
+    """x + the block's ffn of norm2(x), and the MoE aux loss (None for an MLP)."""
+    h2 = L.norm_apply(cfg, bp.norm2, x)
+    if isinstance(bp.ffn, L.MoE):
+        y, aux = L.moe_apply(cfg, bp.ffn, h2)
+    else:
+        y, aux = L.mlp_apply(cfg, bp.ffn, h2), None
+    return x + y, aux
+
+
 def _block_apply(cfg, kind: str, bp: Block, x, positions, window):
+    """One block, full-sequence.  Returns (x, aux or None)."""
     h = L.norm_apply(cfg, bp.norm1, x)
     if kind == "attn":
         o, _ = L.attn_apply(cfg, bp.mixer, h, positions=positions, window=window)
@@ -171,13 +183,14 @@ def _block_apply(cfg, kind: str, bp: Block, x, positions, window):
         o, _ = L.mamba_apply(cfg, bp.mixer, h)
     x = x + o
     if hasattr(bp, "ffn"):
-        x = x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
-    return x
+        return _ffn_apply(cfg, bp, x)
+    return x, None
 
 
 def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, window="cfg"):
     """Teacher-forced forward.  tokens: (B, S) int.  Returns (logits (B, S,
-    padded_vocab), aux), aux 0 (no MoE in this slice)."""
+    padded_vocab), aux): aux is the MoE layers' load-balance losses summed
+    over the layers in order (float32; 0 without MoE)."""
     win = cfg.window if window == "cfg" else window
     x = embed_tokens(model.embed, tokens)
     s = x.shape[1]
@@ -185,12 +198,15 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, window="cfg"):
         x = x + L.sinusoid_pos(s, cfg.d_model, device=x.device).to(x.dtype)
     positions = torch.arange(s, device=x.device)
     kinds = cfg.layer_kinds()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in model.blocks:
         for i, (kind, _) in enumerate(kinds):
-            x = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win)
+            x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win)
+            if a is not None:
+                aux = aux + a
     x = L.norm_apply(cfg, model.final_norm, x)
     logits = x @ model.head.T
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +266,7 @@ def _block_decode(cfg, kind: str, bp: Block, x, cache_slice: dict, pos: int, win
         o, _ = L.mamba_decode(cfg, bp.mixer, h, cache_slice, pos)
     x = x + o
     if hasattr(bp, "ffn"):
-        x = x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+        x, _ = _ffn_apply(cfg, bp, x)
     return x
 
 
@@ -289,7 +305,7 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, max_len: int |
             window="cfg"):
     """Process the prompt, returning (last-token logits, cache, next_pos).
 
-    Runs the full-sequence forward (the flash and SSD kernels on the card)
+    Runs the full-sequence forward (the flash, SSD and MoE gather kernels on the card)
     and writes K/V (or the conv tail and SSM state) into a fresh cache of
     length ``max_len`` (defaults to the prompt length), each leaf cast to
     the cache's dtype: the parameters' for K/V and conv, float32 for the
@@ -319,7 +335,7 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, max_len: int |
                 c["ssm"][g].copy_(mc["ssm"])
             x = x + o
             if hasattr(bp, "ffn"):
-                x = x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+                x, _ = _ffn_apply(cfg, bp, x)
     x = L.norm_apply(cfg, model.final_norm, x)
     logits = x[:, -1] @ model.head.T
     return logits, cache, s

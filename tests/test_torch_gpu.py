@@ -11,7 +11,8 @@ each FMA where the other has one and no other contraction, so every
 comparison of theirs is exact.  The LM kernels (flash_attention,
 ssd_scan) sum in another order than their plain versions and are held to
 tests/test_kernels.py's tolerances: 3e-4 (attention) and 5e-4 (SSD) in
-float32, 0.05 in bfloat16.
+float32, 0.05 in bfloat16.  The MoE dispatch gather (a copy, or one IEEE
+division and rounding per element) equals its plain version bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from repro_torch.core import dbscan, ddc  # noqa: E402
 from repro_torch.data import spatial  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import contour_dist, flash_attention, ops, pairwise_dist, ref  # noqa: E402
-from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels import moe_gather, ssd_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
@@ -424,11 +425,19 @@ def test_ssd_scan_rejects_bad_inputs(cuda):
         ssd_scan.ssd_scan(x, a, bb, torch.zeros((1, 16, 2, 8), device=cuda)[..., ::2])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-1.3b"])
+# The kernels each tiny model launches per layer: once in prefill, and the
+# MoE gather in every decode step too.
+SERVING_KERNELS = {"qwen3-8b": ("flash_attention", None),
+                   "mamba2-1.3b": ("ssd_scan", None),
+                   "llama4-scout-17b-a16e": ("flash_attention", "dispatch_gather")}
+
+
+@pytest.mark.parametrize("arch", list(SERVING_KERNELS))
 def test_serving_path_card_equals_cpu(cuda, arch):
     """The tiny configuration's greedy generation on the card (kernels in
-    prefill) against the CPU (plain versions), float32: one kernel launch
-    per layer in prefill, none in decode, logits within 1e-4 and the same
+    prefill, and the MoE gather in decode) against the CPU (plain
+    versions), float32: one prefill kernel launch per layer, one MoE
+    gather per MoE layer and step, logits within 1e-4 and the same
     tokens."""
     cfg = configs.get_config(arch).tiny()
     model = T.init_params(cfg, 0, device="cpu")
@@ -441,8 +450,67 @@ def test_serving_path_card_equals_cpu(cuda, arch):
     tr_gpu: dict = {}
     got = engine.greedy_generate(cfg, model_gpu, prompt.to(cuda), 6, scfg, trace=tr_gpu)
     counts = ops.launch_counts()
-    name = "flash_attention" if arch == "qwen3-8b" else "ssd_scan"
-    assert counts[name] == cfg.n_layers and sum(counts.values()) == cfg.n_layers
+    name, every_step = SERVING_KERNELS[arch]
+    plan = {name: cfg.n_layers, **({every_step: cfg.n_layers * 6} if every_step else {})}
+    assert {k: n for k, n in counts.items() if n} == plan
     for lg, lc in zip(tr_gpu["logits"], tr_cpu["logits"]):
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.cpu(), want)
+
+
+# -- the MoE dispatch gather (B9) -------------------------------------------------
+
+GATHER_CASES = [
+    # t, d, s, dtype, layout
+    (64, 16, 256, torch.float32, "rows"),           # tests/test_moe_gather.py's shapes
+    (128, 32, 128, torch.float32, "rows"),
+    (32, 8, 512, torch.float32, "rows"),
+    (64, 16, 128, torch.bfloat16, "rows"),
+    (8, 4, 32, torch.float32, "empty"),             # every slot empty
+    (50, 13, 77, torch.float32, "rows"),            # rows not 16-byte multiples
+    (50, 13, 77, torch.bfloat16, "rows"),
+    (40, 24, 60, torch.bfloat16, "strided"),        # a row-strided view of x
+    (40, 24, 60, torch.float32, "strided"),
+    (4, 5120, 16, torch.bfloat16, "rows"),          # llama4-scout's decode shape
+    (8192, 5120, 10240, torch.bfloat16, "rows"),    # and its prefill shape
+]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("t,d,s,dtype,layout", GATHER_CASES)
+def test_dispatch_gather(cuda, t, d, s, dtype, layout, quant):
+    """One launch, bit-equal to the plain version on the card and on the
+    CPU, and to a second launch."""
+    g = torch.Generator(device=cuda).manual_seed(t * d + s)
+    wide = torch.randn((t, 2 * d + 3), generator=g, device=cuda).to(dtype)
+    x = wide[:, 3:3 + d] if layout == "strided" else wide[:, :d].contiguous()
+    idx = torch.randint(-1, t, (s,), generator=g, device=cuda, dtype=torch.int32)
+    if layout == "empty":
+        idx.fill_(-1)
+    before = moe_gather.launches["dispatch_gather"]
+    buf, scales = moe_gather.dispatch_gather(x, idx, quant=quant)
+    torch.cuda.synchronize()
+    assert moe_gather.launches["dispatch_gather"] == before + 1
+    want_buf, want_scales = ref.dispatch_gather(x, idx, quant=quant)
+    cpu_buf, cpu_scales = ref.dispatch_gather(x.cpu(), idx.cpu(), quant=quant)
+    assert buf.dtype == (torch.int8 if quant else dtype) and scales.dtype == torch.float32
+    for got, want in ((buf, want_buf), (scales, want_scales), (buf.cpu(), cpu_buf),
+                      (scales.cpu(), cpu_scales)):
+        assert torch.equal(got, want)
+    again = moe_gather.dispatch_gather(x, idx, quant=quant)
+    assert torch.equal(again[0], buf) and torch.equal(again[1], scales)
+
+
+def test_dispatch_gather_rejects_bad_inputs(cuda):
+    x = torch.zeros((8, 16), device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # float16
+        moe_gather.dispatch_gather(x.half(), idx, quant=False)
+    with pytest.raises(ValueError):  # int64 ids
+        moe_gather.dispatch_gather(x, idx.long(), quant=False)
+    with pytest.raises(ValueError):  # a strided last axis
+        moe_gather.dispatch_gather(x[:, ::2], idx, quant=True)
+    with pytest.raises(ValueError):  # not (t, d)
+        moe_gather.dispatch_gather(x[None], idx, quant=False)
+    with pytest.raises(ValueError):  # ids on another device
+        moe_gather.dispatch_gather(x, idx.cpu(), quant=False)

@@ -181,7 +181,7 @@ class TestDispatch:
         assert ops.launch_counts() == {
             "neighbor_count": 0, "min_label_sweep": 0, "neighbor_count_sparse": 0,
             "min_label_sweep_sparse": 0, "pairwise_dist_sq": 0, "contour_min_d2": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "ssd_scan": 0, "dispatch_gather": 0}
         assert not ops.use_gpu_kernels(x)
 
     def test_force_ref_keeps_plain_versions(self, monkeypatch):

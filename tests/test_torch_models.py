@@ -1,8 +1,12 @@
 """The port's LM serving path (``repro_torch.models``, ``configs``,
 ``serve.engine``) against the reference package's, on the CPU, for the
-tiny configurations of the four architectures the port runs: qwen3-8b
-(GQA, qk-norm), granite-20b (MQA, gelu MLP), deepseek-coder-33b (GQA)
-and mamba2-1.3b (Mamba-2 SSD, tied embeddings).  The reference's
+tiny configurations of the seven architectures the port runs: qwen3-8b
+(GQA, qk-norm), granite-20b (MQA, gelu MLP), deepseek-coder-33b (GQA),
+mamba2-1.3b (Mamba-2 SSD, tied embeddings), and the MoE models
+llama4-scout (top-1, shared expert), kimi-k2 (top-2 at tiny size, shared
+expert) and jamba-1.5-large (MoE on the attention layer of each 8-layer
+pattern, Mamba-2 elsewhere).  The tiny configurations route drop-free
+(capacity factor E), as the reference's tests need for decode == forward.  The reference's
 ``init_params(PRNGKey(0))`` is carried across with ``params_from_jax``;
 tokens are made with numpy.  Everything runs in float32.
 
@@ -36,11 +40,12 @@ from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
-ARCHS = ["qwen3-8b", "granite-20b", "deepseek-coder-33b", "mamba2-1.3b"]
+ARCHS = ["qwen3-8b", "granite-20b", "deepseek-coder-33b", "mamba2-1.3b",
+         "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"]
 NOT_PORTED = {"whisper-small": "A10 left item 3", "minicpm3-4b": "A10 left item 2",
-              "jamba-1.5-large-398b": "A10 left item 1", "kimi-k2-1t-a32b": "A10 left item 1",
-              "llama4-scout-17b-a16e": "A10 left item 1", "internvl2-26b": "A10 left item 4"}
+              "internvl2-26b": "A10 left item 4"}
 TOL = dict(rtol=1e-5, atol=1e-5)
+AUX_TOL = 1e-6  # the MoE aux loss: float32 sums of probabilities in another order
 SELF_TOL = 5e-4
 
 
@@ -170,11 +175,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_equals_the_reference(models, arch):
+    """Logits, and the aux loss summed over the MoE layers (0 without)."""
     jcfg, tcfg, params, model = models[arch]
     toks = _tokens(jcfg, 2, 16)
-    want, _ = JT.forward(jcfg, params, jnp.asarray(toks))
+    want, want_aux = JT.forward(jcfg, params, jnp.asarray(toks))
     got, aux = TT.forward(tcfg, model, torch.as_tensor(toks))
-    assert got.shape == (2, 16, tcfg.padded_vocab) and float(aux) == 0.0
+    assert got.shape == (2, 16, tcfg.padded_vocab) and aux.dtype == torch.float32
+    assert abs(float(aux) - float(want_aux)) <= AUX_TOL
+    assert (float(aux) == 0.0) == (tcfg.n_experts == 0)
     _close(got, want)
 
 
