@@ -21,7 +21,11 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    (max_len 2,064).  Per model: attention and SSD launch once per layer in
    prefill and nowhere else, the MoE gather once per MoE layer in prefill
    and in each decode step (launch counts zeroed just before the run and
-   read just after); a second kernel run gives bit-identical tokens and
+   read just after), and in bf16 every attention launch takes the
+   tensor-core route (``flash_attention_tc.cu``: 36 for qwen3-8b, 4 for
+   llama4-scout) while the float32 run below takes the CUDA-core one
+   (``flash_attention.cu``), by the route counts; a second kernel run gives
+   bit-identical tokens and
    logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
    routed as the reference routes off the TPU), teacher-forced on the
    kernel run's tokens, is held to the kernel run on the prefill's
@@ -36,10 +40,11 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    is held against its plain version on the inputs the main path gave its
    first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
    ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
-   bf16), at ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; the MoE gather bit
-   for bit in both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is
-   also timed at prefill_32k's length (one sequence, one layer's q/k/v)
-   beside ``scaled_dot_product_attention``, not gated.
+   bf16, each attention case on the route its dtype and head dim pick), at
+   ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; the MoE gather bit for bit in
+   both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is also
+   timed at prefill_32k's length (one sequence, one layer's q/k/v) beside
+   the CUDA-core kernel and ``scaled_dot_product_attention``, not gated.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
    ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
@@ -157,24 +162,41 @@ LM_KERNEL_BF16_RTOL = 2.0 ** -7
 LM_KERNEL_BF16_ATOL_FRAC = 2.0 ** -12
 # tests/test_kernels.py's TestFlashAttention and TestSSDScan shapes, then
 # ragged lengths, decode (sq = 1), the head-dim buckets' edges and the
-# models' own heads in bf16; each case held as the LM kernels are above.
+# models' own heads in bf16; then the tensor-core route (bf16 at d 64 and
+# 128) on GQA, MQA, non-causal, windowed, ragged (sq and skv not multiples
+# of its 128-row tiles), sq < 64, a decode query against a cache, and the
+# (b, s, h, d) views that layers.gqa_qkv hands over ("bshd").  Each case held
+# as the LM kernels are above, and on the route flash_attention.route picks.
 FLASH_SWEEP = [
-    # b, h, hkv, sq, skv, d, causal, window, bf16
-    (1, 4, 4, 128, 128, 32, True, None, False),     # MHA square
-    (2, 8, 2, 128, 256, 64, True, None, False),     # GQA, decode-style kv > q
-    (1, 4, 1, 256, 256, 32, True, None, False),     # MQA
-    (2, 2, 2, 64, 64, 128, True, None, False),      # large head dim
-    (1, 2, 2, 128, 128, 32, False, None, False),    # non-causal
-    (1, 2, 2, 192, 192, 32, True, 32, False),       # windowed
-    (1, 2, 2, 192, 192, 32, True, 100, False),
-    (1, 2, 2, 128, 128, 32, True, None, True),      # bf16
-    (1, 4, 2, 100, 173, 64, True, None, False),     # ragged sq and skv
-    (1, 4, 2, 100, 173, 64, True, 50, True),        # ragged, windowed, bf16
-    (2, 4, 4, 1, 77, 128, True, None, False),       # one decode query
-    (1, 3, 1, 45, 45, 80, False, 7, False),         # d between buckets
-    (1, 2, 2, 33, 70, 16, True, None, False),       # smallest bucket
-    (1, 2, 1, 65, 65, 256, True, None, False),      # largest bucket
-    (1, 32, 8, 300, 300, 128, True, None, True),    # qwen3-8b heads
+    # b, h, hkv, sq, skv, d, causal, window, bf16, layout
+    (1, 4, 4, 128, 128, 32, True, None, False, "bhsd"),     # MHA square
+    (2, 8, 2, 128, 256, 64, True, None, False, "bhsd"),     # GQA, decode-style kv > q
+    (1, 4, 1, 256, 256, 32, True, None, False, "bhsd"),     # MQA
+    (2, 2, 2, 64, 64, 128, True, None, False, "bhsd"),      # large head dim
+    (1, 2, 2, 128, 128, 32, False, None, False, "bhsd"),    # non-causal
+    (1, 2, 2, 192, 192, 32, True, 32, False, "bhsd"),       # windowed
+    (1, 2, 2, 192, 192, 32, True, 100, False, "bhsd"),
+    (1, 2, 2, 128, 128, 32, True, None, True, "bhsd"),      # bf16 (CUDA cores)
+    (1, 4, 2, 100, 173, 64, True, None, False, "bhsd"),     # ragged sq and skv
+    (1, 4, 2, 100, 173, 64, True, 50, True, "bhsd"),        # ragged, windowed, bf16
+    (2, 4, 4, 1, 77, 128, True, None, False, "bhsd"),       # one decode query
+    (1, 3, 1, 45, 45, 80, False, 7, False, "bhsd"),         # d between buckets
+    (1, 3, 1, 45, 45, 80, False, 7, True, "bhsd"),          # bf16 off the tensor cores
+    (1, 2, 2, 33, 70, 16, True, None, False, "bhsd"),       # smallest bucket
+    (1, 2, 1, 65, 65, 256, True, None, False, "bhsd"),      # largest bucket
+    (1, 32, 8, 300, 300, 128, True, None, True, "bhsd"),    # qwen3-8b heads
+    (2, 8, 2, 128, 256, 128, True, None, True, "bhsd"),     # tensor cores: GQA
+    (1, 4, 1, 256, 256, 64, True, None, True, "bhsd"),      # MQA
+    (1, 2, 2, 128, 128, 128, False, None, True, "bhsd"),    # non-causal
+    (1, 2, 2, 192, 192, 64, True, 32, True, "bhsd"),        # windowed
+    (1, 2, 2, 300, 300, 128, True, 100, True, "bhsd"),      # window across tiles
+    (1, 4, 2, 100, 173, 128, True, None, True, "bhsd"),     # ragged sq and skv
+    (1, 4, 2, 200, 333, 64, False, None, True, "bhsd"),     # ragged, non-causal
+    (1, 4, 4, 33, 70, 128, True, None, True, "bhsd"),       # sq < 64
+    (2, 8, 2, 1, 300, 128, True, None, True, "bhsd"),       # one query against a cache
+    (1, 4, 4, 1, 77, 64, True, None, True, "bhsd"),
+    (2, 32, 8, 200, 200, 128, True, None, True, "bshd"),    # gqa_qkv's strided views
+    (1, 4, 2, 150, 150, 64, True, 64, True, "bshd"),
 ]
 SSD_SWEEP = [
     # b, l, h, dh, ds, bf16
@@ -191,9 +213,9 @@ SSD_SWEEP = [
 ]
 # The MoE dispatch gather (a copy, or one IEEE division and rounding per
 # element) against its plain version bit for bit, in both modes:
-# tests/test_moe_gather.py's shapes and int8 dtypes, every slot empty, rows
-# that are not 16-byte multiples, a row-strided x, and llama4-scout's decode
-# shape.
+# tests/test_moe_gather.py's shapes and int8 dtypes, every slot empty, ids
+# >= t (empty slots, as on the CPU), rows that are not 16-byte multiples, a
+# row-strided x, and llama4-scout's decode shape.
 MOE_GATHER_SWEEP = [
     # t, d, s, dtype, layout
     (64, 16, 256, "float32", "rows"),
@@ -201,6 +223,7 @@ MOE_GATHER_SWEEP = [
     (32, 8, 512, "float32", "rows"),
     (64, 16, 128, "bfloat16", "rows"),
     (8, 4, 32, "float32", "empty"),
+    (50, 13, 77, "bfloat16", "beyond"),             # ids >= t: empty slots too
     (50, 13, 77, "float32", "rows"),
     (50, 13, 77, "bfloat16", "rows"),
     (40, 24, 60, "bfloat16", "strided"),
@@ -465,37 +488,69 @@ def _flash_pairs(sq: int, skv: int, causal: bool) -> int:
     return sum(min(skv, max(0, off + r + 1)) for r in range(sq))
 
 
-def lm_kernel_entries(torch, ops, ref, ssd, captured: dict, launches: dict) -> list[dict]:
+def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
+                      flash_routes: dict) -> list[dict]:
     """The two LM kernels against their plain versions (the routes
     ``ops`` takes under FORCE="ref") on the inputs the main path gave its
     first layer, in bf16 as served and cast up to float32 (the float32
     build), timed beside the plain versions and, for attention,
     ``scaled_dot_product_attention``.  Bounds use the bf16 tensor-core
     rate (the inputs are bf16); ``bound_fp32_ms`` gives the float32
-    CUDA-core bound the kernels run against.  Bytes count each distinct
-    input element once (ssd_scan's c is broadcast over the heads)."""
+    CUDA-core bound.  Bytes count each distinct input element once
+    (ssd_scan's c is broadcast over the heads).  Attention takes the
+    tensor-core route on the bf16 inputs (two launches must give the same
+    bits) and the CUDA-core route on the float32 ones; the CUDA-core kernel
+    is also timed and held on the bf16 inputs (``simt``), the design the
+    tensor-core route replaced there."""
     q, k, v = captured["flash_attention"]
     b, h, s, d = q.shape
     hkv = k.shape[1]
     ops_fa = b * h * _flash_pairs(s, s, True) * 4 * d      # q·k and p·v, 2d each
     bytes_fa = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)   # q, k, v, out
+    kind = fa.route(q.dtype, d)
+    if kind != "tc" or flash_routes != {"tc": launches["flash_attention"], "simt": 0}:
+        raise RuntimeError(f"qwen3-8b's bf16 attention took route {kind}, main-path launches "
+                           f"by route {flash_routes}: expected the tensor cores")
     q32, k32, v32 = q.float(), k.float(), v.float()
+    before = dict(fa.route_launches)
     f32_fa = f32_check(torch, "flash_attention",
                        lambda: ops.flash_attention(q32, k32, v32, causal=True),
                        lambda: ref.flash_attention_chunked(q32, k32, v32, causal=True))
+    if fa.route_launches["simt"] != before["simt"] + 1:
+        raise RuntimeError("flash_attention: the float32 inputs did not take the CUDA cores")
     del q32, k32, v32
+
+    def kern():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return ref.flash_attention_chunked(q, k, v, causal=True)
+
+    def simt():
+        return fa._launch("simt", q, k, v, True, None, None)
+
+    want = plain()
+    if not same(torch, kern(), kern()):
+        raise RuntimeError("flash_attention: two launches on the main path's inputs differ")
+    simt_out = held(torch, "flash_attention (CUDA cores, bf16)", simt(), want, bf16_tol(want))
+    del want
     b_ms, b_by = bound(ops_fa, bytes_fa, PEAK_BF16)
     entries = [kernel_entry(
-        torch, "flash_attention", "flash_attention.cu",
+        torch, "flash_attention", "flash_attention_tc.cu",
         "src/repro/kernels/flash_attention.py:99", [b, h, hkv, s, d, str(q.dtype)],
-        lambda: ops.flash_attention(q, k, v, causal=True),
-        lambda: ref.flash_attention_chunked(q, k, v, causal=True), b_ms, b_by,
-        launches["flash_attention"], "qwen3-8b prefill",
+        kern, plain, b_ms, b_by, launches["flash_attention"], "qwen3-8b prefill",
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True),
         tol=bf16_tol,
-        extra={"bound_fp32_ms": bound(ops_fa, bytes_fa)[0], "operations": ops_fa,
-               "bytes": bytes_fa, **f32_fa})]
+        extra={"kernel_route": kind, "route_launches": flash_routes,
+               "two_launches_identical": True,
+               "bound_fp32_ms": bound(ops_fa, bytes_fa)[0], "operations": ops_fa,
+               # p_hi and p_lo each multiply v: 1.5x the function's operations
+               "tensor_core_operations": ops_fa * 3 // 2, "bytes": bytes_fa,
+               "simt": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "ms": median_ms(torch, simt, 5, per=2),
+                        "max_abs_err": simt_out["max_abs_err"]},
+               **f32_fa})]
     x, a, bb, c = captured["ssd_scan"]
     bsz, l, hs, dh = x.shape
     ds = bb.shape[-1]
@@ -605,6 +660,8 @@ def moe_gather_sweep(torch, ops, ref, dev) -> list[dict]:
         idx = torch.randint(-1, t, (s,), generator=g, device=dev, dtype=torch.int32)
         if layout == "empty":
             idx.fill_(-1)
+        elif layout == "beyond":
+            idx = torch.randint(-1, 2 * t, (s,), generator=g, device=dev, dtype=torch.int32)
         for quant in (False, True):
             before = ops.launch_counts()["dispatch_gather"]
             got = ops.dispatch_gather(x, idx, quant=quant)
@@ -641,9 +698,10 @@ def f32_check(torch, name, kern, plain) -> dict:
     return {f"f32_{k}": v for k, v in out.items()}
 
 
-def lm_kernel_sweep(torch, ops, ref, dev) -> list[dict]:
+def lm_kernel_sweep(torch, ops, ref, fa, dev) -> list[dict]:
     """FLASH_SWEEP and SSD_SWEEP: each case from a seeded generator, one
-    kernel launch (counted) against the plain version tests/test_kernels.py
+    kernel launch (counted, and for attention on the route
+    ``fa.route`` picks) against the plain version tests/test_kernels.py
     holds it to (exact attention, sequential SSD), float32 at
     LM_KERNEL_F32_TOL and bf16 at ``bf16_tol``; a second launch must give
     the same bits."""
@@ -653,28 +711,36 @@ def lm_kernel_sweep(torch, ops, ref, dev) -> list[dict]:
         t = torch.randn(shape, generator=g, device=dev)
         return t.bfloat16() if bf16 else t
 
-    def hold(name, case, kern, plain, bf16):
+    def hold(name, case, kern, plain, bf16, kernel_route=None):
         before = ops.launch_counts()[name]
+        routes = dict(fa.route_launches)
         got = kern()
         torch.cuda.synchronize()
         if ops.launch_counts()[name] != before + 1:
             raise RuntimeError(f"{name} {case}: the kernel did not launch")
+        if kernel_route is not None and fa.route_launches[kernel_route] != routes[kernel_route] + 1:
+            raise RuntimeError(f"{name} {case}: the {kernel_route} route did not launch")
         want = plain()
         out = held(torch, f"{name} {case}", got, want,
                    bf16_tol(want) if bf16 else LM_KERNEL_F32_TOL[name])
         if not same(torch, got, kern()):
             raise RuntimeError(f"{name} {case}: two kernel launches differ")
-        return {"kernel": name, "case": list(case), **out}
+        extra = {} if kernel_route is None else {"kernel_route": kernel_route}
+        return {"kernel": name, "case": list(case), **extra, **out}
+
+    def heads(b, n, s, d, bf16, layout):
+        if layout == "bshd":  # (b, s, n, d) memory, seen as (b, n, s, d)
+            return randn((b, s, n, d), bf16).transpose(1, 2)
+        return randn((b, n, s, d), bf16)
 
     rows = []
     for case in FLASH_SWEEP:
-        b, h, hkv, sq, skv, d, causal, window, bf16 = case
-        q, k, v = (randn(shape, bf16) for shape in
-                   ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+        b, h, hkv, sq, skv, d, causal, window, bf16, layout = case
+        q, k, v = (heads(b, n, s, d, bf16, layout) for n, s in ((h, sq), (hkv, skv), (hkv, skv)))
         rows.append(hold("flash_attention", case,
                          lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
                          lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
-                         bf16))
+                         bf16, fa.route(q.dtype, d)))
     for case in SSD_SWEEP:
         b, l, h, dh, ds, bf16 = case
         x, bb, c = randn((b, l, h, dh), bf16), randn((b, l, h, ds), bf16), randn((b, l, h, ds), bf16)
@@ -684,23 +750,25 @@ def lm_kernel_sweep(torch, ops, ref, dev) -> list[dict]:
     return rows
 
 
-def long_prefill_attention(torch, ops, dev) -> dict:
+def long_prefill_attention(torch, ops, fa, dev) -> dict:
     """flash_attention at prefill_32k's length: one sequence, one qwen3-8b
-    layer's q/k/v shapes (random bf16), kernel and SDPA timed, not gated."""
+    layer's q/k/v shapes (random bf16), the kernel (the tensor-core route),
+    the CUDA-core kernel and SDPA timed, not gated."""
     g = torch.Generator(device=dev).manual_seed(32)
     h, hkv, d = 32, 8, 128
     q = torch.randn((1, h, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
     k = torch.randn((1, hkv, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
     v = torch.randn((1, hkv, LONG_PREFILL, d), generator=g, device=dev, dtype=torch.bfloat16)
     ops_fa = h * _flash_pairs(LONG_PREFILL, LONG_PREFILL, True) * 4 * d
-    before = ops.launch_counts()["flash_attention"]
+    before = fa.route_launches["tc"]
     out = {"shape": [1, h, hkv, LONG_PREFILL, d, "bfloat16"],
-           "ms": median_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), 3),
+           "ms": median_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), 5, per=3),
+           "simt_ms": median_ms(torch, lambda: fa._launch("simt", q, k, v, True, None, None), 1),
            "sdpa_ms": median_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True), 5, per=3),
            "bound_ms": ops_fa / PEAK_BF16 * 1e3, "bound_fp32_ms": ops_fa / PEAK_FP32 * 1e3}
-    if ops.launch_counts()["flash_attention"] == before:
-        raise RuntimeError("the 32k attention timing did not launch the kernel")
+    if fa.route_launches["tc"] == before:
+        raise RuntimeError("the 32k attention timing did not launch the tensor-core kernel")
     return out
 
 
@@ -819,11 +887,13 @@ def route_drops(log: list, n_moe: int) -> dict:
             "decode": [sum(per_call[n_moe + i::n_moe]) for i in range(n_moe)]}
 
 
-def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
+def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
     """Serve each LM_ARCHS model at full width, at full depth or cut to
     LM_LAYERS (see the module docstring), and print its numbers.  Returns
-    ({kernel: main-path launches}, {kernel: first-layer inputs})."""
+    ({kernel: main-path launches}, {kernel: first-layer inputs}, {model:
+    flash_attention's main-path launches by route})."""
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -831,7 +901,7 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("float32 matmuls must run in IEEE float32 (TF32 off)")
-    launches_by_kernel, captured = {}, {}
+    launches_by_kernel, captured, flash_routes = {}, {}, {}
     for arch, kname in LM_ARCHS.items():
         published = configs.get_config(arch)
         cfg = dataclasses.replace(published, n_layers=LM_LAYERS.get(arch, published.n_layers))
@@ -867,16 +937,24 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
                 torch.cuda.synchronize()
             finally:
                 setattr(ops, kname, orig)
-            runs.append((toks, tr, ops.launch_counts(), torch.cuda.max_memory_allocated(dev)))
-        (toks, tr, launches, peak), (toks2, tr2, _, _) = runs
+            runs.append((toks, tr, ops.launch_counts(), dict(fa.route_launches),
+                         torch.cuda.max_memory_allocated(dev)))
+        (toks, tr, launches, routes, peak), (toks2, tr2, _, _, _) = runs
         plan = lm_launch_plan(cfg)
         want = {k: plan.get(k, 0) for k in launches}
-        log(f"{arch}: launches {launches}, prefill {tr['prefill_s']:.4f}s, decode "
-            f"{tr['decode_s']:.4f}s")
+        log(f"{arch}: launches {launches}, attention routes {routes}, prefill "
+            f"{tr['prefill_s']:.4f}s, decode {tr['decode_s']:.4f}s")
         if launches != want:
             raise RuntimeError(f"{arch}: launches {launches}, expected {want} (attention and "
                                "SSD once per layer in prefill, the MoE gather once per MoE "
                                "layer in prefill and in every decode step)")
+        # bf16 weights: every attention launch takes the route its head dim
+        # gets in bf16 (the tensor cores at d 64 and 128).
+        want_routes = {"tc": 0, "simt": 0}
+        want_routes[fa.route(torch.bfloat16, cfg.head_dim)] += plan["flash_attention"]
+        if routes != want_routes:
+            raise RuntimeError(f"{arch}: attention launches by route {routes}, expected "
+                               f"{want_routes}")
         if not same(torch, toks, toks2) or not all(
                 same(torch, a, b) for a, b in zip(tr["logits"], tr2["logits"])):
             raise RuntimeError(f"{arch}: two kernel runs differ")
@@ -901,9 +979,14 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
             plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
                                                 toks, plain=True)
         model32 = cast_model(torch, T, cfg, model, torch.float32)
+        before32 = dict(fa.route_launches)
         with record_routes(L) as routes_k32:
             kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
                                    plain=False)
+        routes32 = {r: fa.route_launches[r] - before32[r] for r in before32}
+        if routes32 != {"tc": 0, "simt": plan["flash_attention"]}:
+            raise RuntimeError(f"{arch}: the float32 run's attention launches by route "
+                               f"{routes32}: float32 must stay on the CUDA cores")
         with record_routes(L) as routes_p32:
             plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
                                     plain=True)
@@ -946,6 +1029,7 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
             raise RuntimeError(f"{arch}: bf16 kernel run differs from the plain run by more "
                                f"than {LM_BF16_NOISE} x bf16's own error: {rms_kp} vs {rms_p32}")
         launches_by_kernel[kname] = launches[kname]
+        flash_routes[arch] = routes
         decode_tokens = LM_BATCH * (LM_STEPS - 1)
         numbers = {
             "card": card, "layers": cfg.n_layers, "published_layers": published.n_layers,
@@ -959,7 +1043,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
             "decode_tokens_per_s": decode_tokens / tr2["decode_s"],
             "first_run_prefill_s": tr["prefill_s"], "first_run_decode_s": tr["decode_s"],
             "plain_prefill_s": plain_prefill_s, "peak_mem_gb": peak / 1e9,
-            "launches": launches, "two_runs_identical": True, "profile": prof,
+            "launches": launches, "flash_attention_routes": routes,
+            "flash_attention_routes_f32": routes32, "two_runs_identical": True, "profile": prof,
             "f32_tolerance": list(LM_F32_TOL), "f32_max_abs_err": errs32,
             "bf16_noise_factor": LM_BF16_NOISE, "bf16_max_abs_err": errs,
             "bf16_rms_kernel_vs_plain": rms_kp, "bf16_rms_plain_vs_f32": rms_p32,
@@ -969,7 +1054,7 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict]:
         print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
         del model, tr, tr2, runs, toks, toks2, plain, kern32, plain32
         torch.cuda.empty_cache()
-    return launches_by_kernel, captured
+    return launches_by_kernel, captured, flash_routes
 
 
 def main() -> int:
@@ -984,6 +1069,7 @@ def main() -> int:
     from repro_torch.core import dbscan, ddc
     from repro_torch.data import spatial
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1002,13 +1088,14 @@ def main() -> int:
 
     # -- LM: the serving path at full width and depth ----------------------
     t_lm = time.perf_counter()
-    lm_launches, captured = lm_phase(torch, dev, card.splitlines()[0])
-    lm_kernels = lm_kernel_entries(torch, ops, ref, ssd, captured, lm_launches)
+    lm_launches, captured, flash_routes = lm_phase(torch, dev, card.splitlines()[0])
+    lm_kernels = lm_kernel_entries(torch, ops, ref, fa, ssd, captured, lm_launches,
+                                   flash_routes["qwen3-8b"])
     lm_kernels.append(moe_gather_entry(torch, ops, ref, captured, lm_launches))
     del captured
-    print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, dev)}), flush=True)
+    print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, fa, dev)}), flush=True)
     print(json.dumps({"moe_gather_sweep": moe_gather_sweep(torch, ops, ref, dev)}), flush=True)
-    long_attn = long_prefill_attention(torch, ops, dev)
+    long_attn = long_prefill_attention(torch, ops, fa, dev)
     torch.cuda.empty_cache()
     print(json.dumps({"lm_long_prefill_attention": long_attn,
                       "lm_phase_s": time.perf_counter() - t_lm}), flush=True)

@@ -4,9 +4,9 @@
 //   dispatch_gather (_gather_kernel)
 //
 // What it computes: for each of the S slots, the token row idx[slot] of x
-// (t, d), or zeros where idx[slot] < 0 (an empty slot).  An id >= t, a
-// caller error, also gives an empty slot: the card checks nothing more and
-// never reads outside x.  Without quantisation the row is copied bit for bit
+// (t, d), or zeros where idx[slot] < 0 (an empty slot).  An id >= t also
+// gives an empty slot, as the plain version does: the kernel never reads
+// outside x.  Without quantisation the row is copied bit for bit
 // into buf (S, d) of x's dtype and the slot's scale is 1 (0 when empty).
 // With quantisation the row is taken to float32, scale = max(absmax / 127,
 // 1e-12) by a true IEEE division, and buf = clamp(rint(v / scale), -127,

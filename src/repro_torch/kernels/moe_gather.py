@@ -56,8 +56,8 @@ def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
     copy); idx: (S,) int32, −1 for an empty slot.  Returns (buf (S, d),
     scales (S,) float32): buf in x's dtype, or int8 with ``quant``, as
     ``ref.dispatch_gather`` defines them, bit for bit.  An id >= t gives
-    an empty slot on the card (nothing is synchronised to check it); a row
-    holding a NaN quantises to unspecified values."""
+    an empty slot, as an id < 0 does (on every device); a row holding a
+    NaN quantises to unspecified values."""
     if x.device.type == "cpu":
         return ref.dispatch_gather(x, idx, quant=quant)
     if x.device.type != "cuda":

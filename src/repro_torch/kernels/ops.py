@@ -207,6 +207,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for d in (_pd.launches, _cd.launches, _fa.launches, _ssd.launches, _mg.launches):
+    """Zero every kernel's launch count, and flash_attention's per-route
+    counts (``flash_attention.route_launches``)."""
+    for d in (_pd.launches, _cd.launches, _fa.launches, _fa.route_launches, _ssd.launches,
+              _mg.launches):
         for k in d:
             d[k] = 0

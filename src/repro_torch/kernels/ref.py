@@ -378,12 +378,9 @@ def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
     in float32 as the reference's ``_gather_kernel`` writes it: scale =
     max(absmax / 127, 1e-12) (a true division), buf = clip(round(v /
     scale), −127, 127) as int8 (halves to even), and scale 0 for an
-    empty slot.  An id >= t is a caller error: it raises for a CPU
-    tensor; on the card (no host sync) it gives an empty slot, as the
-    kernel does."""
+    empty slot.  An id >= t is an empty slot too, on every device, as
+    the kernel treats it (the card checks nothing on the host)."""
     t, d = x.shape
-    if idx.device.type == "cpu" and idx.numel() and int(idx.max()) >= t:
-        raise IndexError(f"dispatch_gather: row id {int(idx.max())} >= t = {t}")
     valid = (idx >= 0) & (idx < t)
     rows = x[idx.clamp(0, t - 1).long()]
     rows = torch.where(valid[:, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))

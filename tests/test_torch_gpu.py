@@ -11,8 +11,11 @@ each FMA where the other has one and no other contraction, so every
 comparison of theirs is exact.  The LM kernels (flash_attention,
 ssd_scan) sum in another order than their plain versions and are held to
 tests/test_kernels.py's tolerances: 3e-4 (attention) and 5e-4 (SSD) in
-float32, 0.05 in bfloat16.  The MoE dispatch gather (a copy, or one IEEE
-division and rounding per element) equals its plain version bit for bit.
+float32, 0.05 in bfloat16; bf16 attention, on either of its routes (the
+tensor cores at d 64 and 128, the CUDA cores otherwise), also to one bf16
+ulp (chip_smoke.py's bf16_tol).  The MoE dispatch gather (a copy, or one
+IEEE division and rounding per element) equals its plain version bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -264,40 +267,64 @@ def _randn(rng, shape, cuda, dtype=torch.float32):
 
 
 # tests/test_kernels.py's TestFlashAttention shapes, then ragged lengths,
-# decode (sq = 1), odd and extreme head dims, and qwen3-8b's GQA in bf16.
+# decode (sq = 1), odd and extreme head dims, and qwen3-8b's GQA in bf16;
+# then the tensor-core route (bf16 at d 64 and 128): GQA, MQA, non-causal,
+# windowed, ragged sq and skv (not multiples of its 128-row tiles), sq < 64,
+# one query against a cache, and layers.gqa_qkv's (b, s, h, d) views.
 FLASH_CASES = [
-    # b, h, hkv, sq, skv, d, causal, window, dtype
-    (1, 4, 4, 128, 128, 32, True, None, torch.float32),      # MHA square
-    (2, 8, 2, 128, 256, 64, True, None, torch.float32),      # GQA, decode-style kv > q
-    (1, 4, 1, 256, 256, 32, True, None, torch.float32),      # MQA
-    (2, 2, 2, 64, 64, 128, True, None, torch.float32),       # large head dim
-    (1, 2, 2, 128, 128, 32, False, None, torch.float32),     # non-causal
-    (1, 2, 2, 192, 192, 32, True, 32, torch.float32),        # windowed
-    (1, 2, 2, 192, 192, 32, True, 100, torch.float32),
-    (1, 2, 2, 128, 128, 32, True, None, torch.bfloat16),     # bf16
-    (1, 4, 2, 100, 173, 64, True, None, torch.float32),      # ragged sq and skv
-    (2, 4, 4, 1, 77, 128, True, None, torch.float32),        # one decode query
-    (1, 3, 1, 45, 45, 80, False, 7, torch.float32),          # d between buckets
-    (1, 2, 2, 33, 70, 16, True, None, torch.float32),        # smallest bucket
-    (1, 2, 1, 65, 65, 256, True, None, torch.float32),       # largest bucket
-    (1, 32, 8, 300, 300, 128, True, None, torch.bfloat16),   # qwen3-8b heads
+    # b, h, hkv, sq, skv, d, causal, window, dtype, route
+    (1, 4, 4, 128, 128, 32, True, None, torch.float32, "simt"),      # MHA square
+    (2, 8, 2, 128, 256, 64, True, None, torch.float32, "simt"),      # GQA, kv > q
+    (1, 4, 1, 256, 256, 32, True, None, torch.float32, "simt"),      # MQA
+    (2, 2, 2, 64, 64, 128, True, None, torch.float32, "simt"),       # large head dim
+    (1, 2, 2, 128, 128, 32, False, None, torch.float32, "simt"),     # non-causal
+    (1, 2, 2, 192, 192, 32, True, 32, torch.float32, "simt"),        # windowed
+    (1, 2, 2, 192, 192, 32, True, 100, torch.float32, "simt"),
+    (1, 2, 2, 128, 128, 32, True, None, torch.bfloat16, "simt"),     # bf16 at d 32
+    (1, 4, 2, 100, 173, 64, True, None, torch.float32, "simt"),      # ragged sq and skv
+    (2, 4, 4, 1, 77, 128, True, None, torch.float32, "simt"),        # one decode query
+    (1, 3, 1, 45, 45, 80, False, 7, torch.float32, "simt"),          # d between buckets
+    (1, 2, 2, 33, 70, 16, True, None, torch.float32, "simt"),        # smallest bucket
+    (1, 2, 1, 65, 65, 256, True, None, torch.float32, "simt"),       # largest bucket
+    (1, 32, 8, 300, 300, 128, True, None, torch.bfloat16, "tc"),     # qwen3-8b heads
+    (2, 8, 2, 128, 256, 128, True, None, torch.bfloat16, "tc"),      # GQA, kv > q
+    (1, 4, 1, 256, 256, 64, True, None, torch.bfloat16, "tc"),       # MQA
+    (1, 2, 2, 128, 128, 128, False, None, torch.bfloat16, "tc"),     # non-causal
+    (1, 2, 2, 192, 192, 64, True, 32, torch.bfloat16, "tc"),         # windowed
+    (1, 2, 2, 300, 300, 128, True, 100, torch.bfloat16, "tc"),       # window across tiles
+    (1, 4, 2, 100, 173, 128, True, None, torch.bfloat16, "tc"),      # ragged sq and skv
+    (1, 4, 2, 200, 333, 64, False, None, torch.bfloat16, "tc"),      # ragged, non-causal
+    (1, 4, 4, 33, 70, 128, True, None, torch.bfloat16, "tc"),        # sq < 64
+    (2, 8, 2, 1, 300, 128, True, None, torch.bfloat16, "tc"),        # one query, a cache
+    (1, 4, 4, 1, 77, 64, True, None, torch.bfloat16, "tc"),
 ]
 
 
-@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,dtype", FLASH_CASES)
-def test_flash_attention(cuda, b, h, hkv, sq, skv, d, causal, window, dtype):
+def _bf16_one_ulp(got, want):
+    """chip_smoke.py's bf16_tol: rtol 2^-7, atol 2^-12 max|want|."""
+    atol = 2.0 ** -12 * float(want.double().abs().max())
+    assert ((got.double() - want.double()).abs() <= atol + 2.0 ** -7 * want.double().abs()).all()
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window,dtype,route", FLASH_CASES)
+def test_flash_attention(cuda, b, h, hkv, sq, skv, d, causal, window, dtype, route):
     rng = np.random.default_rng(sq * skv + d)
     q = _randn(rng, (b, h, sq, d), cuda, dtype)
     k = _randn(rng, (b, hkv, skv, d), cuda, dtype)
     v = _randn(rng, (b, hkv, skv, d), cuda, dtype)
+    assert flash_attention.route(dtype, d) == route
     before = flash_attention.launches["flash_attention"]
+    routes = dict(flash_attention.route_launches)
     got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches["flash_attention"] == before + 1
+    assert flash_attention.route_launches[route] == routes[route] + 1
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got, want)
     # Deterministic: no atomics, a fixed order of every sum.
     assert torch.equal(got, flash_attention.flash_attention(q, k, v, causal=causal,
                                                             window=window))
@@ -311,6 +338,23 @@ def test_flash_attention_strided_inputs(cuda):
     v = _randn(rng, (2, 40, 2, 64), cuda).transpose(1, 2)
     got = ops.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(got, ref.flash_attention(q, k, v), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [(2, 32, 8, 200, 128, None),
+                                                (1, 4, 2, 150, 64, 64)])
+def test_flash_attention_tensor_cores_strided_inputs(cuda, b, h, hkv, s, d, window):
+    """The tensor-core route reads gqa_qkv's (b, s, h, d) views in place
+    (TMA maps over their strides)."""
+    rng = np.random.default_rng(s + d)
+    q = _randn(rng, (b, s, h, d), cuda, torch.bfloat16).transpose(1, 2)
+    k = _randn(rng, (b, s, hkv, d), cuda, torch.bfloat16).transpose(1, 2)
+    v = _randn(rng, (b, s, hkv, d), cuda, torch.bfloat16).transpose(1, 2)
+    before = flash_attention.route_launches["tc"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.route_launches["tc"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    _bf16_one_ulp(got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window))
 
 
 def test_flash_attention_long_matches_chunked_route(cuda):
@@ -345,6 +389,10 @@ def test_flash_attention_rejects_bad_inputs(cuda):
         flash_attention.flash_attention(q, k, k, window=0)
     with pytest.raises(ValueError):  # a strided last axis
         flash_attention.flash_attention(q, k, torch.zeros((1, 2, 8, 64), device=cuda)[..., ::2])
+    qb = torch.zeros((1, 4, 8, 136), device=cuda, dtype=torch.bfloat16)
+    kb = torch.zeros((1, 2, 8, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the tensor-core route: q off a 16-byte boundary
+        flash_attention.flash_attention(qb[..., 1:129], kb, kb)
 
 
 # tests/test_kernels.py's TestSSDScan shapes (its l = 100 case too), then
@@ -467,6 +515,7 @@ GATHER_CASES = [
     (32, 8, 512, torch.float32, "rows"),
     (64, 16, 128, torch.bfloat16, "rows"),
     (8, 4, 32, torch.float32, "empty"),             # every slot empty
+    (50, 13, 77, torch.float32, "beyond"),          # ids >= t: empty slots too
     (50, 13, 77, torch.float32, "rows"),            # rows not 16-byte multiples
     (50, 13, 77, torch.bfloat16, "rows"),
     (40, 24, 60, torch.bfloat16, "strided"),        # a row-strided view of x
@@ -487,6 +536,9 @@ def test_dispatch_gather(cuda, t, d, s, dtype, layout, quant):
     idx = torch.randint(-1, t, (s,), generator=g, device=cuda, dtype=torch.int32)
     if layout == "empty":
         idx.fill_(-1)
+    elif layout == "beyond":
+        idx = torch.randint(-1, 2 * t, (s,), generator=g, device=cuda, dtype=torch.int32)
+        assert int(idx.max()) >= t
     before = moe_gather.launches["dispatch_gather"]
     buf, scales = moe_gather.dispatch_gather(x, idx, quant=quant)
     torch.cuda.synchronize()

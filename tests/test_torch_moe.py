@@ -128,15 +128,21 @@ def test_plain_quant_roundtrip_bound(dtype):
 
 
 def test_plain_gather_bounds():
-    """A negative id of any size is an empty slot; an id >= t raises on the
-    CPU; a strided x is read as it is."""
+    """A negative id of any size is an empty slot, and so is an id >= t,
+    in both modes, as the kernel treats them; a strided x is read as it
+    is."""
     x = torch.arange(24, dtype=torch.float32).reshape(6, 4)
     buf, scales = ref.dispatch_gather(x, torch.tensor([5, -7, 0], dtype=torch.int32),
                                       quant=False)
     assert torch.equal(buf, torch.stack([x[5], torch.zeros(4), x[0]]))
     assert scales.tolist() == [1.0, 0.0, 1.0]
-    with pytest.raises(IndexError):
-        ref.dispatch_gather(x, torch.tensor([6], dtype=torch.int32), quant=False)
+    idx = torch.tensor([6, 2, 1000, -1], dtype=torch.int32)
+    for quant in (False, True):
+        buf, scales = ref.dispatch_gather(x, idx, quant=quant)
+        want, want_scales = ref.dispatch_gather(
+            x, torch.tensor([-1, 2, -1, -1], dtype=torch.int32), quant=quant)
+        assert torch.equal(buf, want) and torch.equal(scales, want_scales)
+        assert not buf[[0, 2, 3]].any() and scales[[0, 2, 3]].tolist() == [0.0] * 3
     wide = torch.arange(48, dtype=torch.float32).reshape(6, 8)
     buf, _ = ref.dispatch_gather(wide[:, 2:5], torch.tensor([1, 3], dtype=torch.int32),
                                  quant=False)
