@@ -23,10 +23,10 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    and in each decode step (launch counts zeroed just before the run and
    read just after), and in bf16 every attention launch takes the
    tensor-core route (``flash_attention_tc.cu``: 36 for qwen3-8b, 4 for
-   llama4-scout) while the float32 run below takes the CUDA-core one
-   (``flash_attention.cu``), by the route counts; a second kernel run gives
-   bit-identical tokens and
-   logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
+   llama4-scout) and every SSD launch too (``ssd_scan_tc.cu``: 48 for
+   mamba2-1.3b) while the float32 run below takes the CUDA-core ones
+   (``flash_attention.cu``, ``ssd_scan.cu``), by the route counts; a
+   second kernel run gives bit-identical tokens and logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
    routed as the reference routes off the TPU), teacher-forced on the
    kernel run's tokens, is held to the kernel run on the prefill's
    last-token logits and on every decode step's logits, in bf16 and with
@@ -40,8 +40,9 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    is held against its plain version on the inputs the main path gave its
    first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
    ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
-   bf16, each attention case on the route its dtype and head dim pick), at
-   ``LM_KERNEL_F32_TOL`` and ``bf16_tol``; the MoE gather bit for bit in
+   bf16, each case on the route its dtype and shape pick), at
+   ``LM_KERNEL_F32_TOL`` and ``bf16_tol``, the CUDA-core kernels also timed
+   and held on the bf16 first-layer inputs; the MoE gather bit for bit in
    both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is also
    timed at prefill_32k's length (one sequence, one layer's q/k/v) beside
    the CUDA-core kernel and ``scaled_dot_product_attention``, not gated.
@@ -198,18 +199,30 @@ FLASH_SWEEP = [
     (2, 32, 8, 200, 200, 128, True, None, True, "bshd"),    # gqa_qkv's strided views
     (1, 4, 2, 150, 150, 64, True, 64, True, "bshd"),
 ]
+# tests/test_kernels.py's TestSSDScan shapes, ragged lengths, ds 256 and bf16
+# on the CUDA cores; then the tensor-core route (bf16 at dh 64, ds 128) on a
+# ragged l, l < 64, l = 1, one whole chunk, b > 1, and the Mamba layer's
+# views ("mamba": x a slice of the conv output, c broadcast over the heads
+# with stride 0).  Each case on the route ssd_scan.route picks.
 SSD_SWEEP = [
-    # b, l, h, dh, ds, bf16
-    (1, 64, 2, 16, 8, False),
-    (2, 128, 3, 16, 8, False),
-    (1, 256, 1, 32, 16, False),
-    (2, 96, 4, 8, 4, False),
-    (2, 100, 3, 16, 8, False),                      # test_chunked_ref's ragged l
-    (2, 100, 3, 16, 8, True),
-    (1, 1, 2, 16, 8, False),
-    (1, 333, 4, 64, 128, False),                    # mamba2-1.3b's head, ragged
-    (2, 70, 3, 40, 256, False),
-    (1, 300, 4, 64, 128, True),
+    # b, l, h, dh, ds, bf16, layout
+    (1, 64, 2, 16, 8, False, "dense"),
+    (2, 128, 3, 16, 8, False, "dense"),
+    (1, 256, 1, 32, 16, False, "dense"),
+    (2, 96, 4, 8, 4, False, "dense"),
+    (2, 100, 3, 16, 8, False, "dense"),             # test_chunked_ref's ragged l
+    (2, 100, 3, 16, 8, True, "dense"),              # bf16 (CUDA cores)
+    (1, 1, 2, 16, 8, False, "dense"),
+    (1, 333, 4, 64, 128, False, "dense"),           # mamba2-1.3b's head, ragged
+    (2, 70, 3, 40, 256, False, "dense"),
+    (2, 70, 3, 64, 256, True, "dense"),             # bf16 off the tensor cores
+    (1, 300, 4, 64, 128, True, "dense"),            # tensor cores: ragged l
+    (1, 50, 2, 64, 128, True, "dense"),             # l < 64
+    (1, 1, 2, 64, 128, True, "dense"),              # l = 1
+    (1, 64, 2, 64, 128, True, "dense"),             # one whole chunk
+    (3, 200, 3, 64, 128, True, "dense"),            # b > 1
+    (2, 130, 4, 64, 128, True, "mamba"),            # the layer's strided views
+    (1, 1000, 2, 64, 128, True, "mamba"),
 ]
 # The MoE dispatch gather (a copy, or one IEEE division and rounding per
 # element) against its plain version bit for bit, in both modes:
@@ -489,7 +502,7 @@ def _flash_pairs(sq: int, skv: int, causal: bool) -> int:
 
 
 def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
-                      flash_routes: dict) -> list[dict]:
+                      routes: dict) -> list[dict]:
     """The two LM kernels against their plain versions (the routes
     ``ops`` takes under FORCE="ref") on the inputs the main path gave its
     first layer, in bf16 as served and cast up to float32 (the float32
@@ -497,20 +510,22 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     ``scaled_dot_product_attention``.  Bounds use the bf16 tensor-core
     rate (the inputs are bf16); ``bound_fp32_ms`` gives the float32
     CUDA-core bound.  Bytes count each distinct input element once
-    (ssd_scan's c is broadcast over the heads).  Attention takes the
+    (ssd_scan's c is broadcast over the heads).  Each kernel takes the
     tensor-core route on the bf16 inputs (two launches must give the same
-    bits) and the CUDA-core route on the float32 ones; the CUDA-core kernel
-    is also timed and held on the bf16 inputs (``simt``), the design the
-    tensor-core route replaced there."""
+    bits), as it did on the main path (``routes``: its launches there by
+    route), and the CUDA-core route on the float32 ones; the CUDA-core
+    kernel is also timed and held on the bf16 inputs (``simt``), the design
+    the tensor-core route replaced there."""
     q, k, v = captured["flash_attention"]
     b, h, s, d = q.shape
     hkv = k.shape[1]
     ops_fa = b * h * _flash_pairs(s, s, True) * 4 * d      # q·k and p·v, 2d each
     bytes_fa = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)   # q, k, v, out
     kind = fa.route(q.dtype, d)
-    if kind != "tc" or flash_routes != {"tc": launches["flash_attention"], "simt": 0}:
+    if kind != "tc" or routes["flash_attention"] != {"tc": launches["flash_attention"],
+                                                    "simt": 0}:
         raise RuntimeError(f"qwen3-8b's bf16 attention took route {kind}, main-path launches "
-                           f"by route {flash_routes}: expected the tensor cores")
+                           f"by route {routes['flash_attention']}: expected the tensor cores")
     q32, k32, v32 = q.float(), k.float(), v.float()
     before = dict(fa.route_launches)
     f32_fa = f32_check(torch, "flash_attention",
@@ -542,7 +557,7 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True),
         tol=bf16_tol,
-        extra={"kernel_route": kind, "route_launches": flash_routes,
+        extra={"kernel_route": kind, "route_launches": routes["flash_attention"],
                "two_launches_identical": True,
                "bound_fp32_ms": bound(ops_fa, bytes_fa)[0], "operations": ops_fa,
                # p_hi and p_lo each multiply v: 1.5x the function's operations
@@ -554,26 +569,61 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     x, a, bb, c = captured["ssd_scan"]
     bsz, l, hs, dh = x.shape
     ds = bb.shape[-1]
-    lc = ssd.CHUNK
-    # The chunked form per (batch, step, head): c·b and G·x over the causal
-    # half of each chunk, c·S and the state update over (ds, dh).
+    kind = ssd.route(x.dtype, dh, ds)
+    if kind != "tc" or routes["ssd_scan"] != {"tc": launches["ssd_scan"], "simt": 0}:
+        raise RuntimeError(f"mamba2-1.3b's bf16 SSD took route {kind}, main-path launches by "
+                           f"route {routes['ssd_scan']}: expected the tensor cores")
+    lc = ssd.CHUNK[kind]
+    # The chunked form at the route's chunk, per (batch, step, head): c·b and
+    # G·x over the causal half of each chunk, c·S and the state update over
+    # (ds, dh).
     ops_ssd = bsz * l * hs * ((lc + 1) * (ds + dh) + 4 * ds * dh)
+    # What the tensor cores issue (csrc/ssd_scan_tc.cu), per chunk and
+    # (batch, head): the whole c·bᵀ, and c·S_in, G·x and the state update
+    # each twice (hi and lo parts); the last chunk's state is not computed.
+    n_chunks = -(-l // lc)
+    tc_ops = bsz * hs * (n_chunks * (2 * lc * lc * ds + 4 * lc * ds * dh + 4 * lc * lc * dh)
+                         + (n_chunks - 1) * 4 * ds * lc * dh)
     bytes_ssd = tensor_bytes(x) * 2 + tensor_bytes(a) + tensor_bytes(bb) + tensor_bytes(c)
     # Cast up as the main path hands them over: c stays a broadcast view.
     c32 = c[:, :, :1].float().expand(c.shape) if c.stride(2) == 0 else c.float()
     x32, b32 = x.float(), bb.float()
+    before = dict(ssd.route_launches)
     f32_ssd = f32_check(torch, "ssd_scan", lambda: ops.ssd_scan(x32, a, b32, c32),
                         lambda: ref.ssd_scan_chunked(x32, a, b32, c32,
                                                      chunk=ops.PLAIN_SSD_CHUNK))
+    if ssd.route_launches["simt"] != before["simt"] + 1:
+        raise RuntimeError("ssd_scan: the float32 inputs did not take the CUDA cores")
     del x32, b32, c32
+
+    def kern():
+        return ops.ssd_scan(x, a, bb, c)
+
+    def plain():
+        return ref.ssd_scan_chunked(x, a, bb, c, chunk=ops.PLAIN_SSD_CHUNK)
+
+    def simt():
+        return ssd._launch("simt", x, a, bb, c)
+
+    want = plain()
+    if not same(torch, kern(), kern()):
+        raise RuntimeError("ssd_scan: two launches on the main path's inputs differ")
+    simt_out = held(torch, "ssd_scan (CUDA cores, bf16)", simt(), want, bf16_tol(want))
+    del want
     b_ms, b_by = bound(ops_ssd, bytes_ssd, PEAK_BF16)
     entries.append(kernel_entry(
-        torch, "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:78",
-        [bsz, l, hs, dh, ds, str(x.dtype)], lambda: ops.ssd_scan(x, a, bb, c),
-        lambda: ref.ssd_scan_chunked(x, a, bb, c, chunk=ops.PLAIN_SSD_CHUNK), b_ms, b_by,
+        torch, "ssd_scan", "ssd_scan_tc.cu", "src/repro/kernels/ssd_scan.py:78",
+        [bsz, l, hs, dh, ds, str(x.dtype)], kern, plain, b_ms, b_by,
         launches["ssd_scan"], "mamba2-1.3b prefill", tol=bf16_tol,
-        extra={"bound_fp32_ms": bound(ops_ssd, bytes_ssd)[0], "operations": ops_ssd,
-               "bytes": bytes_ssd, "c_head_stride": c.stride(2), "chunk": lc, **f32_ssd}))
+        extra={"kernel_route": kind, "route_launches": routes["ssd_scan"],
+               "two_launches_identical": True,
+               "bound_fp32_ms": bound(ops_ssd, bytes_ssd)[0], "operations": ops_ssd,
+               "tensor_core_operations": tc_ops, "bytes": bytes_ssd,
+               "c_head_stride": c.stride(2), "chunk": lc,
+               "simt": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "ms": median_ms(torch, simt, 5, per=2),
+                        "max_abs_err": simt_out["max_abs_err"]},
+               **f32_ssd}))
     return entries
 
 
@@ -698,35 +748,34 @@ def f32_check(torch, name, kern, plain) -> dict:
     return {f"f32_{k}": v for k, v in out.items()}
 
 
-def lm_kernel_sweep(torch, ops, ref, fa, dev) -> list[dict]:
+def lm_kernel_sweep(torch, ops, ref, fa, ssd, dev) -> list[dict]:
     """FLASH_SWEEP and SSD_SWEEP: each case from a seeded generator, one
-    kernel launch (counted, and for attention on the route
-    ``fa.route`` picks) against the plain version tests/test_kernels.py
-    holds it to (exact attention, sequential SSD), float32 at
-    LM_KERNEL_F32_TOL and bf16 at ``bf16_tol``; a second launch must give
-    the same bits."""
+    kernel launch (counted, and on the route ``fa.route`` / ``ssd.route``
+    picks) against the plain version tests/test_kernels.py holds it to
+    (exact attention, sequential SSD), float32 at LM_KERNEL_F32_TOL and
+    bf16 at ``bf16_tol``; a second launch must give the same bits."""
     g = torch.Generator(device=dev).manual_seed(14)
 
     def randn(shape, bf16):
         t = torch.randn(shape, generator=g, device=dev)
         return t.bfloat16() if bf16 else t
 
-    def hold(name, case, kern, plain, bf16, kernel_route=None):
+    def hold(name, case, kern, plain, bf16, kernel_route):
         before = ops.launch_counts()[name]
-        routes = dict(fa.route_launches)
+        counts = (fa if name == "flash_attention" else ssd).route_launches
+        routes = dict(counts)
         got = kern()
         torch.cuda.synchronize()
         if ops.launch_counts()[name] != before + 1:
             raise RuntimeError(f"{name} {case}: the kernel did not launch")
-        if kernel_route is not None and fa.route_launches[kernel_route] != routes[kernel_route] + 1:
+        if counts[kernel_route] != routes[kernel_route] + 1:
             raise RuntimeError(f"{name} {case}: the {kernel_route} route did not launch")
         want = plain()
         out = held(torch, f"{name} {case}", got, want,
                    bf16_tol(want) if bf16 else LM_KERNEL_F32_TOL[name])
         if not same(torch, got, kern()):
             raise RuntimeError(f"{name} {case}: two kernel launches differ")
-        extra = {} if kernel_route is None else {"kernel_route": kernel_route}
-        return {"kernel": name, "case": list(case), **extra, **out}
+        return {"kernel": name, "case": list(case), "kernel_route": kernel_route, **out}
 
     def heads(b, n, s, d, bf16, layout):
         if layout == "bshd":  # (b, s, n, d) memory, seen as (b, n, s, d)
@@ -742,11 +791,17 @@ def lm_kernel_sweep(torch, ops, ref, fa, dev) -> list[dict]:
                          lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
                          bf16, fa.route(q.dtype, d)))
     for case in SSD_SWEEP:
-        b, l, h, dh, ds, bf16 = case
-        x, bb, c = randn((b, l, h, dh), bf16), randn((b, l, h, ds), bf16), randn((b, l, h, ds), bf16)
+        b, l, h, dh, ds, bf16, layout = case
+        if layout == "mamba":  # as layers._mamba_ssd_inputs hands them over
+            xbc = randn((b, l, h * dh + 2 * ds), bf16)
+            x = xbc[..., :h * dh].reshape(b, l, h, dh)
+            bb = xbc[..., h * dh:h * dh + ds][:, :, None, :].expand(b, l, h, ds) * 0.5
+            c = xbc[..., h * dh + ds:][:, :, None, :].expand(b, l, h, ds)
+        else:
+            x, bb, c = (randn((b, l, h, n), bf16) for n in (dh, ds, ds))
         a = -0.1 * randn((b, l, h), False).abs()
         rows.append(hold("ssd_scan", case, lambda: ops.ssd_scan(x, a, bb, c),
-                         lambda: ref.ssd_scan(x, a, bb, c), bf16))
+                         lambda: ref.ssd_scan(x, a, bb, c), bf16, ssd.route(x.dtype, dh, ds)))
     return rows
 
 
@@ -887,21 +942,29 @@ def route_drops(log: list, n_moe: int) -> dict:
             "decode": [sum(per_call[n_moe + i::n_moe]) for i in range(n_moe)]}
 
 
+def route_counts(fa, ssd) -> dict:
+    """Launches so far by kernel and route, of the two LM kernels that have
+    a tensor-core and a CUDA-core route."""
+    return {"flash_attention": dict(fa.route_launches), "ssd_scan": dict(ssd.route_launches)}
+
+
 def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
     """Serve each LM_ARCHS model at full width, at full depth or cut to
     LM_LAYERS (see the module docstring), and print its numbers.  Returns
     ({kernel: main-path launches}, {kernel: first-layer inputs}, {model:
-    flash_attention's main-path launches by route})."""
+    {kernel: main-path launches by route}} for flash_attention and
+    ssd_scan)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("float32 matmuls must run in IEEE float32 (TF32 off)")
-    launches_by_kernel, captured, flash_routes = {}, {}, {}
+    launches_by_kernel, captured, lm_routes = {}, {}, {}
     for arch, kname in LM_ARCHS.items():
         published = configs.get_config(arch)
         cfg = dataclasses.replace(published, n_layers=LM_LAYERS.get(arch, published.n_layers))
@@ -937,24 +1000,27 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
                 torch.cuda.synchronize()
             finally:
                 setattr(ops, kname, orig)
-            runs.append((toks, tr, ops.launch_counts(), dict(fa.route_launches),
+            runs.append((toks, tr, ops.launch_counts(), route_counts(fa, ssd),
                          torch.cuda.max_memory_allocated(dev)))
         (toks, tr, launches, routes, peak), (toks2, tr2, _, _, _) = runs
         plan = lm_launch_plan(cfg)
         want = {k: plan.get(k, 0) for k in launches}
-        log(f"{arch}: launches {launches}, attention routes {routes}, prefill "
+        log(f"{arch}: launches {launches}, routes {routes}, prefill "
             f"{tr['prefill_s']:.4f}s, decode {tr['decode_s']:.4f}s")
         if launches != want:
             raise RuntimeError(f"{arch}: launches {launches}, expected {want} (attention and "
                                "SSD once per layer in prefill, the MoE gather once per MoE "
                                "layer in prefill and in every decode step)")
-        # bf16 weights: every attention launch takes the route its head dim
-        # gets in bf16 (the tensor cores at d 64 and 128).
-        want_routes = {"tc": 0, "simt": 0}
-        want_routes[fa.route(torch.bfloat16, cfg.head_dim)] += plan["flash_attention"]
+        # bf16 weights: every attention and SSD launch takes the route its
+        # shape gets in bf16 (the tensor cores at attention's d 64 and 128 and
+        # at the SSD's (dh, ds) = (64, 128)).
+        want_routes = {k: {"tc": 0, "simt": 0} for k in routes}
+        want_routes["flash_attention"][fa.route(torch.bfloat16, cfg.head_dim)] += \
+            plan["flash_attention"]
+        want_routes["ssd_scan"][ssd.route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state)] += \
+            plan["ssd_scan"]
         if routes != want_routes:
-            raise RuntimeError(f"{arch}: attention launches by route {routes}, expected "
-                               f"{want_routes}")
+            raise RuntimeError(f"{arch}: launches by route {routes}, expected {want_routes}")
         if not same(torch, toks, toks2) or not all(
                 same(torch, a, b) for a, b in zip(tr["logits"], tr2["logits"])):
             raise RuntimeError(f"{arch}: two kernel runs differ")
@@ -979,14 +1045,15 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
                                                 toks, plain=True)
         model32 = cast_model(torch, T, cfg, model, torch.float32)
-        before32 = dict(fa.route_launches)
+        before32 = route_counts(fa, ssd)
         with record_routes(L) as routes_k32:
             kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
                                    plain=False)
-        routes32 = {r: fa.route_launches[r] - before32[r] for r in before32}
-        if routes32 != {"tc": 0, "simt": plan["flash_attention"]}:
-            raise RuntimeError(f"{arch}: the float32 run's attention launches by route "
-                               f"{routes32}: float32 must stay on the CUDA cores")
+        routes32 = {k: {r: n - before32[k][r] for r, n in v.items()}
+                    for k, v in route_counts(fa, ssd).items()}
+        if routes32 != {k: {"tc": 0, "simt": plan[k]} for k in routes32}:
+            raise RuntimeError(f"{arch}: the float32 run's launches by route {routes32}: "
+                               "float32 must stay on the CUDA cores")
         with record_routes(L) as routes_p32:
             plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
                                     plain=True)
@@ -1029,7 +1096,7 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             raise RuntimeError(f"{arch}: bf16 kernel run differs from the plain run by more "
                                f"than {LM_BF16_NOISE} x bf16's own error: {rms_kp} vs {rms_p32}")
         launches_by_kernel[kname] = launches[kname]
-        flash_routes[arch] = routes
+        lm_routes[arch] = routes
         decode_tokens = LM_BATCH * (LM_STEPS - 1)
         numbers = {
             "card": card, "layers": cfg.n_layers, "published_layers": published.n_layers,
@@ -1043,8 +1110,10 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             "decode_tokens_per_s": decode_tokens / tr2["decode_s"],
             "first_run_prefill_s": tr["prefill_s"], "first_run_decode_s": tr["decode_s"],
             "plain_prefill_s": plain_prefill_s, "peak_mem_gb": peak / 1e9,
-            "launches": launches, "flash_attention_routes": routes,
-            "flash_attention_routes_f32": routes32, "two_runs_identical": True, "profile": prof,
+            "launches": launches, "flash_attention_routes": routes["flash_attention"],
+            "flash_attention_routes_f32": routes32["flash_attention"],
+            "ssd_scan_routes": routes["ssd_scan"], "ssd_scan_routes_f32": routes32["ssd_scan"],
+            "two_runs_identical": True, "profile": prof,
             "f32_tolerance": list(LM_F32_TOL), "f32_max_abs_err": errs32,
             "bf16_noise_factor": LM_BF16_NOISE, "bf16_max_abs_err": errs,
             "bf16_rms_kernel_vs_plain": rms_kp, "bf16_rms_plain_vs_f32": rms_p32,
@@ -1054,7 +1123,7 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
         del model, tr, tr2, runs, toks, toks2, plain, kern32, plain32
         torch.cuda.empty_cache()
-    return launches_by_kernel, captured, flash_routes
+    return launches_by_kernel, captured, lm_routes
 
 
 def main() -> int:
@@ -1088,12 +1157,14 @@ def main() -> int:
 
     # -- LM: the serving path at full width and depth ----------------------
     t_lm = time.perf_counter()
-    lm_launches, captured, flash_routes = lm_phase(torch, dev, card.splitlines()[0])
+    lm_launches, captured, lm_routes = lm_phase(torch, dev, card.splitlines()[0])
     lm_kernels = lm_kernel_entries(torch, ops, ref, fa, ssd, captured, lm_launches,
-                                   flash_routes["qwen3-8b"])
+                                   {"flash_attention": lm_routes["qwen3-8b"]["flash_attention"],
+                                    "ssd_scan": lm_routes["mamba2-1.3b"]["ssd_scan"]})
     lm_kernels.append(moe_gather_entry(torch, ops, ref, captured, lm_launches))
     del captured
-    print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, fa, dev)}), flush=True)
+    print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, fa, ssd, dev)}),
+          flush=True)
     print(json.dumps({"moe_gather_sweep": moe_gather_sweep(torch, ops, ref, dev)}), flush=True)
     long_attn = long_prefill_attention(torch, ops, fa, dev)
     torch.cuda.empty_cache()

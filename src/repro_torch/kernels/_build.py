@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  All
 sources that are not built yet are compiled together, one nvcc process
 each, at the first use of any kernel.  Libraries are cached under
-``_build/`` beside this file, keyed by a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded.  Every C entry point returns ``cudaGetLastError()`` after its
-launches; the wrappers raise ``KernelLaunchError`` on a non-zero code.
+``_build/`` beside this file, keyed by a hash of the source, of every
+``csrc/*.cuh`` header and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Every C entry point
+returns ``cudaGetLastError()`` after its launches; the wrappers raise
+``KernelLaunchError`` on a non-zero code.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

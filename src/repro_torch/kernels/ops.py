@@ -181,9 +181,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Mamba-2 SSD scan; x: (b, l, h, dh), a: (b, l, h) f32, b/c: (b, l, h,
-    ds) → (b, l, h, dh).  A CUDA tensor launches the kernel (its own chunk,
-    ``ssd_scan.CHUNK``: the result depends on the chunk only through
-    rounding).  The plain route (CPU tensors, or ``FORCE == "ref"``) is the
+    ds) → (b, l, h, dh).  A CUDA tensor launches the kernel of its route
+    (``ssd_scan.route``; each kernel has its own chunk, ``ssd_scan.CHUNK``:
+    the result depends on the chunk only through rounding).  The plain route (CPU tensors, or ``FORCE == "ref"``) is the
     reference's off the TPU: chunked at ``PLAIN_SSD_CHUNK`` when l >=
     2·PLAIN_SSD_CHUNK, the sequential recurrence otherwise."""
     if FORCE == "ref" or x.device.type == "cpu":
@@ -207,9 +207,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count, and flash_attention's per-route
-    counts (``flash_attention.route_launches``)."""
+    """Zero every kernel's launch count, and flash_attention's and
+    ssd_scan's per-route counts (``route_launches``)."""
     for d in (_pd.launches, _cd.launches, _fa.launches, _fa.route_launches, _ssd.launches,
-              _mg.launches):
+              _ssd.route_launches, _mg.launches):
         for k in d:
             d[k] = 0

@@ -11,9 +11,10 @@ each FMA where the other has one and no other contraction, so every
 comparison of theirs is exact.  The LM kernels (flash_attention,
 ssd_scan) sum in another order than their plain versions and are held to
 tests/test_kernels.py's tolerances: 3e-4 (attention) and 5e-4 (SSD) in
-float32, 0.05 in bfloat16; bf16 attention, on either of its routes (the
-tensor cores at d 64 and 128, the CUDA cores otherwise), also to one bf16
-ulp (chip_smoke.py's bf16_tol).  The MoE dispatch gather (a copy, or one
+float32, 0.05 in bfloat16; bf16 attention and SSD, on either of their
+routes (the tensor cores at attention's d 64 and 128 and the SSD's (dh,
+ds) = (64, 128), the CUDA cores otherwise), also to one bf16 ulp
+(chip_smoke.py's bf16_tol).  The MoE dispatch gather (a copy, or one
 IEEE division and rounding per element) equals its plain version bit for
 bit.
 """
@@ -396,18 +397,26 @@ def test_flash_attention_rejects_bad_inputs(cuda):
 
 
 # tests/test_kernels.py's TestSSDScan shapes (its l = 100 case too), then
-# ragged chunks, mamba2-1.3b's head (dh 64, ds 128) and bf16.
+# ragged chunks, mamba2-1.3b's head (dh 64, ds 128) and bf16 off the tensor
+# cores; then the tensor-core route (bf16 at dh 64, ds 128): a ragged l (not
+# a multiple of its 64-step chunks), l < 64, l = 1, one whole chunk, b > 1.
 SSD_CASES = [
-    # b, l, h, dh, ds, dtype
-    (1, 64, 2, 16, 8, torch.float32),
-    (2, 128, 3, 16, 8, torch.float32),
-    (1, 256, 1, 32, 16, torch.float32),
-    (2, 96, 4, 8, 4, torch.float32),
-    (2, 100, 3, 16, 8, torch.float32),
-    (1, 1, 2, 16, 8, torch.float32),
-    (1, 333, 4, 64, 128, torch.float32),
-    (2, 70, 3, 40, 256, torch.float32),
-    (1, 300, 4, 64, 128, torch.bfloat16),
+    # b, l, h, dh, ds, dtype, route
+    (1, 64, 2, 16, 8, torch.float32, "simt"),
+    (2, 128, 3, 16, 8, torch.float32, "simt"),
+    (1, 256, 1, 32, 16, torch.float32, "simt"),
+    (2, 96, 4, 8, 4, torch.float32, "simt"),
+    (2, 100, 3, 16, 8, torch.float32, "simt"),
+    (1, 1, 2, 16, 8, torch.float32, "simt"),
+    (1, 333, 4, 64, 128, torch.float32, "simt"),
+    (2, 70, 3, 40, 256, torch.float32, "simt"),
+    (2, 100, 3, 16, 8, torch.bfloat16, "simt"),
+    (1, 70, 2, 64, 256, torch.bfloat16, "simt"),
+    (1, 300, 4, 64, 128, torch.bfloat16, "tc"),
+    (1, 50, 2, 64, 128, torch.bfloat16, "tc"),
+    (1, 1, 2, 64, 128, torch.bfloat16, "tc"),
+    (1, 64, 3, 64, 128, torch.bfloat16, "tc"),
+    (3, 200, 2, 64, 128, torch.bfloat16, "tc"),
 ]
 
 
@@ -420,18 +429,24 @@ def _ssd_inputs(rng, b, l, h, dh, ds, cuda, dtype):
     return x, a, bb, c
 
 
-@pytest.mark.parametrize("b,l,h,dh,ds,dtype", SSD_CASES)
-def test_ssd_scan(cuda, b, l, h, dh, ds, dtype):
+@pytest.mark.parametrize("b,l,h,dh,ds,dtype,route", SSD_CASES)
+def test_ssd_scan(cuda, b, l, h, dh, ds, dtype, route):
     rng = np.random.default_rng(l * h + ds)
     x, a, bb, c = _ssd_inputs(rng, b, l, h, dh, ds, cuda, dtype)
+    assert ssd_scan.route(dtype, dh, ds) == route
     before = ssd_scan.launches["ssd_scan"]
+    routes = dict(ssd_scan.route_launches)
     got = ssd_scan.ssd_scan(x, a, bb, c)
     torch.cuda.synchronize()
     assert ssd_scan.launches["ssd_scan"] == before + 1
+    assert ssd_scan.route_launches[route] == routes[route] + 1
     want = ref.ssd_scan(x, a, bb, c)
     assert got.dtype == dtype and got.shape == want.shape
     rtol, atol = SSD_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got, want)
+    # Deterministic: no atomics, a fixed order of every sum.
     assert torch.equal(got, ssd_scan.ssd_scan(x, a, bb, c))
 
 
@@ -448,6 +463,26 @@ def test_ssd_scan_broadcast_and_strided_inputs(cuda):
                         device=cuda)
     got = ops.ssd_scan(x, a, bb, c)
     torch.testing.assert_close(got, ref.ssd_scan(x, a, bb, c), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 150, 4), (1, 1000, 2), (3, 40, 1)])
+def test_ssd_scan_tensor_cores_strided_inputs(cuda, b, l, h):
+    """The tensor-core route reads the Mamba layer's views in place: x a
+    reshaped slice of the conv output, b materialised, c broadcast over
+    the heads (stride 0, a TMA map over (batch, step, ds))."""
+    rng = np.random.default_rng(l + h)
+    dh, ds = 64, 128
+    xbc = _randn(rng, (b, l, h * dh + 2 * ds), cuda, torch.bfloat16)
+    x = xbc[..., :h * dh].reshape(b, l, h, dh)
+    c = xbc[..., h * dh + ds:][:, :, None, :].expand(b, l, h, ds)
+    dt = torch.as_tensor(rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32), device=cuda)
+    bb = (xbc[..., h * dh:h * dh + ds][:, :, None, :] * dt[..., None]).to(torch.bfloat16)
+    a = -0.7 * dt
+    before = ssd_scan.route_launches["tc"]
+    got = ops.ssd_scan(x, a, bb, c)
+    assert ssd_scan.route_launches["tc"] == before + 1
+    _bf16_one_ulp(got, ref.ssd_scan(x, a, bb, c))
+    assert torch.equal(got, ops.ssd_scan(x, a, bb, c))
 
 
 def test_ssd_scan_rejects_bad_inputs(cuda):
@@ -471,6 +506,10 @@ def test_ssd_scan_rejects_bad_inputs(cuda):
         ssd_scan.ssd_scan(x, a, odd, odd)
     with pytest.raises(ValueError):  # a strided last axis
         ssd_scan.ssd_scan(x, a, bb, torch.zeros((1, 16, 2, 8), device=cuda)[..., ::2])
+    xb = torch.zeros((1, 16, 2, 68), device=cuda, dtype=torch.bfloat16)
+    bc = torch.zeros((1, 16, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the tensor-core route: x's head stride not 16 bytes
+        ssd_scan.ssd_scan(xb[..., :64], a, bc, bc)
 
 
 # The kernels each tiny model launches per layer: once in prefill, and the

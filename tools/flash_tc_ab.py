@@ -53,8 +53,8 @@ def main() -> int:
     sources = {"committed": _build.CSRC / "flash_attention_tc.cu"}
     sources.update({Path(f).stem: Path(f) for f in sys.argv[1:]})
     out_dir = Path(tempfile.mkdtemp())
-    procs = {n: subprocess.Popen([_build.nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
-                                  str(out_dir / f"{n}.so"), str(src)],
+    procs = {n: subprocess.Popen([_build.nvcc(), *_build.FLAGS, "-I", str(_build.CSRC),
+                                  "-Xptxas", "-v", "-o", str(out_dir / f"{n}.so"), str(src)],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for n, src in sources.items()}
     launchers = {}
