@@ -74,10 +74,14 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
      and inertia equal to the plain run's, both seeded alike.
    Each kernel is then held against its plain version on the main paths'
    own inputs and timed with CUDA events (``pairwise_dist_sq`` also
-   beside ``torch.cdist``): one JSON line ``{"kernels": [...]}`` that also
-   lists the LM phase's three kernels.  One
-   more default-path run and one more K-Means run under torch.profiler
-   give the device time by kernel and the device's busy share.
+   beside ``torch.cdist``; the two sweeps, which test each unordered pair
+   once (``csrc/min_label.cu``), with their work items and two launches
+   bit-identical): one JSON line ``{"kernels": [...]}`` that also lists
+   the LM phase's three kernels.  One more default-path run, one more
+   dense run and one more K-Means run under torch.profiler give the
+   device time by kernel and the device's busy share (``profile``,
+   ``profile_dense``, ``profile_kmeans``); the default and dense profiles
+   must show the sweep kernel of their path.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -405,6 +409,16 @@ def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound
     }
     log(json.dumps(entry))
     return entry
+
+
+def sweep_extra(torch, name, items, tile, bound_tests, kern) -> dict:
+    """What a sweep's kernels-line entry adds: two launches bit-identical,
+    its work items and the pair tests they make (items of tile² tests),
+    beside the unordered pair tests its bound counts."""
+    if not same(torch, kern(), kern()):
+        raise RuntimeError(f"{name}: two launches on the main path's inputs differ")
+    return {"two_launches_identical": True, "work_items": items, "tile": tile,
+            "kernel_tests": items * tile * tile, "bound_tests": bound_tests}
 
 
 def phase1_bench(torch, np, dbscan, ops, spatial, dev) -> list[dict]:
@@ -827,11 +841,12 @@ def long_prefill_attention(torch, ops, fa, dev) -> dict:
     return out
 
 
-def profile_fn(torch, fn, wall_s: float, top: int = 6) -> dict:
+def profile_fn(torch, fn, wall_s: float, top: int = 6, require=()) -> dict:
     """Device time by kernel over one call of ``fn`` under torch.profiler,
     and its share of ``wall_s`` (the same work's unprofiled wall time).
     Kernels run on one stream, so their times do not overlap and their sum
-    is the busy time."""
+    is the busy time.  Raises if a kernel named in ``require`` did not run
+    (when the profiler saw the device)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -848,6 +863,9 @@ def profile_fn(torch, fn, wall_s: float, top: int = 6) -> dict:
         rows[_short(e.key)] = (ms + us / 1e3, count + e.count)
     if not rows:
         return {"device_ms": "not measured", "wall_s": wall_s}
+    missing = [k for k in require if k not in rows]
+    if missing:
+        raise RuntimeError(f"profile: kernels {missing} did not run: {sorted(rows)}")
     device_ms = sum(ms for ms, _ in rows.values())
     ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_s": wall_s, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall_s,
@@ -1139,6 +1157,7 @@ def main() -> int:
     from repro_torch.data import spatial
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import pairwise_dist as pd_mod
     from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1307,6 +1326,14 @@ def main() -> int:
     per_tile = sm.reshape(-1, bt).sum(dim=1, dtype=torch.int64)
     sparse_tests = int((per_tile[pairs.rows[:n_act].long()]
                         * per_tile[pairs.cols[:n_act].long()]).sum())
+    # The sweeps test each unordered pair once (d2 is symmetric bit for bit
+    # and a min idempotent), so their bounds count unordered pairs: the
+    # dense sweep's n(n+1)/2, the sparse one's within each diagonal tile and
+    # across each active pair I < J of the upper list.
+    n_up = int(pairs.n_up)
+    sym_sparse_tests = int((per_tile * (per_tile + 1) // 2).sum()
+                           + (per_tile[pairs.up_rows[:n_up].long()]
+                              * per_tile[pairs.up_cols[:n_up].long()]).sum())
     t_tiles = npad // bt
     pair_bytes = (t_tiles + 1) * 4 + n_act * 4
     batch = ts["batch"]
@@ -1316,6 +1343,7 @@ def main() -> int:
     cnts = batch.counts.reshape(mslots).contiguous()
     valids = batch.valid.reshape(mslots).contiguous()
     n_valid = int(m0.sum())
+    sym_dense_tests = n_valid * (n_valid + 1) // 2
     cents0 = tkm["results"][0].centroids.contiguous()
     k_cents = cents0.shape[0]
     p_valid = int(torch.where(valids, cnts.clamp(0, v), 0).sum())
@@ -1324,10 +1352,10 @@ def main() -> int:
         ("neighbor_count", nc_src, f"{pd}:91", [per],
          lambda: ops.neighbor_count(xc, m0, eps), lambda: ref.neighbor_count(xc, m0, eps),
          bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4)), launches_d, "dense"),
-        ("min_label_sweep", nc_src, f"{pd}:147", [per],
+        ("min_label_sweep", "min_label.cu", f"{pd}:147", [per],
          lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps),
          lambda: ref.min_label_sweep(xc, m0, lab_in, res0.core, eps),
-         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4 + 1 + 4)), launches_d,
+         bound(sym_dense_tests * NC_OPS_PER_PAIR, per * (8 + 1 + 4 + 1 + 4)), launches_d,
          "dense"),
         ("neighbor_count_sparse", nc_src, f"{pd}:222", [npad, bt, n_act],
          lambda: ops.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt),
@@ -1335,11 +1363,11 @@ def main() -> int:
                                            bt),
          bound(sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4) + pair_bytes), launches_s,
          "sparse"),
-        ("min_label_sweep_sparse", nc_src, f"{pd}:289", [npad, bt, n_act],
+        ("min_label_sweep_sparse", "min_label.cu", f"{pd}:289", [npad, bt, n_act],
          lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt),
          lambda: ref.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs.rows,
                                             pairs.cols, pairs.flags, bt),
-         bound(sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4 + 1 + 4) + pair_bytes),
+         bound(sym_sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4 + 1 + 4) + pair_bytes),
          launches_s, "sparse"),
         ("contour_min_d2", "contour_dist.cu", "src/repro/kernels/contour_dist.py:52",
          [mslots, v], lambda: ops.contour_min_d2(conts, cnts, valids),
@@ -1353,16 +1381,31 @@ def main() -> int:
     ]
     libraries = {"pairwise_dist_sq": lambda: torch.cdist(
         x0, cents0, compute_mode="use_mm_for_euclid_dist")}
+    sweeps = {
+        "min_label_sweep": sweep_extra(
+            torch, "min_label_sweep", pd_mod.sym_work_items(per), pd_mod.SYM_DENSE_TILE,
+            sym_dense_tests, lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps)),
+        "min_label_sweep_sparse": sweep_extra(
+            torch, "min_label_sweep_sparse", pd_mod.sym_work_items(npad, pairs, bt=bt),
+            pd_mod.sym_tile(bt), sym_sparse_tests,
+            lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt))}
     kernels = [kernel_entry(torch, name, src, replaces, shape, kern, plain, b_ms, b_by,
-                            launches[name], path, libraries.get(name))
+                            launches[name], path, libraries.get(name),
+                            extra=sweeps.get(name))
                for name, src, replaces, shape, kern, plain, (b_ms, b_by), launches, path
                in cases]
     print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
-    # One more default-path run and one more K-Means run under the profiler,
-    # against the unprofiled runs' wall time.
+    # One more default-path run, dense run and K-Means run under the
+    # profiler, against the unprofiled runs' wall time.
     run = ddc.make_ddc_fn(cfg, LANES, device=dev)
     print(json.dumps({"profile": profile_fn(torch, lambda: run(pts, mask),
-                                            ts["phase1_s"] + ts["phase2_s"], top=10)}),
+                                            ts["phase1_s"] + ts["phase2_s"], top=10,
+                                            require=("min_label_sparse_sym_kernel",))}),
+          flush=True)
+    run_d = ddc.make_ddc_fn(cfg_d, LANES, device=dev)
+    print(json.dumps({"profile_dense": profile_fn(torch, lambda: run_d(pts, mask),
+                                                  td["phase1_s"] + td["phase2_s"], top=10,
+                                                  require=("min_label_sym_kernel",))}),
           flush=True)
     run_km = ddc.make_ddc_fn(cfg_km, LANES, device=dev)
     print(json.dumps({"profile_kmeans": profile_fn(torch, lambda: run_km(pts, mask),

@@ -1,17 +1,12 @@
-// Phase-1 DBSCAN kernels for Hopper (sm_90a): the fused epsilon-neighbour
-// count and one min-label propagation sweep, each in a dense form and in a
-// block-sparse form over a list of active tile pairs.
+// Phase-1 kernels for Hopper (sm_90a): DBSCAN's fused epsilon-neighbour
+// count, in a dense form and in a block-sparse form over a list of active
+// tile pairs, and K-Means' squared distance matrix.  DBSCAN's min-label
+// sweeps are in min_label.cu.
 //
 // Replaces the TPU kernels src/repro/kernels/pairwise_dist.py:
 //   neighbor_count         (_count_kernel)            -- per point, masked
 //                                                        points within eps
-//   min_label_sweep        (_min_label_kernel)        -- per point, min label
-//                                                        over masked core
-//                                                        points within eps,
-//                                                        or 2^30
 //   neighbor_count_sparse  (_count_sparse_kernel)     -- the count over the
-//                                                        active tile pairs
-//   min_label_sweep_sparse (_min_label_sparse_kernel) -- the sweep over the
 //                                                        active tile pairs
 //   pairwise_dist_sq       (_dist_kernel)             -- the (n, m) squared
 //                                                        distance matrix of
@@ -23,12 +18,11 @@
 // operations, not memory: n^2 pair tests for the dense forms, n_active *
 // bt^2 for the sparse ones.
 //
-// Design: one thread owns one row point; its count or running min label
-// stays in a register.  A block stages column points in shared memory as
-// one float4 each (x0, x1, |x|^2, and the column's mask flag or effective
-// label as raw bits), so a pair costs one 16-byte shared load, and every
-// thread of the block reads the same column at the same time (a broadcast,
-// free of bank conflicts).  A loop inside the block replaces the TPU's
+// Design: one thread owns one row point; its count stays in a register.  A
+// block stages column points in shared memory as one float4 each (x0, x1,
+// |x|^2, and the column's mask flag as raw bits), so a pair costs one
+// 16-byte shared load, and every thread of the block reads the same column
+// at the same time (a broadcast, free of bank conflicts).  A loop inside the block replaces the TPU's
 // sequential grid axis:
 //   - dense: the block walks a contiguous column range;
 //   - sparse: the block's rows all lie in one row tile (its row count
@@ -37,9 +31,9 @@
 //     TPU's PAIR_FIRST / PAIR_VALID output-block protocol.
 // To fill the card, the columns (dense) or each row tile's column-tile list
 // (sparse) are split over gridDim.y; each split writes its partial result
-// to its own row of a scratch buffer, and a second pass sums (or
-// min-reduces) the splits in a fixed order.  Integer results and a fixed
-// order make the output deterministic without atomics.  Ragged ranges are
+// to its own row of a scratch buffer, and a second pass sums the splits
+// in a fixed order.  Integer results and a fixed order make the output
+// deterministic without atomics.  Ragged ranges are
 // masked by the loop bounds; nothing is padded.
 //
 // pairwise_dist_sq is the exception: it writes its whole (n, m) output, at
@@ -56,8 +50,8 @@
 //   xx = fma(x1, x1, x0 * x0),
 // written with __fmaf_rn where the reference fuses and __fmul_rn /
 // __fadd_rn / __fsub_rn elsewhere, which the compiler never contracts, so
-// kernel and plain version agree bit for bit, and the sparse forms test
-// each pair exactly as the dense forms do.
+// kernel and plain version agree bit for bit, and the sparse form tests
+// each pair exactly as the dense form does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +60,6 @@ namespace {
 
 constexpr int kThreads = 256;  // most rows per block
 constexpr int kTile = 256;     // columns staged per shared-memory tile
-constexpr int kSentinel = 1 << 30;
 
 __device__ __forceinline__ float sqnorm(float a, float b) {
   return __fmaf_rn(b, b, __fmul_rn(a, a));
@@ -87,24 +80,6 @@ struct CountOp {
     return acc + (within ? w : 0);
   }
   __device__ static int finish(bool row_ok, int acc) { return row_ok ? acc : 0; }
-};
-
-// The sweep: a column that is masked out or not core carries 2^30, exactly
-// as the plain version's where(ok, label, 2^30).
-struct MinLabelOp {
-  const uint8_t* mask;
-  const int* labels;
-  const uint8_t* core;
-  static constexpr int kInit = 0x7fffffff;
-  __device__ int column(int j) const {
-    return (mask[j] != 0 && core[j] != 0) ? labels[j] : kSentinel;
-  }
-  __device__ static int fold(int acc, bool within, int w) {
-    return min(acc, within ? w : kSentinel);
-  }
-  __device__ static int finish(bool row_ok, int acc) {
-    return row_ok ? acc : kSentinel;
-  }
 };
 
 // Fold columns [c_begin, c_end) into acc, staged kTile at a time through
@@ -192,27 +167,10 @@ count_kernel(const float2* __restrict__ x, const uint8_t* __restrict__ mask, int
 }
 
 __global__ void __launch_bounds__(kThreads)
-min_label_kernel(const float2* __restrict__ x, const uint8_t* __restrict__ mask,
-                 const int* __restrict__ labels, const uint8_t* __restrict__ core, int n,
-                 float eps_sq, int cols_per_split, int* __restrict__ part) {
-  dense_body(x, mask, MinLabelOp{mask, labels, core}, n, eps_sq, cols_per_split, part);
-}
-
-__global__ void __launch_bounds__(kThreads)
 count_sparse_kernel(const float2* __restrict__ x, const uint8_t* __restrict__ mask,
                     const int* __restrict__ row_ptr, const int* __restrict__ col_tiles,
                     int n, int bt, float eps_sq, int* __restrict__ part) {
   sparse_body(x, mask, CountOp{mask}, row_ptr, col_tiles, n, bt, eps_sq, part);
-}
-
-__global__ void __launch_bounds__(kThreads)
-min_label_sparse_kernel(const float2* __restrict__ x, const uint8_t* __restrict__ mask,
-                        const int* __restrict__ labels, const uint8_t* __restrict__ core,
-                        const int* __restrict__ row_ptr,
-                        const int* __restrict__ col_tiles, int n, int bt, float eps_sq,
-                        int* __restrict__ part) {
-  sparse_body(x, mask, MinLabelOp{mask, labels, core}, row_ptr, col_tiles, n, bt, eps_sq,
-              part);
 }
 
 // Squared distances, clipped at 0 as the plain version's clamp_min (which
@@ -247,28 +205,15 @@ __global__ void sum_splits(const int* __restrict__ part, int n, int splits,
   out[i] = acc;
 }
 
-__global__ void min_splits(const int* __restrict__ part, int n, int splits,
-                           int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int acc = part[i];
-  for (int s = 1; s < splits; ++s) acc = min(acc, part[(size_t)s * n + i]);
-  out[i] = acc;
-}
-
 int cols_per_split(int n, int splits) {
   const int tiles = (n + kTile - 1) / kTile;
   return ((tiles + splits - 1) / splits) * kTile;
 }
 
 // The splits' second pass: part -> out, when there is more than one split.
-void reduce_splits(bool is_sum, const void* part, int n, int splits, void* out,
-                   cudaStream_t s) {
+void reduce_splits(const void* part, int n, int splits, void* out, cudaStream_t s) {
   if (splits == 1) return;
-  if (is_sum)
-    sum_splits<<<(n + 255) / 256, 256, 0, s>>>((const int*)part, n, splits, (int*)out);
-  else
-    min_splits<<<(n + 255) / 256, 256, 0, s>>>((const int*)part, n, splits, (int*)out);
+  sum_splits<<<(n + 255) / 256, 256, 0, s>>>((const int*)part, n, splits, (int*)out);
 }
 
 bool bad_sparse_shape(int n, int bt, int rows_per_block, int splits) {
@@ -289,21 +234,7 @@ int neighbor_count_launch(const void* x, const void* mask, int n, float eps_sq,
   int* dst = splits == 1 ? (int*)out : (int*)part;
   count_kernel<<<grid, kThreads, 0, s>>>((const float2*)x, (const uint8_t*)mask, n, eps_sq,
                                          cols_per_split(n, splits), dst);
-  reduce_splits(true, part, n, splits, out, s);
-  return (int)cudaGetLastError();
-}
-
-int min_label_sweep_launch(const void* x, const void* mask, const void* labels,
-                           const void* core, int n, float eps_sq, int splits,
-                           void* part, void* out, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((n + kThreads - 1) / kThreads, splits);
-  int* dst = splits == 1 ? (int*)out : (int*)part;
-  min_label_kernel<<<grid, kThreads, 0, s>>>(
-      (const float2*)x, (const uint8_t*)mask, (const int*)labels, (const uint8_t*)core, n,
-      eps_sq, cols_per_split(n, splits), dst);
-  reduce_splits(false, part, n, splits, out, s);
+  reduce_splits(part, n, splits, out, s);
   return (int)cudaGetLastError();
 }
 
@@ -322,24 +253,7 @@ int neighbor_count_sparse_launch(const void* x, const void* mask, const void* ro
   count_sparse_kernel<<<grid, rows_per_block, 0, s>>>(
       (const float2*)x, (const uint8_t*)mask, (const int*)row_ptr, (const int*)col_tiles,
       n, bt, eps_sq, dst);
-  reduce_splits(true, part, n, splits, out, s);
-  return (int)cudaGetLastError();
-}
-
-int min_label_sweep_sparse_launch(const void* x, const void* mask, const void* labels,
-                                  const void* core, const void* row_ptr,
-                                  const void* col_tiles, int n, int bt,
-                                  int rows_per_block, float eps_sq, int splits,
-                                  void* part, void* out, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (bad_sparse_shape(n, bt, rows_per_block, splits)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(n / rows_per_block, splits);
-  int* dst = splits == 1 ? (int*)out : (int*)part;
-  min_label_sparse_kernel<<<grid, rows_per_block, 0, s>>>(
-      (const float2*)x, (const uint8_t*)mask, (const int*)labels, (const uint8_t*)core,
-      (const int*)row_ptr, (const int*)col_tiles, n, bt, eps_sq, dst);
-  reduce_splits(false, part, n, splits, out, s);
+  reduce_splits(part, n, splits, out, s);
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,14 @@ class TilePairs(NamedTuple):
     PAIR_VALID (a real pair), bit1 = PAIR_FIRST (first pair of its row
     tile).  row_ptr (T + 1,) int32: CSR offsets of each row tile's run in
     that list, for the kernels' launch.  n_active: () int32; frac: () f32,
-    n_active / T²."""
+    n_active / T².
+
+    The upper list, for the sweep that tests each unordered pair once:
+    up_rows/up_cols (T(T − 1)/2,) int32 — the active pairs (I, J) with
+    I < J first, in row-major order, then the inactive ones (never read);
+    n_up: () int32, their count.  The T diagonal pairs are always active
+    and are not listed.  The active set is symmetric (the box gap is), so
+    the upper list and the diagonal hold every active pair once."""
 
     rows: torch.Tensor
     cols: torch.Tensor
@@ -87,6 +94,9 @@ class TilePairs(NamedTuple):
     n_active: torch.Tensor
     frac: torch.Tensor
     row_ptr: torch.Tensor
+    up_rows: torch.Tensor
+    up_cols: torch.Tensor
+    n_up: torch.Tensor
 
 
 def build_tile_pairs(x: torch.Tensor, mask: torch.Tensor, eps, *, bt: int = 512) -> TilePairs:
@@ -98,7 +108,8 @@ def build_tile_pairs(x: torch.Tensor, mask: torch.Tensor, eps, *, bt: int = 512)
     Diagonal pairs are always active, so every row tile has a run.  The
     box gap's squared length is float32 fma(g1, g1, g0·g0), the form the
     jitted reference computes (XLA contracts its gap·gap sum), and frac
-    is its float32 n_active · (1 / T²).  Needs no host sync."""
+    is its float32 n_active · (1 / T²).  Also builds the upper list (see
+    ``TilePairs``).  Needs no host sync."""
     n = x.shape[0]
     if bt <= 0 or n % bt:
         raise ValueError(f"n = {n} is not a multiple of the tile size bt = {bt}")
@@ -132,7 +143,12 @@ def build_tile_pairs(x: torch.Tensor, mask: torch.Tensor, eps, *, bt: int = 512)
     # division by a constant into a multiply by its float32 reciprocal.
     inv = torch.tensor(np.float32(1.0) / np.float32(p), dtype=torch.float32, device=dev)
     frac = n_active.to(torch.float32) * inv
-    return TilePairs(rows, cols, flags, n_active, frac, row_ptr)
+    iu = torch.triu_indices(t, t, 1, device=dev)
+    up = active[iu[0], iu[1]]
+    order = torch.argsort((~up).to(torch.uint8), stable=True)
+    up_rows, up_cols = iu[0][order].to(torch.int32), iu[1][order].to(torch.int32)
+    return TilePairs(rows, cols, flags, n_active, frac, row_ptr, up_rows, up_cols,
+                     up.sum(dtype=torch.int32))
 
 
 def neighbor_count_sparse(x: torch.Tensor, mask: torch.Tensor, eps, pairs: TilePairs,

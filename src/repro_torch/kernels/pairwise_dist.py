@@ -1,6 +1,8 @@
 """Phase-1 kernels: DBSCAN's fused ε-neighbour count and one min-label
 sweep, dense and over a list of active tile pairs, and K-Means' squared
-distance matrix (CUDA source: ``csrc/pairwise_dist.cu``).
+distance matrix (CUDA sources: ``csrc/pairwise_dist.cu``, and
+``csrc/min_label.cu`` for the two sweeps, which test each unordered pair
+of points once).
 
 Counterpart of the Pallas kernels in ``repro/kernels/pairwise_dist.py``
 (``neighbor_count``, ``min_label_sweep``, ``neighbor_count_sparse``,
@@ -20,6 +22,9 @@ from . import _build, ref
 
 TILE = 256            # columns per shared-memory tile (csrc kThreads/kTile)
 TARGET_BLOCKS = 1024  # enough blocks to fill 132 SMs several times over
+SYM_DENSE_TILE = 256  # the dense sweep's square tiles (min_label.cu kDenseTile)
+SYM_TILES = (256, 128, 64, 32)  # the sparse sweep's sub-tile: the first that divides bt
+INT32_MAX = 2**31 - 1  # the dense sweep's output starts here (its plain version's min)
 
 launches = {"neighbor_count": 0, "min_label_sweep": 0,
             "neighbor_count_sparse": 0, "min_label_sweep_sparse": 0,
@@ -34,22 +39,32 @@ def _lib():
     lib.neighbor_count_launch.argtypes = [
         _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P, _P, _P]
     lib.neighbor_count_launch.restype = ctypes.c_int
-    lib.min_label_sweep_launch.argtypes = [
-        _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P, _P, _P]
-    lib.min_label_sweep_launch.restype = ctypes.c_int
     lib.neighbor_count_sparse_launch.argtypes = [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, _P, _P, _P]
     lib.neighbor_count_sparse_launch.restype = ctypes.c_int
-    lib.min_label_sweep_sparse_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, _P, _P, _P]
-    lib.min_label_sweep_sparse_launch.restype = ctypes.c_int
     lib.pairwise_dist_sq_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P]
     lib.pairwise_dist_sq_launch.restype = ctypes.c_int
     lib.pairwise_dist_error_string.argtypes = [ctypes.c_int]
     lib.pairwise_dist_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bind_sym(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare csrc/min_label.cu's C entry points on a loaded library."""
+    lib.min_label_sweep_launch.argtypes = [
+        _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
+    lib.min_label_sweep_launch.restype = ctypes.c_int
+    lib.min_label_sweep_sparse_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, _P, _P]
+    lib.min_label_sweep_sparse_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sym_lib():
+    return bind_sym(_build.load("min_label"))
 
 
 def _check_points(x: torch.Tensor, *vecs: tuple[torch.Tensor, torch.dtype]) -> int:
@@ -127,18 +142,16 @@ def neighbor_count(x: torch.Tensor, mask: torch.Tensor, eps) -> torch.Tensor:
 def min_label_sweep(x: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
                     core: torch.Tensor, eps) -> torch.Tensor:
     """One min-label sweep: per point, the min label over masked core
-    points within eps, SENTINEL where there is none → (n,) i32."""
+    points within eps, SENTINEL where there is none → (n,) i32; bit for
+    bit ``ref.min_label_sweep`` on every input (see csrc/min_label.cu)."""
     if _device_kind(x) == "cpu":
         return ref.min_label_sweep(x, mask, labels, core, eps)
     n = _check_points(x, (mask, torch.bool), (labels, torch.int32), (core, torch.bool))
-    out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    s = _splits(n)
-    part = torch.empty((s, n), dtype=torch.int32, device=x.device) if s > 1 else None
-    lib = _lib()
-    _launch(x, lib.min_label_sweep_launch, "min_label_sweep",
-            x.data_ptr(), mask.data_ptr(), labels.data_ptr(), core.data_ptr(), n,
-            ref.eps_sq_f32(eps), s, None if part is None else part.data_ptr(),
-            out.data_ptr())
+    out = torch.full((n,), INT32_MAX, dtype=torch.int32, device=x.device)
+    if n:
+        _launch(x, _sym_lib().min_label_sweep_launch, "min_label_sweep",
+                x.data_ptr(), mask.data_ptr(), labels.data_ptr(), core.data_ptr(), n,
+                ref.eps_sq_f32(eps), out.data_ptr())
     return out
 
 
@@ -160,6 +173,38 @@ def _check_tile_pairs(x: torch.Tensor, pairs, bt: int) -> tuple[int, int]:
     rows_per_block = max(r for r in range(32, TILE + 1, 32) if bt % r == 0)
     blocks = n // rows_per_block
     return rows_per_block, max(1, min(t, -(-TARGET_BLOCKS // blocks)))
+
+
+def sym_tile(bt: int) -> int:
+    """The sparse sweep's sub-tile for tiles of ``bt`` (a multiple of 32)."""
+    return next(s for s in SYM_TILES if bt % s == 0)
+
+
+def sym_work_items(n: int, pairs=None, *, bt: int | None = None) -> int:
+    """Work items of one sweep of csrc/min_label.cu: the unordered pairs of
+    the dense sweep's ceil(n / 256) tiles, or, given ``pairs`` and ``bt``,
+    the T diagonal tiles' k(k+1)/2 sub-tile pairs and k² for each upper
+    pair (k = bt / ``sym_tile(bt)``; reads ``pairs.n_up``, a host sync)."""
+    if pairs is None:
+        t = -(-n // SYM_DENSE_TILE)
+        return t * (t + 1) // 2
+    k = bt // sym_tile(bt)
+    return n // bt * k * (k + 1) // 2 + int(pairs.n_up) * k * k
+
+
+def _check_upper(x: torch.Tensor, pairs, bt: int) -> None:
+    """The upper list of ``pairs`` (``ops.TilePairs``) for tiles of ``bt``."""
+    t = x.shape[0] // bt
+    for name, shape in (("up_rows", (t * (t - 1) // 2,)), ("up_cols", (t * (t - 1) // 2,)),
+                        ("n_up", ())):
+        v = getattr(pairs, name, None)
+        if not isinstance(v, torch.Tensor):
+            raise ValueError(f"pairs has no upper list ({name}): build it with "
+                             "ops.build_tile_pairs")
+        if v.device != x.device or v.dtype != torch.int32 or v.shape != shape \
+                or not v.is_contiguous():
+            raise ValueError(f"pairs.{name} must be contiguous {shape} int32 on {x.device}, "
+                             f"got {tuple(v.shape)} {v.dtype} on {v.device}")
 
 
 def neighbor_count_sparse(x: torch.Tensor, mask: torch.Tensor, eps, pairs,
@@ -184,18 +229,21 @@ def neighbor_count_sparse(x: torch.Tensor, mask: torch.Tensor, eps, pairs,
 def min_label_sweep_sparse(x: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
                            core: torch.Tensor, eps, pairs, *, bt: int) -> torch.Tensor:
     """``min_label_sweep`` over the active tile pairs of spatially sorted
-    points (n a multiple of ``bt``); ``pairs``: an ``ops.TilePairs``."""
+    points (n a multiple of ``bt``); ``pairs``: an ``ops.TilePairs``.  The
+    kernel walks the diagonal tiles and the upper list (``pairs.up_rows``,
+    ...) and tests each unordered pair once; bit for bit
+    ``ref.min_label_sweep_sparse`` on every input."""
     if _device_kind(x) == "cpu":
         return ref.min_label_sweep_sparse(x, mask, labels, core, eps, pairs.rows,
                                           pairs.cols, pairs.flags, bt)
     n = _check_points(x, (mask, torch.bool), (labels, torch.int32), (core, torch.bool))
-    rpb, s = _check_tile_pairs(x, pairs, bt)
-    out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    part = torch.empty((s, n), dtype=torch.int32, device=x.device) if s > 1 else None
-    lib = _lib()
-    _launch(x, lib.min_label_sweep_sparse_launch, "min_label_sweep_sparse",
-            x.data_ptr(), mask.data_ptr(), labels.data_ptr(), core.data_ptr(),
-            pairs.row_ptr.data_ptr(), pairs.cols.data_ptr(), n, bt, rpb,
-            ref.eps_sq_f32(eps), s, None if part is None else part.data_ptr(),
-            out.data_ptr())
+    _check_tile_pairs(x, pairs, bt)
+    _check_upper(x, pairs, bt)
+    out = torch.full((n,), ref.SENTINEL, dtype=torch.int32, device=x.device)
+    if n:
+        _launch(x, _sym_lib().min_label_sweep_sparse_launch, "min_label_sweep_sparse",
+                x.data_ptr(), mask.data_ptr(), labels.data_ptr(), core.data_ptr(),
+                pairs.up_rows.data_ptr(), pairs.up_cols.data_ptr(), pairs.n_up.data_ptr(),
+                n, bt, sym_tile(bt), ref.eps_sq_f32(eps), out.data_ptr())
     return out
+

@@ -18,6 +18,8 @@ ds) = (64, 128), the CUDA cores otherwise), also to one bf16 ulp
 IEEE division and rounding per element) equals its plain version bit for
 bit.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -190,6 +192,123 @@ def test_min_label_sweep_sparse(cuda, layout, n, bt, eps, empty_tile):
                                       pairs.flags, bt)
     assert torch.equal(got, want)
     assert torch.equal(got, ref.min_label_sweep(sp, sm, labels, core, eps))
+
+
+def _sweep_inputs(n, seed, kind, cuda):
+    """Points, mask, labels and core flags for a sweep.  ``kind``: "normal";
+    "all_masked" (no row takes part); "no_core"; "big" (labels up to
+    INT32_MAX, most above 2^30); "big_tile" (the first 256 points masked
+    core points labelled above 2^30: their items take the exact path);
+    "all_big" (every point so: with a wide eps every row's result is a
+    label above 2^30); "overflow" (points up to |x| ≈ 4e17, one at 1.35e19
+    whose |x|² overflows when doubled: its items take the exact path)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 2)).astype(np.float32)
+    mask = rng.random(n) > (1.1 if kind == "all_masked" else 0.3)
+    labels = rng.integers(0, n, n).astype(np.int32)
+    labels[::7] = ref.SENTINEL
+    core = rng.random(n) > (1.1 if kind == "no_core" else 0.5)
+    big = rng.integers(ref.SENTINEL + 1, 2**31 - 1, n, endpoint=True).astype(np.int32)
+    if kind == "big":
+        labels = rng.integers(0, 2**31 - 1, n, endpoint=True).astype(np.int32)
+    elif kind == "big_tile":
+        labels[:256], mask[:256], core[:256] = big[:256], True, True
+    elif kind == "all_big":
+        labels, mask[:], core[:] = big, True, True
+    elif kind == "overflow":
+        x = (x * np.float32(1e17)).astype(np.float32)
+        x[min(3, n - 1)] = (1.35e19, 0.0)
+        labels[min(3, n - 1)], mask[min(3, n - 1)], core[min(3, n - 1)] = -1, True, True
+    return tuple(torch.as_tensor(a, device=cuda) for a in (x, mask, labels, core))
+
+
+# n = 1, ragged n, all rows masked, no core point, 32,768 points, labels
+# above 2^30 (some, a whole tile, all), and coordinates beyond the fold's
+# bound at an infinite eps².
+SYM_DENSE_CASES = [(1, 0.1, "normal"), (255, 0.3, "normal"), (1000, 0.1, "all_masked"),
+                   (4097, 0.05, "no_core"), (32768, 0.02, "normal"), (600, 0.2, "normal"),
+                   (600, 0.3, "big"), (1000, 0.5, "big_tile"), (300, 100.0, "all_big"),
+                   (3000, 1e20, "overflow")]
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered")
+@pytest.mark.parametrize("n,eps,kind", SYM_DENSE_CASES)
+def test_min_label_sweep_symmetric_kernel(cuda, n, eps, kind):
+    """csrc/min_label.cu's dense sweep: one launch counted, two launches
+    bit-identical, equal to the plain version on every input."""
+    x, mask, labels, core = _sweep_inputs(n, n + 5, kind, cuda)
+    ops.reset_launch_counts()
+    got = pairwise_dist.min_label_sweep(x, mask, labels, core, eps)
+    assert pairwise_dist.launches["min_label_sweep"] == 1
+    assert torch.equal(got, pairwise_dist.min_label_sweep(x, mask, labels, core, eps))
+    assert torch.equal(got, ref.min_label_sweep(x, mask, labels, core, eps))
+    assert pairwise_dist.launches["min_label_sweep"] == 2
+    if kind == "all_masked":
+        assert bool((got == ref.SENTINEL).all())
+    if kind == "all_big":
+        assert bool((got > ref.SENTINEL).all())
+
+
+# Every SPARSE_CASES tiling, then sub-tiles of 32 (bt 96), all rows masked,
+# no core point, labels above 2^30, and a tile of them.
+SYM_SPARSE_CASES = [(*case, "normal") for case in SPARSE_CASES] + [
+    ("clustered", 2048, 96, 0.05, False, "normal"),
+    ("clustered", 4096, 128, 0.03, False, "all_masked"),
+    ("random", 8192, 512, 0.01, True, "no_core"),
+    ("one_cell", 2048, 128, 0.01, False, "big"),
+    ("clustered", 4096, 64, 0.05, False, "big_tile")]
+
+
+@pytest.mark.parametrize("layout,n,bt,eps,empty_tile,kind", SYM_SPARSE_CASES)
+def test_min_label_sweep_sparse_symmetric_kernel(cuda, layout, n, bt, eps, empty_tile, kind):
+    """csrc/min_label.cu's sparse sweep over the diagonal and the upper
+    list: as the dense test, against the plain sparse version and the
+    dense one capped at 2^30."""
+    sp, sm = _sorted_on_card(layout, n, bt, n + bt + 2, cuda, empty_tile)
+    npad = sp.shape[0]
+    rng = np.random.default_rng(npad + 1)
+    labels = torch.as_tensor(rng.integers(0, npad, npad).astype(np.int32), device=cuda)
+    labels[::7] = ref.SENTINEL
+    core = torch.as_tensor(rng.random(npad) > (1.1 if kind == "no_core" else 0.5), device=cuda)
+    if kind == "all_masked":
+        sm = torch.zeros_like(sm)
+    elif kind == "big":
+        labels = torch.as_tensor(rng.integers(0, 2**31 - 1, npad, endpoint=True)
+                                 .astype(np.int32), device=cuda)
+    elif kind == "big_tile":
+        labels[:bt] = torch.as_tensor(rng.integers(ref.SENTINEL + 1, 2**31 - 1, bt)
+                                      .astype(np.int32), device=cuda)
+        sm[:bt] = True
+        core[:bt] = True
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    ops.reset_launch_counts()
+    got = pairwise_dist.min_label_sweep_sparse(sp, sm, labels, core, eps, pairs, bt=bt)
+    assert pairwise_dist.launches["min_label_sweep_sparse"] == 1
+    assert torch.equal(got, pairwise_dist.min_label_sweep_sparse(sp, sm, labels, core, eps,
+                                                                 pairs, bt=bt))
+    assert pairwise_dist.launches["min_label_sweep_sparse"] == 2
+    want = ref.min_label_sweep_sparse(sp, sm, labels, core, eps, pairs.rows, pairs.cols,
+                                      pairs.flags, bt)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.min_label_sweep(sp, sm, labels, core, eps)
+                       .clamp_max(ref.SENTINEL))
+
+
+def test_sparse_sweep_needs_the_upper_list(cuda):
+    """A tile-pair list without the upper list, or with another tiling's,
+    raises ``ValueError``; nothing launches."""
+    sp, sm = _sorted_on_card("clustered", 1024, 64, 3, cuda)
+    pairs = ops.build_tile_pairs(sp, sm, 0.02, bt=64)
+    lab = torch.arange(1024, dtype=torch.int32, device=cuda)
+    old = types.SimpleNamespace(**{f: getattr(pairs, f) for f in (
+        "rows", "cols", "flags", "n_active", "frac", "row_ptr")})
+    ops.reset_launch_counts()
+    for bad in (old, pairs._replace(up_rows=pairs.up_rows[:-1]),
+                pairs._replace(n_up=pairs.n_up.long()),
+                pairs._replace(up_cols=pairs.up_cols.cpu())):
+        with pytest.raises(ValueError):
+            pairwise_dist.min_label_sweep_sparse(sp, sm, lab, sm, 0.02, bad, bt=64)
+    assert pairwise_dist.launches["min_label_sweep_sparse"] == 0
 
 
 def test_sparse_kernels_reject_bad_inputs(cuda):
