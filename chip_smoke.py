@@ -74,14 +74,15 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
      and inertia equal to the plain run's, both seeded alike.
    Each kernel is then held against its plain version on the main paths'
    own inputs and timed with CUDA events (``pairwise_dist_sq`` also
-   beside ``torch.cdist``; the two sweeps, which test each unordered pair
-   once (``csrc/min_label.cu``), with their work items and two launches
-   bit-identical): one JSON line ``{"kernels": [...]}`` that also lists
-   the LM phase's three kernels.  One more default-path run, one more
-   dense run and one more K-Means run under torch.profiler give the
-   device time by kernel and the device's busy share (``profile``,
-   ``profile_dense``, ``profile_kmeans``); the default and dense profiles
-   must show the sweep kernel of their path.
+   beside ``torch.cdist``; the two counts and the two sweeps, which test
+   each unordered pair once (``csrc/pair_sweep.cu``), with their work
+   items and two launches bit-identical): one JSON line ``{"kernels":
+   [...]}`` that also lists the LM phase's three kernels.  One more
+   default-path run, one more dense run and one more K-Means run under
+   torch.profiler give the device time by kernel and the device's busy
+   share (``profile``, ``profile_dense``, ``profile_kmeans``); the default
+   and dense profiles must show the count and sweep kernels of their
+   path.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -412,9 +413,10 @@ def kernel_entry(torch, name, src, replaces, shape, kern, plain, bound_ms, bound
 
 
 def sweep_extra(torch, name, items, tile, bound_tests, kern) -> dict:
-    """What a sweep's kernels-line entry adds: two launches bit-identical,
-    its work items and the pair tests they make (items of tile² tests),
-    beside the unordered pair tests its bound counts."""
+    """What a pair kernel's kernels-line entry adds (the counts and the
+    sweeps of csrc/pair_sweep.cu): two launches bit-identical, its work
+    items and the pair tests they make (items of tile² tests), beside the
+    unordered pair tests its bound counts."""
     if not same(torch, kern(), kern()):
         raise RuntimeError(f"{name}: two launches on the main path's inputs differ")
     return {"two_launches_identical": True, "work_items": items, "tile": tile,
@@ -1324,11 +1326,10 @@ def main() -> int:
                         dbscan.SENTINEL).to(torch.int32)
     n_act = int(pairs.n_active)
     per_tile = sm.reshape(-1, bt).sum(dim=1, dtype=torch.int64)
-    sparse_tests = int((per_tile[pairs.rows[:n_act].long()]
-                        * per_tile[pairs.cols[:n_act].long()]).sum())
-    # The sweeps test each unordered pair once (d2 is symmetric bit for bit
-    # and a min idempotent), so their bounds count unordered pairs: the
-    # dense sweep's n(n+1)/2, the sparse one's within each diagonal tile and
+    # The counts and the sweeps test each unordered pair once (d2 is
+    # symmetric bit for bit, and one test gives both rows their increment
+    # or their min), so their bounds count unordered pairs: the dense
+    # kernels' n(n+1)/2, the sparse ones' within each diagonal tile and
     # across each active pair I < J of the upper list.
     n_up = int(pairs.n_up)
     sym_sparse_tests = int((per_tile * (per_tile + 1) // 2).sum()
@@ -1347,23 +1348,23 @@ def main() -> int:
     cents0 = tkm["results"][0].centroids.contiguous()
     k_cents = cents0.shape[0]
     p_valid = int(torch.where(valids, cnts.clamp(0, v), 0).sum())
-    nc_src, pd = "pairwise_dist.cu", "src/repro/kernels/pairwise_dist.py"
+    sym_src, pd = "pair_sweep.cu", "src/repro/kernels/pairwise_dist.py"
     cases = [
-        ("neighbor_count", nc_src, f"{pd}:91", [per],
+        ("neighbor_count", sym_src, f"{pd}:91", [per],
          lambda: ops.neighbor_count(xc, m0, eps), lambda: ref.neighbor_count(xc, m0, eps),
-         bound(n_valid ** 2 * NC_OPS_PER_PAIR, per * (8 + 1 + 4)), launches_d, "dense"),
-        ("min_label_sweep", "min_label.cu", f"{pd}:147", [per],
+         bound(sym_dense_tests * NC_OPS_PER_PAIR, per * (8 + 1 + 4)), launches_d, "dense"),
+        ("min_label_sweep", sym_src, f"{pd}:147", [per],
          lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps),
          lambda: ref.min_label_sweep(xc, m0, lab_in, res0.core, eps),
          bound(sym_dense_tests * NC_OPS_PER_PAIR, per * (8 + 1 + 4 + 1 + 4)), launches_d,
          "dense"),
-        ("neighbor_count_sparse", nc_src, f"{pd}:222", [npad, bt, n_act],
+        ("neighbor_count_sparse", sym_src, f"{pd}:222", [npad, bt, n_act],
          lambda: ops.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt),
          lambda: ref.neighbor_count_sparse(sp, sm, eps, pairs.rows, pairs.cols, pairs.flags,
                                            bt),
-         bound(sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4) + pair_bytes), launches_s,
-         "sparse"),
-        ("min_label_sweep_sparse", "min_label.cu", f"{pd}:289", [npad, bt, n_act],
+         bound(sym_sparse_tests * NC_OPS_PER_PAIR, npad * (8 + 1 + 4) + pair_bytes),
+         launches_s, "sparse"),
+        ("min_label_sweep_sparse", sym_src, f"{pd}:289", [npad, bt, n_act],
          lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt),
          lambda: ref.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs.rows,
                                             pairs.cols, pairs.flags, bt),
@@ -1374,7 +1375,7 @@ def main() -> int:
          lambda: ref.contour_min_d2(conts, cnts, valids),
          bound(p_valid ** 2 * CMD2_OPS_PER_PAIR,
                mslots * v * 8 + mslots * (4 + 1) + mslots * mslots * 4), launches_s, "sparse"),
-        ("pairwise_dist_sq", nc_src, f"{pd}:48", [per, cfg_km.kmeans_k],
+        ("pairwise_dist_sq", "pairwise_dist.cu", f"{pd}:48", [per, cfg_km.kmeans_k],
          lambda: ops.pairwise_dist_sq(x0, cents0), lambda: ref.pairwise_dist_sq(x0, cents0),
          bound(per * k_cents * PD_OPS_PER_PAIR, per * 8 + k_cents * 8 + per * k_cents * 4),
          launches_km, "kmeans"),
@@ -1382,6 +1383,13 @@ def main() -> int:
     libraries = {"pairwise_dist_sq": lambda: torch.cdist(
         x0, cents0, compute_mode="use_mm_for_euclid_dist")}
     sweeps = {
+        "neighbor_count": sweep_extra(
+            torch, "neighbor_count", pd_mod.sym_work_items(per), pd_mod.SYM_DENSE_TILE,
+            sym_dense_tests, lambda: ops.neighbor_count(xc, m0, eps)),
+        "neighbor_count_sparse": sweep_extra(
+            torch, "neighbor_count_sparse", pd_mod.sym_work_items(npad, pairs, bt=bt),
+            pd_mod.sym_tile(bt), sym_sparse_tests,
+            lambda: ops.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt)),
         "min_label_sweep": sweep_extra(
             torch, "min_label_sweep", pd_mod.sym_work_items(per), pd_mod.SYM_DENSE_TILE,
             sym_dense_tests, lambda: ops.min_label_sweep(xc, m0, lab_in, res0.core, eps)),
@@ -1400,12 +1408,14 @@ def main() -> int:
     run = ddc.make_ddc_fn(cfg, LANES, device=dev)
     print(json.dumps({"profile": profile_fn(torch, lambda: run(pts, mask),
                                             ts["phase1_s"] + ts["phase2_s"], top=10,
-                                            require=("min_label_sparse_sym_kernel",))}),
+                                            require=("neighbor_count_sparse_sym_kernel",
+                                                     "min_label_sparse_sym_kernel"))}),
           flush=True)
     run_d = ddc.make_ddc_fn(cfg_d, LANES, device=dev)
     print(json.dumps({"profile_dense": profile_fn(torch, lambda: run_d(pts, mask),
                                                   td["phase1_s"] + td["phase2_s"], top=10,
-                                                  require=("min_label_sym_kernel",))}),
+                                                  require=("neighbor_count_sym_kernel",
+                                                           "min_label_sym_kernel"))}),
           flush=True)
     run_km = ddc.make_ddc_fn(cfg_km, LANES, device=dev)
     print(json.dumps({"profile_kmeans": profile_fn(torch, lambda: run_km(pts, mask),

@@ -78,10 +78,12 @@ class TilePairs(NamedTuple):
     the tail repeating the last active pair with flags 0; flags bit0 =
     PAIR_VALID (a real pair), bit1 = PAIR_FIRST (first pair of its row
     tile).  row_ptr (T + 1,) int32: CSR offsets of each row tile's run in
-    that list, for the kernels' launch.  n_active: () int32; frac: () f32,
-    n_active / T².
+    that list (no kernel reads it any more; the tests and
+    ``tools/sweep_sym_ab.py``'s older kernels do).  n_active: () int32;
+    frac: () f32, n_active / T².
 
-    The upper list, for the sweep that tests each unordered pair once:
+    The upper list, which the kernels walk (they test each unordered pair
+    once):
     up_rows/up_cols (T(T − 1)/2,) int32 — the active pairs (I, J) with
     I < J first, in row-major order, then the inactive ones (never read);
     n_up: () int32, their count.  The T diagonal pairs are always active

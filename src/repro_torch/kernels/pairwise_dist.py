@@ -1,8 +1,8 @@
 """Phase-1 kernels: DBSCAN's fused ε-neighbour count and one min-label
 sweep, dense and over a list of active tile pairs, and K-Means' squared
-distance matrix (CUDA sources: ``csrc/pairwise_dist.cu``, and
-``csrc/min_label.cu`` for the two sweeps, which test each unordered pair
-of points once).
+distance matrix (CUDA sources: ``csrc/pair_sweep.cu`` for the counts and
+the sweeps, which test each unordered pair of points once, and
+``csrc/pairwise_dist.cu`` for the distance matrix).
 
 Counterpart of the Pallas kernels in ``repro/kernels/pairwise_dist.py``
 (``neighbor_count``, ``min_label_sweep``, ``neighbor_count_sparse``,
@@ -20,10 +20,8 @@ import torch
 
 from . import _build, ref
 
-TILE = 256            # columns per shared-memory tile (csrc kThreads/kTile)
-TARGET_BLOCKS = 1024  # enough blocks to fill 132 SMs several times over
-SYM_DENSE_TILE = 256  # the dense sweep's square tiles (min_label.cu kDenseTile)
-SYM_TILES = (256, 128, 64, 32)  # the sparse sweep's sub-tile: the first that divides bt
+SYM_DENSE_TILE = 256  # the dense items' square tiles (pair_sweep.cu kDenseTile)
+SYM_TILES = (256, 128, 64, 32)  # the sparse items' sub-tile: the first that divides bt
 INT32_MAX = 2**31 - 1  # the dense sweep's output starts here (its plain version's min)
 
 launches = {"neighbor_count": 0, "min_label_sweep": 0,
@@ -36,13 +34,6 @@ _P = ctypes.c_void_p
 @functools.cache
 def _lib():
     lib = _build.load("pairwise_dist")
-    lib.neighbor_count_launch.argtypes = [
-        _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P, _P, _P]
-    lib.neighbor_count_launch.restype = ctypes.c_int
-    lib.neighbor_count_sparse_launch.argtypes = [
-        _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, _P, _P, _P]
-    lib.neighbor_count_sparse_launch.restype = ctypes.c_int
     lib.pairwise_dist_sq_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P]
     lib.pairwise_dist_sq_launch.restype = ctypes.c_int
     lib.pairwise_dist_error_string.argtypes = [ctypes.c_int]
@@ -51,7 +42,12 @@ def _lib():
 
 
 def bind_sym(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare csrc/min_label.cu's C entry points on a loaded library."""
+    """Declare csrc/pair_sweep.cu's C entry points on a loaded library."""
+    lib.neighbor_count_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
+    lib.neighbor_count_launch.restype = ctypes.c_int
+    lib.neighbor_count_sparse_launch.argtypes = [
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P]
+    lib.neighbor_count_sparse_launch.restype = ctypes.c_int
     lib.min_label_sweep_launch.argtypes = [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
     lib.min_label_sweep_launch.restype = ctypes.c_int
@@ -64,7 +60,7 @@ def bind_sym(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.cache
 def _sym_lib():
-    return bind_sym(_build.load("min_label"))
+    return bind_sym(_build.load("pair_sweep"))
 
 
 def _check_points(x: torch.Tensor, *vecs: tuple[torch.Tensor, torch.dtype]) -> int:
@@ -82,13 +78,6 @@ def _check_points(x: torch.Tensor, *vecs: tuple[torch.Tensor, torch.dtype]) -> i
                 f"expected contiguous ({n},) {dtype} on {x.device}, got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
     return n
-
-
-def _splits(n: int) -> int:
-    """Column splits so that row blocks × splits ≈ TARGET_BLOCKS; the row
-    blocks and the column tiles are both TILE wide."""
-    tiles = -(-n // TILE)
-    return max(1, min(tiles, -(-TARGET_BLOCKS // tiles)))
 
 
 def _launch(x: torch.Tensor, fn, name: str, *args) -> None:
@@ -124,18 +113,17 @@ def pairwise_dist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def neighbor_count(x: torch.Tensor, mask: torch.Tensor, eps) -> torch.Tensor:
-    """Per point, the count of masked points within eps (self included);
-    x: (n, 2) f32, mask: (n,) bool → (n,) i32."""
+    """Per point, the count of masked points within eps (self included),
+    0 for a masked-out point; x: (n, 2) f32, mask: (n,) bool → (n,) i32;
+    bit for bit ``ref.neighbor_count`` on every input (see
+    csrc/pair_sweep.cu)."""
     if _device_kind(x) == "cpu":
         return ref.neighbor_count(x, mask, eps)
     n = _check_points(x, (mask, torch.bool))
-    out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    s = _splits(n)
-    part = torch.empty((s, n), dtype=torch.int32, device=x.device) if s > 1 else None
-    lib = _lib()
-    _launch(x, lib.neighbor_count_launch, "neighbor_count",
-            x.data_ptr(), mask.data_ptr(), n, ref.eps_sq_f32(eps), s,
-            None if part is None else part.data_ptr(), out.data_ptr())
+    out = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    if n:
+        _launch(x, _sym_lib().neighbor_count_launch, "neighbor_count",
+                x.data_ptr(), mask.data_ptr(), n, ref.eps_sq_f32(eps), out.data_ptr())
     return out
 
 
@@ -143,7 +131,7 @@ def min_label_sweep(x: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
                     core: torch.Tensor, eps) -> torch.Tensor:
     """One min-label sweep: per point, the min label over masked core
     points within eps, SENTINEL where there is none → (n,) i32; bit for
-    bit ``ref.min_label_sweep`` on every input (see csrc/min_label.cu)."""
+    bit ``ref.min_label_sweep`` on every input (see csrc/pair_sweep.cu)."""
     if _device_kind(x) == "cpu":
         return ref.min_label_sweep(x, mask, labels, core, eps)
     n = _check_points(x, (mask, torch.bool), (labels, torch.int32), (core, torch.bool))
@@ -155,33 +143,13 @@ def min_label_sweep(x: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
     return out
 
 
-def _check_tile_pairs(x: torch.Tensor, pairs, bt: int) -> tuple[int, int]:
-    """The sparse kernels' shape rules: n a multiple of ``bt``, ``bt`` a
-    multiple of 32, and the CSR row offsets (T + 1,) and column tiles
-    (T²,) as contiguous int32 on x's device.  Returns (rows per block,
-    column-list splits)."""
-    n = x.shape[0]
-    if bt <= 0 or bt % 32 or n % bt:
-        raise ValueError(f"the sparse kernels need n ({n}) a multiple of bt ({bt}) "
-                         "and bt a multiple of 32")
-    t = n // bt
-    for name, v, size in (("row_ptr", pairs.row_ptr, t + 1), ("cols", pairs.cols, t * t)):
-        if v.device != x.device or v.dtype != torch.int32 or v.shape != (size,) \
-                or not v.is_contiguous():
-            raise ValueError(f"pairs.{name} must be contiguous ({size},) int32 on "
-                             f"{x.device}, got {tuple(v.shape)} {v.dtype} on {v.device}")
-    rows_per_block = max(r for r in range(32, TILE + 1, 32) if bt % r == 0)
-    blocks = n // rows_per_block
-    return rows_per_block, max(1, min(t, -(-TARGET_BLOCKS // blocks)))
-
-
 def sym_tile(bt: int) -> int:
     """The sparse sweep's sub-tile for tiles of ``bt`` (a multiple of 32)."""
     return next(s for s in SYM_TILES if bt % s == 0)
 
 
 def sym_work_items(n: int, pairs=None, *, bt: int | None = None) -> int:
-    """Work items of one sweep of csrc/min_label.cu: the unordered pairs of
+    """Work items of one launch of csrc/pair_sweep.cu: the unordered pairs of
     the dense sweep's ceil(n / 256) tiles, or, given ``pairs`` and ``bt``,
     the T diagonal tiles' k(k+1)/2 sub-tile pairs and k² for each upper
     pair (k = bt / ``sym_tile(bt)``; reads ``pairs.n_up``, a host sync)."""
@@ -192,9 +160,15 @@ def sym_work_items(n: int, pairs=None, *, bt: int | None = None) -> int:
     return n // bt * k * (k + 1) // 2 + int(pairs.n_up) * k * k
 
 
-def _check_upper(x: torch.Tensor, pairs, bt: int) -> None:
-    """The upper list of ``pairs`` (``ops.TilePairs``) for tiles of ``bt``."""
-    t = x.shape[0] // bt
+def _check_sparse(x: torch.Tensor, pairs, bt: int) -> None:
+    """The sparse kernels' shape rules (n a multiple of ``bt``, ``bt`` a
+    multiple of 32) and the upper list of ``pairs`` (``ops.TilePairs``)
+    for tiles of ``bt``."""
+    n = x.shape[0]
+    if bt <= 0 or bt % 32 or n % bt:
+        raise ValueError(f"the sparse kernels need n ({n}) a multiple of bt ({bt}) "
+                         "and bt a multiple of 32")
+    t = n // bt
     for name, shape in (("up_rows", (t * (t - 1) // 2,)), ("up_cols", (t * (t - 1) // 2,)),
                         ("n_up", ())):
         v = getattr(pairs, name, None)
@@ -210,19 +184,21 @@ def _check_upper(x: torch.Tensor, pairs, bt: int) -> None:
 def neighbor_count_sparse(x: torch.Tensor, mask: torch.Tensor, eps, pairs,
                           *, bt: int) -> torch.Tensor:
     """``neighbor_count`` over the active tile pairs of spatially sorted
-    points (n a multiple of ``bt``); ``pairs``: an ``ops.TilePairs``."""
+    points (n a multiple of ``bt``); ``pairs``: an ``ops.TilePairs``.  The
+    kernel walks the diagonal tiles and the upper list (``pairs.up_rows``,
+    ...) and tests each unordered pair once; bit for bit
+    ``ref.neighbor_count_sparse`` on every input."""
     if _device_kind(x) == "cpu":
         return ref.neighbor_count_sparse(x, mask, eps, pairs.rows, pairs.cols,
                                          pairs.flags, bt)
     n = _check_points(x, (mask, torch.bool))
-    rpb, s = _check_tile_pairs(x, pairs, bt)
-    out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    part = torch.empty((s, n), dtype=torch.int32, device=x.device) if s > 1 else None
-    lib = _lib()
-    _launch(x, lib.neighbor_count_sparse_launch, "neighbor_count_sparse",
-            x.data_ptr(), mask.data_ptr(), pairs.row_ptr.data_ptr(),
-            pairs.cols.data_ptr(), n, bt, rpb, ref.eps_sq_f32(eps), s,
-            None if part is None else part.data_ptr(), out.data_ptr())
+    _check_sparse(x, pairs, bt)
+    out = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    if n:
+        _launch(x, _sym_lib().neighbor_count_sparse_launch, "neighbor_count_sparse",
+                x.data_ptr(), mask.data_ptr(), pairs.up_rows.data_ptr(),
+                pairs.up_cols.data_ptr(), pairs.n_up.data_ptr(), n, bt, sym_tile(bt),
+                ref.eps_sq_f32(eps), out.data_ptr())
     return out
 
 
@@ -237,8 +213,7 @@ def min_label_sweep_sparse(x: torch.Tensor, mask: torch.Tensor, labels: torch.Te
         return ref.min_label_sweep_sparse(x, mask, labels, core, eps, pairs.rows,
                                           pairs.cols, pairs.flags, bt)
     n = _check_points(x, (mask, torch.bool), (labels, torch.int32), (core, torch.bool))
-    _check_tile_pairs(x, pairs, bt)
-    _check_upper(x, pairs, bt)
+    _check_sparse(x, pairs, bt)
     out = torch.full((n,), ref.SENTINEL, dtype=torch.int32, device=x.device)
     if n:
         _launch(x, _sym_lib().min_label_sweep_sparse_launch, "min_label_sweep_sparse",

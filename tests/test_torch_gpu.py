@@ -60,6 +60,31 @@ def test_neighbor_count(cuda, n, eps):
     torch.testing.assert_close(got, ref.neighbor_count(x, mask, eps), rtol=0, atol=0)
 
 
+# n = 1, ragged n, all rows masked, duplicate points, 32,768 points, and
+# coordinates beyond the fold's bound at an infinite eps².
+SYM_COUNT_CASES = [(1, 0.1, "normal"), (255, 0.3, "normal"), (1000, 0.1, "all_masked"),
+                   (2048, 0.05, "duplicates"), (4097, 0.05, "normal"),
+                   (32768, 0.02, "normal"), (3000, 1e20, "overflow")]
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered")
+@pytest.mark.parametrize("n,eps,kind", SYM_COUNT_CASES)
+def test_neighbor_count_symmetric_kernel(cuda, n, eps, kind):
+    """csrc/pair_sweep.cu's dense count: one launch counted, two launches
+    bit-identical, equal to the plain version on every input."""
+    x, mask, _, _ = _sweep_inputs(n, n + 9, kind, cuda)
+    ops.reset_launch_counts()
+    got = pairwise_dist.neighbor_count(x, mask, eps)
+    assert pairwise_dist.launches["neighbor_count"] == 1
+    assert torch.equal(got, pairwise_dist.neighbor_count(x, mask, eps))
+    assert pairwise_dist.launches["neighbor_count"] == 2
+    assert torch.equal(got, ref.neighbor_count(x, mask, eps))
+    if kind == "all_masked":
+        assert not bool(got.any())
+    if kind == "overflow":  # the point beyond 2^62 does not count itself (d2 NaN)
+        assert int(got[3]) == int(mask.sum()) - 1
+
+
 @pytest.mark.parametrize("n,eps", [(1, 0.1), (255, 0.3), (1000, 0.1), (4097, 0.05),
                                    (32768, 0.02)])
 def test_min_label_sweep(cuda, n, eps):
@@ -178,6 +203,43 @@ def test_neighbor_count_sparse(cuda, layout, n, bt, eps, empty_tile):
     assert torch.equal(got, ref.neighbor_count(sp, sm, eps))
 
 
+# Every SPARSE_CASES tiling, then sub-tiles of 32 (bt 96), all rows masked,
+# and duplicate points.
+SYM_COUNT_SPARSE_CASES = [(*case, "normal") for case in SPARSE_CASES] + [
+    ("clustered", 2048, 96, 0.05, False, "normal"),
+    ("clustered", 4096, 128, 0.03, False, "all_masked"),
+    ("clustered", 4096, 512, 0.01, True, "duplicates")]
+
+
+@pytest.mark.parametrize("layout,n,bt,eps,empty_tile,kind", SYM_COUNT_SPARSE_CASES)
+def test_neighbor_count_sparse_symmetric_kernel(cuda, layout, n, bt, eps, empty_tile, kind):
+    """csrc/pair_sweep.cu's sparse count over the diagonal and the upper
+    list: as the dense test, against the plain sparse version and the
+    dense count."""
+    if kind == "duplicates":
+        rng = np.random.default_rng(n)
+        pts = torch.as_tensor(spatial.make_clustered(n // 16, seed=n).repeat(16, axis=0),
+                              device=cuda)
+        m = torch.as_tensor(rng.random(n) > 0.2, device=cuda)
+        sp, sm, _ = dbscan.spatial_sort(dbscan.center_points(pts, m), m, bt)
+        sp, sm = sp.contiguous(), sm.contiguous()
+    else:
+        sp, sm = _sorted_on_card(layout, n, bt, n + bt + 3, cuda, empty_tile)
+    if kind == "all_masked":
+        sm = torch.zeros_like(sm)
+    pairs = ops.build_tile_pairs(sp, sm, eps, bt=bt)
+    ops.reset_launch_counts()
+    got = pairwise_dist.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt)
+    assert pairwise_dist.launches["neighbor_count_sparse"] == 1
+    assert torch.equal(got, pairwise_dist.neighbor_count_sparse(sp, sm, eps, pairs, bt=bt))
+    assert pairwise_dist.launches["neighbor_count_sparse"] == 2
+    want = ref.neighbor_count_sparse(sp, sm, eps, pairs.rows, pairs.cols, pairs.flags, bt)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.neighbor_count(sp, sm, eps))
+    if kind == "all_masked":
+        assert not bool(got.any())
+
+
 @pytest.mark.parametrize("layout,n,bt,eps,empty_tile", SPARSE_CASES)
 def test_min_label_sweep_sparse(cuda, layout, n, bt, eps, empty_tile):
     sp, sm = _sorted_on_card(layout, n, bt, n + bt + 1, cuda, empty_tile)
@@ -201,7 +263,8 @@ def _sweep_inputs(n, seed, kind, cuda):
     core points labelled above 2^30: their items take the exact path);
     "all_big" (every point so: with a wide eps every row's result is a
     label above 2^30); "overflow" (points up to |x| ≈ 4e17, one at 1.35e19
-    whose |x|² overflows when doubled: its items take the exact path)."""
+    whose |x|² overflows when doubled: its items take the exact path);
+    "duplicates" (16 copies of each point)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, 2)).astype(np.float32)
     mask = rng.random(n) > (1.1 if kind == "all_masked" else 0.3)
@@ -215,6 +278,8 @@ def _sweep_inputs(n, seed, kind, cuda):
         labels[:256], mask[:256], core[:256] = big[:256], True, True
     elif kind == "all_big":
         labels, mask[:], core[:] = big, True, True
+    elif kind == "duplicates":
+        x = x[:n // 16].repeat(16, axis=0)
     elif kind == "overflow":
         x = (x * np.float32(1e17)).astype(np.float32)
         x[min(3, n - 1)] = (1.35e19, 0.0)
@@ -234,7 +299,7 @@ SYM_DENSE_CASES = [(1, 0.1, "normal"), (255, 0.3, "normal"), (1000, 0.1, "all_ma
 @pytest.mark.filterwarnings("ignore:overflow encountered")
 @pytest.mark.parametrize("n,eps,kind", SYM_DENSE_CASES)
 def test_min_label_sweep_symmetric_kernel(cuda, n, eps, kind):
-    """csrc/min_label.cu's dense sweep: one launch counted, two launches
+    """csrc/pair_sweep.cu's dense sweep: one launch counted, two launches
     bit-identical, equal to the plain version on every input."""
     x, mask, labels, core = _sweep_inputs(n, n + 5, kind, cuda)
     ops.reset_launch_counts()
@@ -261,7 +326,7 @@ SYM_SPARSE_CASES = [(*case, "normal") for case in SPARSE_CASES] + [
 
 @pytest.mark.parametrize("layout,n,bt,eps,empty_tile,kind", SYM_SPARSE_CASES)
 def test_min_label_sweep_sparse_symmetric_kernel(cuda, layout, n, bt, eps, empty_tile, kind):
-    """csrc/min_label.cu's sparse sweep over the diagonal and the upper
+    """csrc/pair_sweep.cu's sparse sweep over the diagonal and the upper
     list: as the dense test, against the plain sparse version and the
     dense one capped at 2^30."""
     sp, sm = _sorted_on_card(layout, n, bt, n + bt + 2, cuda, empty_tile)
@@ -311,6 +376,22 @@ def test_sparse_sweep_needs_the_upper_list(cuda):
     assert pairwise_dist.launches["min_label_sweep_sparse"] == 0
 
 
+def test_sparse_count_needs_the_upper_list(cuda):
+    """The count reads the upper list too: without it, or with another
+    tiling's, it raises ``ValueError`` and nothing launches."""
+    sp, sm = _sorted_on_card("clustered", 1024, 64, 3, cuda)
+    pairs = ops.build_tile_pairs(sp, sm, 0.02, bt=64)
+    old = types.SimpleNamespace(**{f: getattr(pairs, f) for f in (
+        "rows", "cols", "flags", "n_active", "frac", "row_ptr")})
+    ops.reset_launch_counts()
+    for bad in (old, pairs._replace(up_rows=pairs.up_rows[:-1]),
+                pairs._replace(n_up=pairs.n_up.long()),
+                pairs._replace(up_cols=pairs.up_cols.cpu())):
+        with pytest.raises(ValueError):
+            pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, bad, bt=64)
+    assert pairwise_dist.launches["neighbor_count_sparse"] == 0
+
+
 def test_sparse_kernels_reject_bad_inputs(cuda):
     sp, sm = _sorted_on_card("clustered", 1024, 64, 3, cuda)
     pairs = ops.build_tile_pairs(sp, sm, 0.02, bt=64)
@@ -325,7 +406,7 @@ def test_sparse_kernels_reject_bad_inputs(cuda):
         pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, pairs, bt=128)
     with pytest.raises(ValueError):  # wrong dtypes
         pairwise_dist.neighbor_count_sparse(sp, sm, 0.02, pairs._replace(
-            row_ptr=pairs.row_ptr.long()), bt=64)
+            up_rows=pairs.up_rows.long()), bt=64)
     with pytest.raises(ValueError):
         pairwise_dist.min_label_sweep_sparse(sp, sm, lab.long(), sm, 0.02, pairs, bt=64)
     with pytest.raises(ValueError):

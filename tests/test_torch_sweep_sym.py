@@ -1,5 +1,5 @@
 """The arithmetic of the min-label sweep kernels that test each unordered
-pair once (``src/repro_torch/kernels/csrc/min_label.cu``: B2
+pair once (``src/repro_torch/kernels/csrc/pair_sweep.cu``: B2
 ``min_label_sweep`` and B4 ``min_label_sweep_sparse``), held on the CPU,
 where no kernel runs.
 
@@ -35,7 +35,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 
 SENT = tref.SENTINEL
 NONE = pairwise_dist.INT32_MAX
-FOLD_BOUND = np.float32(2.0 ** 62)  # min_label.cu kFoldBound
+FOLD_BOUND = np.float32(2.0 ** 62)  # pair_sweep.cu kFoldBound
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,7 +210,7 @@ def test_fold_differs_beyond_the_bound():
 # -- (4) an emulation of the kernels' schedule -----------------------------------------
 
 def unordered_pair(q: int, m: int) -> tuple[int, int]:
-    """min_label.cu's unordered_pair: q in [0, m(m+1)/2) -> {a <= b}."""
+    """pair_sweep.cu's unordered_pair: q in [0, m(m+1)/2) -> {a <= b}."""
     c, r = divmod(q, m)
     s = (r + c) % m
     return min(r, s), max(r, s)
@@ -249,7 +249,7 @@ def weights(mask, labels, core):
 
 
 def fast_item(x, w, ia, ib) -> bool:
-    """min_label.cu's per-item choice: every coordinate of both tiles within
+    """pair_sweep.cu's per-item choice: every coordinate of both tiles within
     2^62 (not NaN), and a point of w <= 2^30 in each tile."""
     pts = torch.cat([x[ia], x[ib]])
     return bool((pts.abs() <= float(FOLD_BOUND)).all()) and bool((w[ia] <= SENT).any()) \
