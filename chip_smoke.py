@@ -71,13 +71,25 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
      max_verts 2,048, which no contour fills;
    - K-Means (``local_algo="kmeans"``, k 8, 25 Lloyd steps, async merge):
      208 ``pairwise_dist_sq`` launches, and every lane's labels, centroids
-     and inertia equal to the plain run's, both seeded alike.
+     and inertia equal to the plain run's, both seeded alike;
+   - the delta merge (``merge_delta``, the stream engine's phase 2): the
+     default path's batch with lanes ``DELTA_DIRTY`` replaced by a second
+     full-width local phase's (``make_d2`` at ``DELTA_SEED``) and folded
+     into the old batch's cached matrix by one rectangular
+     ``cross_min_d2``; it, one dirty lane and an exclude case must equal
+     the rebuild (matrix bit for bit, maps, merged set) and the plain run,
+     the square and rectangular rebuilds bit-identical; device times of the
+     patches and the rebuilds (``delta_full_width`` line).
    Each kernel is then held against its plain version on the main paths'
    own inputs and timed with CUDA events (``pairwise_dist_sq`` also
    beside ``torch.cdist``; the two counts and the two sweeps, which test
    each unordered pair once (``csrc/pair_sweep.cu``), with their work
-   items and two launches bit-identical): one JSON line ``{"kernels":
-   [...]}`` that also lists the LM phase's three kernels.  One more
+   items; ``contour_min_d2`` with its work items (each unordered pair of
+   distinct valid slots once) and ``cross_min_d2`` on the delta merge's 96 dirty
+   rows; each of these with two launches bit-identical), beside the launch
+   floor (an empty kernel timed the same way, ``launch_floor`` line, each
+   entry's ``floor_ms``): one JSON line ``{"kernels": [...]}`` that also
+   lists the LM phase's three kernels.  One more
    default-path run, one more dense run and one more K-Means run under
    torch.profiler give the device time by kernel and the device's busy
    share (``profile``, ``profile_dense``, ``profile_kmeans``); the default
@@ -125,9 +137,16 @@ PARITY_RUNS = (("sync", "never"), ("sync", "auto"), ("async", "never"), ("tree",
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 NC_OPS_PER_PAIR = 6   # mul, mul, add (dot); add (xx+yy); mul by 2; sub
-CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, mul, add
+CMD2_OPS_PER_PAIR = 5  # sub, sub, mul, fma (two)
 PD_OPS_PER_PAIR = 6    # as NC_OPS_PER_PAIR; the clip at 0 is a select
 BENCH_SWEEP_NS = (4096, 16384)  # BENCH_phase1.json rows with cluster counts
+# The delta merge at full width: the default path's batch with these lanes
+# replaced by a second local phase's (make_d2 at DELTA_SEED), and the lane
+# its exclude case quarantines.
+DELTA_DIRTY = (1, 3, 6)
+DELTA_ONE = 3
+DELTA_EXCLUDE = 5
+DELTA_SEED = 2
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
 # The LM phase: three full-width models, each with the LM kernel whose
 # first-layer inputs its run captures for the per-kernel check.
@@ -417,10 +436,120 @@ def sweep_extra(torch, name, items, tile, bound_tests, kern) -> dict:
     sweeps of csrc/pair_sweep.cu): two launches bit-identical, its work
     items and the pair tests they make (items of tile² tests), beside the
     unordered pair tests its bound counts."""
+    return {**two_launches(torch, name, kern), "work_items": items, "tile": tile,
+            "kernel_tests": items * tile * tile, "bound_tests": bound_tests}
+
+
+def two_launches(torch, name, kern) -> dict:
+    """Two launches on the main path's inputs must be bit-identical."""
     if not same(torch, kern(), kern()):
         raise RuntimeError(f"{name}: two launches on the main path's inputs differ")
-    return {"two_launches_identical": True, "work_items": items, "tile": tile,
-            "kernel_tests": items * tile * tile, "bound_tests": bound_tests}
+    return {"two_launches_identical": True}
+
+
+def slot_counts(torch, counts, valid, v):
+    """Real vertices per slot (0 for an invalid slot), as the kernel reads them."""
+    return torch.where(valid, counts.clamp(0, v), 0).to(torch.int64)
+
+
+def contour_extra(torch, name, counts, valid, v, kern) -> dict:
+    """What B5's square entry adds: two launches identical, its work items
+    (each unordered pair of distinct valid slots once; a valid slot's own
+    entry is 0 with no test), the vertex-pair tests they make and the real
+    vertices of the valid slots, which are also what its bound counts."""
+    c = slot_counts(torch, counts, valid, v)
+    c = c[c > 0]
+    nv, total, sq = int(c.numel()), int(c.sum()), int((c * c).sum())
+    return {**two_launches(torch, name, kern), "valid_slots": nv, "valid_vertices": total,
+            "work_items": nv * (nv - 1) // 2, "bound_tests": (total * total - sq) // 2}
+
+
+def replace_lanes(ddc, batch, other, lanes):
+    """``batch`` with the ClusterSets of ``lanes`` taken from ``other``."""
+    return ddc.stack_clustersets([ddc.lane_set(other if i in lanes else batch, i)
+                                  for i in range(batch.valid.shape[0])])
+
+
+def delta_equal(torch, a, b) -> bool:
+    """Two merge_delta results: the matrix bit for bit, the maps and every
+    field of the merged ClusterSet equal."""
+    (ma, pa, da), (mb, pb, db) = a, b
+    return same(torch, da, db) and same(torch, pa, pb) and all(
+        same(torch, x, y) for x, y in zip(ma, mb))
+
+
+def delta_full_width(torch, ddc, ops, cfg, batch, pts2, mask):
+    """The delta merge (``merge_delta``, the stream engine's phase 2) at full
+    width: the default path's batch with lanes ``DELTA_DIRTY`` replaced by
+    the ClusterSets of a second full-width local phase on other points
+    (``pts2``, the same ``DDCConfig``), folded into the old batch's cached
+    matrix.  The counted run patches the three lanes (launch counts zeroed
+    just before, read just after: one ``cross_min_d2``); it, one dirty lane
+    (``update_pair_d2``) and an exclude case must each equal the rebuild
+    (``pair_d2=None``) in the matrix bit for bit, the maps and the merged
+    set, and the same path on the plain versions; the square and the
+    rectangular rebuilds must be bit-identical.  Device times of the
+    patches and the rebuilds.  Returns (the line, the three-lane batch, the
+    counted run's launches)."""
+    t2: dict = {}
+    ddc.make_ddc_fn(cfg, LANES, device="cuda")(pts2, mask, t2)
+    other = t2["batch"]
+    new3 = replace_lanes(ddc, batch, other, DELTA_DIRTY)
+    new1 = replace_lanes(ddc, batch, other, (DELTA_ONE,))
+    cached = ddc.contour_pair_d2(batch, cfg)
+    exclude = torch.zeros(LANES, dtype=torch.bool, device="cuda")
+    exclude[DELTA_EXCLUDE] = True
+    dirty3 = list(DELTA_DIRTY)
+    ddc.merge_delta(new3, cached.clone(), dirty3, cfg)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    patched = ddc.merge_delta(new3, cached.clone(), dirty3, cfg)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["cross_min_d2"] != 1 or launches["contour_min_d2"] != 0:
+        raise RuntimeError(f"the delta merge launched {launches}, expected one cross_min_d2")
+    cases = {"three_dirty": (new3, dirty3, None), "one_dirty": (new1, [DELTA_ONE], None),
+             "exclude": (new3, dirty3, exclude)}
+    out = {}
+    for name, (b, dirty, ex) in cases.items():
+        got = patched if name == "three_dirty" else ddc.merge_delta(b, cached.clone(), dirty,
+                                                                     cfg, ex)
+        rebuild = ddc.merge_delta(b, None, None, cfg, ex)
+        ops.FORCE = "ref"
+        try:
+            plain = ddc.merge_delta(b, cached.clone(), dirty, cfg, ex)
+        finally:
+            ops.FORCE = None
+        torch.cuda.synchronize()
+        changed = int((got[2] != cached).sum())
+        if not delta_equal(torch, got, rebuild) or not delta_equal(torch, got, plain) \
+                or changed == 0:
+            raise RuntimeError(f"delta_full_width {name}: the patched merge differs from the "
+                               f"rebuild or from the plain run ({changed} entries changed)")
+        out[name] = {"dirty": dirty, "exclude": None if ex is None else [DELTA_EXCLUDE],
+                     "entries_changed": changed, "n_clusters": int(got[0].valid.sum()),
+                     "maps_excluded_all_minus_one": None if ex is None else bool(
+                         (got[1][DELTA_EXCLUDE] == -1).all()),
+                     "equals_rebuild": True, "equals_plain": True}
+    square = ddc.contour_pair_d2(new3, cfg)
+    if not same(torch, square, ddc.contour_pair_d2_exact(new3, cfg)) \
+            or not same(torch, ddc.merge_many(new3, cfg)[1], patched[1]):
+        raise RuntimeError("delta_full_width: the square and rectangular matrices differ")
+    dev_dirty = torch.tensor(dirty3, dtype=torch.int64, device="cuda")
+    work = cached.clone()
+    times = {
+        "patch_three_ms": median_ms(
+            torch, lambda: ddc.update_pair_d2_many(work, new3, dev_dirty, cfg), 20, per=10),
+        "patch_one_ms": median_ms(
+            torch, lambda: ddc.update_pair_d2(work, new1, DELTA_ONE, cfg), 20, per=10),
+        "rebuild_rectangular_ms": median_ms(
+            torch, lambda: ddc.contour_pair_d2_exact(new3, cfg), 20, per=10),
+        "rebuild_square_ms": median_ms(
+            torch, lambda: ddc.contour_pair_d2(new3, cfg), 20, per=10)}
+    line = {"lanes": LANES, "slots": int(new3.valid.numel()), "second_seed": DELTA_SEED,
+            "launches": launches, **out, "square_equals_rectangular": True,
+            "valid_slots": int(new3.valid.sum()), **times}
+    return line, new3, launches
 
 
 def phase1_bench(torch, np, dbscan, ops, spatial, dev) -> list[dict]:
@@ -1159,6 +1288,7 @@ def main() -> int:
     from repro_torch.data import spatial
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_floor
     from repro_torch.kernels import pairwise_dist as pd_mod
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -1308,6 +1438,12 @@ def main() -> int:
         "n_clusters": n_global_km, "bit_identical_to_plain": True,
         "two_runs_identical": True}}), flush=True)
 
+    # The delta merge at full width (A4: the stream engine's phase 2 on the
+    # rectangular form of B5).
+    delta_line, batch3, launches_delta = delta_full_width(
+        torch, ddc, ops, cfg, ts["batch"], spatial.make_d2(FULL_N, seed=DELTA_SEED), mask)
+    print(json.dumps({"delta_full_width": delta_line}), flush=True)
+
     # Each kernel against its plain version on the main path's inputs
     # (lane 0 for phase 1, the stacked batch for phase 2).
     per = FULL_N // LANES
@@ -1347,7 +1483,25 @@ def main() -> int:
     sym_dense_tests = n_valid * (n_valid + 1) // 2
     cents0 = tkm["results"][0].centroids.contiguous()
     k_cents = cents0.shape[0]
-    p_valid = int(torch.where(valids, cnts.clamp(0, v), 0).sum())
+    # B5's square entry counts the vertex pairs of each unordered pair of
+    # distinct valid slots once (one test serves (i, j) and (j, i)); the
+    # rectangular one, the delta merge's 96 dirty rows (three lanes) against
+    # every slot, each row-column pair.  Their bytes: every slot's count and
+    # flag, the valid slots' real vertices (no function needs the padding
+    # or an empty slot's contour) and the dense output, each once.
+    sq_extra = contour_extra(torch, "contour_min_d2", cnts, valids, v,
+                             lambda: ops.contour_min_d2(conts, cnts, valids))
+    rows_idx = torch.cat([torch.arange(i * c, (i + 1) * c, device=dev) for i in DELTA_DIRTY])
+    b_conts = batch3.contours.reshape(mslots, v, 2).contiguous()
+    b_cnts = batch3.counts.reshape(mslots).contiguous()
+    b_valids = batch3.valid.reshape(mslots).contiguous()
+    r_conts, r_cnts, r_valids = (t[rows_idx].contiguous() for t in (b_conts, b_cnts, b_valids))
+    r_tot = int(slot_counts(torch, r_cnts, r_valids, v).sum())
+    b_tot = int(slot_counts(torch, b_cnts, b_valids, v).sum())
+    nrows = rows_idx.numel()
+    if not same(torch, ops.cross_min_d2(r_conts, r_cnts, r_valids, b_conts, b_cnts, b_valids),
+                ops.contour_min_d2(b_conts, b_cnts, b_valids)[rows_idx]):
+        raise RuntimeError("cross_min_d2: the rectangular rows differ from the square matrix's")
     sym_src, pd = "pair_sweep.cu", "src/repro/kernels/pairwise_dist.py"
     cases = [
         ("neighbor_count", sym_src, f"{pd}:91", [per],
@@ -1373,8 +1527,16 @@ def main() -> int:
         ("contour_min_d2", "contour_dist.cu", "src/repro/kernels/contour_dist.py:52",
          [mslots, v], lambda: ops.contour_min_d2(conts, cnts, valids),
          lambda: ref.contour_min_d2(conts, cnts, valids),
-         bound(p_valid ** 2 * CMD2_OPS_PER_PAIR,
-               mslots * v * 8 + mslots * (4 + 1) + mslots * mslots * 4), launches_s, "sparse"),
+         bound(sq_extra["bound_tests"] * CMD2_OPS_PER_PAIR,
+               sq_extra["valid_vertices"] * 8 + mslots * (4 + 1) + mslots * mslots * 4),
+         launches_s, "sparse"),
+        ("cross_min_d2", "contour_dist.cu", "src/repro/kernels/contour_dist.py:52",
+         [nrows, mslots, v],
+         lambda: ops.cross_min_d2(r_conts, r_cnts, r_valids, b_conts, b_cnts, b_valids),
+         lambda: ref.cross_min_d2(r_conts, r_cnts, r_valids, b_conts, b_cnts, b_valids),
+         bound(r_tot * b_tot * CMD2_OPS_PER_PAIR,
+               (r_tot + b_tot) * 8 + (nrows + mslots) * (4 + 1) + nrows * mslots * 4),
+         launches_delta, "delta"),
         ("pairwise_dist_sq", "pairwise_dist.cu", f"{pd}:48", [per, cfg_km.kmeans_k],
          lambda: ops.pairwise_dist_sq(x0, cents0), lambda: ref.pairwise_dist_sq(x0, cents0),
          bound(per * k_cents * PD_OPS_PER_PAIR, per * 8 + k_cents * 8 + per * k_cents * 4),
@@ -1396,12 +1558,30 @@ def main() -> int:
         "min_label_sweep_sparse": sweep_extra(
             torch, "min_label_sweep_sparse", pd_mod.sym_work_items(npad, pairs, bt=bt),
             pd_mod.sym_tile(bt), sym_sparse_tests,
-            lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt))}
+            lambda: ops.min_label_sweep_sparse(sp, sm, lab_s, core_s, eps, pairs, bt=bt)),
+        "contour_min_d2": sq_extra,
+        "cross_min_d2": {
+            **two_launches(torch, "cross_min_d2", lambda: ops.cross_min_d2(
+                r_conts, r_cnts, r_valids, b_conts, b_cnts, b_valids)),
+            "dirty_lanes": list(DELTA_DIRTY), "bound_tests": r_tot * b_tot,
+            "valid_vertices": [r_tot, b_tot],
+            "replaces_also": "src/repro/core/ddc.py:226 (cross_min_d2)",
+            "rows_equal_square_rows": True},
+        "pairwise_dist_sq": two_launches(torch, "pairwise_dist_sq",
+                                         lambda: ops.pairwise_dist_sq(x0, cents0))}
     kernels = [kernel_entry(torch, name, src, replaces, shape, kern, plain, b_ms, b_by,
                             launches[name], path, libraries.get(name),
                             extra=sweeps.get(name))
                for name, src, replaces, shape, kern, plain, (b_ms, b_by), launches, path
                in cases]
+    # The launch floor: an empty kernel, timed as every kernel above.
+    floor_ms = median_ms(torch, lambda: launch_floor.empty(dev), 20, per=10)
+    print(json.dumps({"launch_floor": {"ms": floor_ms, "source":
+                                       "src/repro_torch/kernels/csrc/launch_floor.cu",
+                                       "timing": "10 calls queued behind a spin kernel, "
+                                                 "median of 20 batches"}}), flush=True)
+    for entry in kernels + lm_kernels:
+        entry["floor_ms"] = floor_ms
     print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
     # One more default-path run, dense run and K-Means run under the
     # profiler, against the unprofiled runs' wall time.

@@ -8,7 +8,11 @@ proximity into global clusters.  A merge folds a stacked batch of
 ClusterSets (``merge_many``): the slot×slot min-distance matrix comes
 from one kernel call, the overlap graph's components from pointer-doubled
 label propagation, and merged contours are re-extracted on the global
-raster (or subsampled, ``merge_refine="fps"``).
+raster (or subsampled, ``merge_refine="fps"``).  The delta merge
+(``merge_delta``) patches a cached matrix in the dirty shards' rows and
+columns (``update_pair_d2``, ``update_pair_d2_many``, on the kernel's
+rectangular form ``cross_min_d2``) and gives the rebuild's result bit for
+bit.
 
 ``make_ddc_fn`` is the one-device form of the reference's distributed
 entry point: the K shard lanes run one after another on one device, and
@@ -235,16 +239,76 @@ def _components(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
             return labels
 
 
+def _flat_slots(batch: ClusterSet, cfg: DDCConfig):
+    m = batch.valid.shape[0] * cfg.max_clusters
+    return (batch.contours.reshape(m, cfg.max_verts, 2), batch.counts.reshape(m),
+            batch.valid.reshape(m))
+
+
 def contour_pair_d2(batch: ClusterSet, cfg: DDCConfig) -> torch.Tensor:
     """The (K·C, K·C) slot×slot min-contour-distance matrix of a stacked
     batch — one kernel call (``ops.contour_min_d2``)."""
-    c, v = cfg.max_clusters, cfg.max_verts
-    m = batch.valid.shape[0] * c
-    return ops.contour_min_d2(
-        batch.contours.reshape(m, v, 2).contiguous(),
-        batch.counts.reshape(m).contiguous(),
-        batch.valid.reshape(m).contiguous(),
-    )
+    contours, counts, valid = _flat_slots(batch, cfg)
+    return ops.contour_min_d2(contours.contiguous(), counts.contiguous(),
+                              valid.contiguous())
+
+
+def cross_min_d2(ca: torch.Tensor, cnta: torch.Tensor, va: torch.Tensor,
+                 cb: torch.Tensor, cntb: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """Rectangular min squared distance between two padded contour
+    buffers: (A, V, 2) × (B, V, 2) → (A, B), 1e30 where either slot is
+    empty — one kernel call (``ops.cross_min_d2``).  A row is bit for bit
+    the same slot's row of ``contour_pair_d2``: the delta merge's exactness
+    rests on it (DESIGN.md §8)."""
+    return ops.cross_min_d2(ca.contiguous(), cnta.contiguous(), va.contiguous(),
+                            cb.contiguous(), cntb.contiguous(), vb.contiguous())
+
+
+def contour_pair_d2_exact(batch: ClusterSet, cfg: DDCConfig) -> torch.Tensor:
+    """``contour_pair_d2`` through the rectangular form (``cross_min_d2``
+    of the batch with itself), kept for the reference's API.  The two
+    forms compute one expression, so they are bit-identical; the square
+    one tests each unordered pair once and is the faster rebuild."""
+    contours, counts, valid = _flat_slots(batch, cfg)
+    return cross_min_d2(contours, counts, valid, contours, counts, valid)
+
+
+def update_pair_d2(pair_d2: torch.Tensor, batch: ClusterSet, shard: int,
+                   cfg: DDCConfig) -> torch.Tensor:
+    """Refresh one shard's rows and columns of a cached slot×slot matrix
+    after that shard's ClusterSet changed: O(C·M·V²) work instead of the
+    full rebuild.  d2 is symmetric bit for bit, so the fresh rows mirrored
+    into the columns leave the matrix equal to a rebuild.  Updates
+    ``pair_d2`` in place (the reference donates it) and returns it."""
+    c = cfg.max_clusters
+    contours, counts, valid = _flat_slots(batch, cfg)
+    row0 = int(shard) * c
+    rows = cross_min_d2(contours[row0:row0 + c], counts[row0:row0 + c],
+                        valid[row0:row0 + c], contours, counts, valid)      # (C, M)
+    pair_d2[row0:row0 + c] = rows
+    pair_d2[:, row0:row0 + c] = rows.T
+    return pair_d2
+
+
+def update_pair_d2_many(pair_d2: torch.Tensor, batch: ClusterSet, shards,
+                        cfg: DDCConfig) -> torch.Tensor:
+    """Batched ``update_pair_d2``: the rows and columns of every shard in
+    ``shards`` (a sequence or an int tensor) from one rectangular
+    ``cross_min_d2`` over their C rows each.  A repeated shard writes the
+    same values twice, so the result does not depend on repeats or order
+    (the reference pads its list to a power of two by repeating an entry;
+    nothing here compiles per length, so nothing is padded).  Updates
+    ``pair_d2`` in place and returns it."""
+    c = cfg.max_clusters
+    contours, counts, valid = _flat_slots(batch, cfg)
+    dev = pair_d2.device
+    shards = torch.as_tensor(shards, dtype=torch.int64, device=dev).reshape(-1)
+    rows_idx = (shards[:, None] * c + torch.arange(c, device=dev)[None, :]).reshape(-1)
+    rows = cross_min_d2(contours[rows_idx], counts[rows_idx], valid[rows_idx],
+                        contours, counts, valid)                            # (mC, M)
+    pair_d2[rows_idx] = rows
+    pair_d2[:, rows_idx] = rows.T
+    return pair_d2
 
 
 def merge_from_d2(batch: ClusterSet, pair_d2: torch.Tensor, cfg: DDCConfig,
@@ -312,6 +376,38 @@ def merge_from_d2(batch: ClusterSet, pair_d2: torch.Tensor, cfg: DDCConfig,
         overflow=overflow,
     )
     return merged, slot_of_old.reshape(k, c)
+
+
+def merge_delta(batch: ClusterSet, pair_d2: torch.Tensor | None, dirty, cfg: DDCConfig,
+                exclude: torch.Tensor | None = None
+                ) -> Tuple[ClusterSet, torch.Tensor, torch.Tensor]:
+    """The aggregator side of a delta exchange: fold the dirty shards'
+    fresh ClusterSets (already written into ``batch``) into a cached
+    slot-distance matrix and re-close the merge.  With a cached
+    ``pair_d2`` and a ``dirty`` list, one dirty shard patches through
+    ``update_pair_d2`` and several through one ``update_pair_d2_many``
+    (in place); with ``pair_d2=None`` or ``dirty=None`` the matrix is
+    rebuilt by the square form (``contour_pair_d2``: each unordered pair
+    of valid slots tested once, faster than the rectangular
+    ``contour_pair_d2_exact``, the same bits).  Both give the
+    bit-identical matrix, so the fold below gives the same global set and
+    maps.
+    ``exclude`` ((K,) bool) masks quarantined shards out of the fold
+    (``merge_from_d2``) and leaves their cached rows as they are.  The
+    patch is the reference's interface: on an H100 at 256 slots its
+    gathers and scatters around one B5 launch cost more device time than
+    the rebuild (PERF.md §5).
+    Returns (global ClusterSet, maps (K, C), pair_d2)."""
+    if pair_d2 is None or dirty is None:
+        pair_d2 = contour_pair_d2(batch, cfg)
+    else:
+        dirty = [int(i) for i in dirty]
+        if len(dirty) == 1:
+            pair_d2 = update_pair_d2(pair_d2, batch, dirty[0], cfg)
+        elif len(dirty) > 1:
+            pair_d2 = update_pair_d2_many(pair_d2, batch, dirty, cfg)
+    merged, maps = merge_from_d2(batch, pair_d2, cfg, exclude)
+    return merged, maps, pair_d2
 
 
 def merge_many(batch: ClusterSet, cfg: DDCConfig) -> Tuple[ClusterSet, torch.Tensor]:

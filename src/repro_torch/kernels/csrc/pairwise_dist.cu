@@ -9,10 +9,17 @@
 //
 // What bounds it: the bytes it writes.  It writes its whole (n, m) output,
 // at m = k = 8 centres on K-Means' path: 4 bytes a pair against about six
-// fp32 operations.  One thread owns one output element; a block covers
-// whole rows of at most kThreads columns, with those columns' (y0, y1,
-// |y|^2) staged once in shared memory, so that a warp writes consecutive
-// addresses.
+// fp32 operations; at n 32,768 that is 1 MB, under half a microsecond of
+// memory time, so one launch is latency-bound, and the cost over an empty
+// launch is mostly the stores.  A warp owns 32 consecutive rows, whose
+// distances are contiguous in the output, and writes them in order: lane L
+// takes the same four columns of rows L / (m / 4), + 32 / (m / 4), ... (m
+// 4, 8, ..., 128; other m store single floats, element L, L + 32, ...), so
+// every store instruction of the warp writes 512 contiguous bytes (128
+// with single floats).  A lane loads its rows' x before its four centres,
+// so that every load is in flight at once, and keeps the centres and their
+// |y|^2 in registers; |x|^2 is recomputed by the m / 4 lanes of a row (two
+// at k 8).  256 rows a block: at n 32,768 that is 128 blocks, one wave.
 //
 // Exactness: the pair test is the same float32 expression as the plain
 // version (repro_torch/kernels/ref.py::_d2_rows) and as the jitted
@@ -27,56 +34,79 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block, and most columns per block
+constexpr int kRows = 256;  // rows per block: 8 warps of 32 rows
 
 __device__ __forceinline__ float sqnorm(float a, float b) {
   return __fmaf_rn(b, b, __fmul_rn(a, a));
 }
 
-__device__ __forceinline__ float pair_d2(float xi0, float xi1, float xxi,
-                                         float yj0, float yj1, float yyj) {
-  float dot = __fmaf_rn(xi1, yj1, __fmul_rn(xi0, yj0));
-  return __fsub_rn(__fadd_rn(xxi, yyj), __fmul_rn(2.0f, dot));
+// Clipped at 0 as the plain version's clamp_min (which keeps a NaN).
+__device__ __forceinline__ float pair_d2(float2 p, float xx, float2 q, float qq) {
+  const float dot = __fmaf_rn(p.y, q.y, __fmul_rn(p.x, q.x));
+  const float d2 = __fsub_rn(__fadd_rn(xx, qq), __fmul_rn(2.0f, dot));
+  return d2 < 0.f ? 0.f : d2;
 }
 
-// Squared distances, clipped at 0 as the plain version's clamp_min (which
-// keeps a NaN).  The block's columns are [blockIdx.y * cols, + cols) and its
-// rows [blockIdx.x * rows, + rows), rows * cols <= blockDim.x.
-__global__ void __launch_bounds__(kThreads)
-dist_kernel(const float2* __restrict__ x, const float2* __restrict__ y, int n, int m,
-            int cols, int rows, float* __restrict__ out) {
-  __shared__ float4 ys[kThreads];  // y0, y1, |y|^2
-  const int c0 = blockIdx.y * cols;
-  const int width = min(cols, m - c0);
-  for (int k = threadIdx.x; k < width; k += blockDim.x) {
-    const float2 q = y[c0 + k];
-    ys[k] = make_float4(q.x, q.y, sqnorm(q.x, q.y), 0.f);
+__global__ void __launch_bounds__(kRows)
+dist_rows_kernel(const float2* __restrict__ x, const float2* __restrict__ y, int n, int m,
+                 float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kRows + (threadIdx.x - lane);  // the warp's first row
+  if (row0 >= n) return;
+  const int rows = min(32, n - row0);
+  float* base = out + (size_t)row0 * m;
+  if ((m & 3) == 0 && 32 % (m >> 2) == 0) {  // m 4, 8, ..., 128: a lane keeps its 4 columns
+    const int quads = m >> 2, step = 32 / quads, c = (lane % quads) * 4;
+    int r = lane / quads;
+    float2 pa = r < rows ? __ldg(x + row0 + r) : make_float2(0.f, 0.f);
+    float2 pb = r + step < rows ? __ldg(x + row0 + r + step) : make_float2(0.f, 0.f);
+    float2 q[4];
+    float qq[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = __ldg(y + c + k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) qq[k] = sqnorm(q[k].x, q[k].y);
+    while (r < rows) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = r + h * step;
+        const float2 p = h ? pb : pa;
+        if (rr < rows) {
+          const float xx = sqnorm(p.x, p.y);
+          float4 o;
+          o.x = pair_d2(p, xx, q[0], qq[0]);
+          o.y = pair_d2(p, xx, q[1], qq[1]);
+          o.z = pair_d2(p, xx, q[2], qq[2]);
+          o.w = pair_d2(p, xx, q[3], qq[3]);
+          *reinterpret_cast<float4*>(base + rr * m + c) = o;
+        }
+      }
+      r += 2 * step;
+      if (r < rows) pa = __ldg(x + row0 + r);
+      if (r + step < rows) pb = __ldg(x + row0 + r + step);
+    }
+  } else {
+    for (int e = lane; e < rows * m; e += 32) {
+      const int r = e / m;
+      const float2 p = __ldg(x + row0 + r);
+      const float2 q = __ldg(y + (e - r * m));
+      base[e] = pair_d2(p, sqnorm(p.x, p.y), q, sqnorm(q.x, q.y));
+    }
   }
-  __syncthreads();
-  const int lr = threadIdx.x / cols, lc = threadIdx.x % cols;
-  const int i = blockIdx.x * rows + lr;
-  if (lr >= rows || i >= n || lc >= width) return;
-  const float2 p = x[i];
-  const float4 q = ys[lc];
-  const float d2 = pair_d2(p.x, p.y, sqnorm(p.x, p.y), q.x, q.y, q.z);
-  out[(size_t)i * m + c0 + lc] = d2 < 0.f ? 0.f : d2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (n, 2), y: (m, 2) float32, out: (n, m) float32, all contiguous.
+// x: (n, 2), y: (m, 2) float32, out: (n, m) float32, all contiguous; out
+// 16-byte aligned (the wrapper allocates it).
 int pairwise_dist_sq_launch(const void* x, const void* y, int n, int m, void* out,
                             void* stream) {
   if (n <= 0 || m <= 0) return (int)cudaGetLastError();
-  const int cols = m < kThreads ? m : kThreads;
-  const int rows = kThreads / cols;
-  const int col_blocks = (m + cols - 1) / cols;
-  if (col_blocks > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + rows - 1) / rows, col_blocks);
-  dist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)x, (const float2*)y, n, m, cols, rows, (float*)out);
+  if ((long long)32 * m >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  dist_rows_kernel<<<(n + kRows - 1) / kRows, kRows, 0, (cudaStream_t)stream>>>(
+      (const float2*)x, (const float2*)y, n, m, (float*)out);
   return (int)cudaGetLastError();
 }
 

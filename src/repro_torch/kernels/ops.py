@@ -67,6 +67,17 @@ def contour_min_d2(contours: torch.Tensor, counts: torch.Tensor,
     return _cd.contour_min_d2(contours, counts, valid)
 
 
+def cross_min_d2(ca: torch.Tensor, cnta: torch.Tensor, va: torch.Tensor,
+                 cb: torch.Tensor, cntb: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """(A, B) min squared distance between two padded contour buffers
+    (A, v, 2) × (B, v, 2), 1e30 where either side is empty: the rectangular
+    form of ``contour_min_d2`` (the delta merge's dirty rows), whose rows
+    equal the square form's bit for bit."""
+    if FORCE == "ref":
+        return ref.cross_min_d2(ca, cnta, va, cb, cntb, vb)
+    return _cd.cross_min_d2(ca, cnta, va, cb, cntb, vb)
+
+
 # -- block-sparse spatial pruning (DDC phase 1) ------------------------------
 
 

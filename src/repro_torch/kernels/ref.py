@@ -7,12 +7,14 @@ floating-point step is a separate elementwise op in a fixed order, never
 a matrix product: a BLAS may contract or reorder the depth-2 dot product,
 and the kernels promise the exact float32 expression written here.  Where
 the jitted reference computes a fused multiply-add (XLA contracts the
-depth-2 sums of the pairwise squared distance), the step is ``fma_f32``,
-rounded once, and the kernels use the hardware FMA at the same place.
-The row loops bound peak memory to ``ROW_CHUNK`` rows of the (n, n)
-matrix, and the block-sparse versions to ``PAIR_CHUNK`` pair tests at a
-time; each entry is computed independently and folded with an integer
-sum or min, which no order changes, so chunking changes no bit.
+depth-2 sums of the pairwise squared distance, and the contour
+distance's dx·dx + dy·dy), the step is ``fma_f32``, rounded once, and
+the kernels use the hardware FMA at the same place.  The row loops bound
+peak memory to ``ROW_CHUNK`` rows of the (n, n) matrix, and the
+block-sparse versions and the contour distance to ``PAIR_CHUNK`` pair
+tests at a time; each entry is computed independently and folded with
+an integer sum or a min, which no order changes, so chunking changes no
+bit.
 
 ``dispatch_gather`` (the MoE expert buffer, and its int8 wire form) is
 exact too: a copy, or one float32 division and rounding per element.
@@ -198,31 +200,53 @@ def min_label_sweep_sparse(x: torch.Tensor, mask: torch.Tensor, labels: torch.Te
     return _tile_pair_fold(x, mask, eps, rows, cols, flags, bt, SENTINEL, contrib, fold)
 
 
+def cross_min_d2(ca: torch.Tensor, cnta: torch.Tensor, va: torch.Tensor,
+                 cb: torch.Tensor, cntb: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """Rectangular min squared distance between two padded contour buffers:
+    (A, v, 2) × (B, v, 2) → (A, B), BIG (1e30) where either slot has no
+    valid vertex; cnt*: (·,) i32 valid vertices per slot, v*: (·,) bool
+    slot validity.  A slot pair with a padding vertex on either side also
+    sees BIG in its min, exactly as the reference's where(valid, d2, BIG)
+    over every vertex pair; so only the valid vertices are tested.  The
+    vertex pair's d2 is fma(dy, dy, dx·dx), rounded once, as XLA:CPU
+    contracts the jitted reference's sum((p − q) ** 2, -1) in
+    ``ddc.cross_min_d2`` and ``kernels/ref.py::contour_min_d2``;
+    fl(a − b) = −fl(b − a), so the form is symmetric bit for bit.  Chunked
+    to ``PAIR_CHUNK`` vertex pairs; a min is exact in any order, so
+    chunking changes no bit.  Reads the valid vertex counts on the host."""
+    a, v, _ = ca.shape
+    b = cb.shape[0]
+    dev = ca.device
+    ar = torch.arange(v, device=dev)
+    pa = (ar[None, :] < cnta[:, None]) & va[:, None]                    # (A, v)
+    pb = (ar[None, :] < cntb[:, None]) & vb[:, None]                    # (B, v)
+    padded = ~pa.all(dim=1)[:, None] | ~pb.all(dim=1)[None, :]
+    out = torch.where(padded, BIG, torch.inf).to(torch.float32)
+    ia = pa.reshape(-1).nonzero()[:, 0]
+    ib = pb.reshape(-1).nonzero()[:, 0]
+    pta = ca.reshape(a * v, 2)[ia].to(torch.float32)
+    ptb = cb.reshape(b * v, 2)[ib].to(torch.float32)
+    sa, sb = ia // v, ib // v
+    rows = max(1, PAIR_CHUNK // max(ib.shape[0], 1))
+    for r0 in range(0, ia.shape[0], rows):
+        p = pta[r0:r0 + rows]
+        dx = p[:, 0:1] - ptb[None, :, 0]
+        dy = p[:, 1:2] - ptb[None, :, 1]
+        d2 = fma_f32(dy, dy, dx * dx)                                   # (r, nb)
+        per_b = torch.full((p.shape[0], b), torch.inf, dtype=torch.float32, device=dev)
+        per_b.scatter_reduce_(1, sb[None, :].expand_as(d2), d2, "amin")
+        out.scatter_reduce_(0, sa[r0:r0 + rows, None].expand_as(per_b), per_b, "amin")
+    return out
+
+
 def contour_min_d2(contours: torch.Tensor, counts: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """Phase-2 merge matrix: (m, m) min squared distance between every
     pair of padded contour buffers, BIG (1e30) where either slot has no
     valid vertex.  contours: (m, v, 2) f32; counts: (m,) i32; valid: (m,)
-    bool.  Difference form (dx·dx + dy·dy), the semantic reference."""
-    m, v, _ = contours.shape
-    dev = contours.device
-    pts = contours.to(torch.float32)
-    vv = ((torch.arange(v, device=dev)[None, :] < counts[:, None])
-          & valid[:, None])
-    flat = pts.reshape(m * v, 2)
-    fv = vv.reshape(m * v)
-    out = torch.empty((m, m), dtype=torch.float32, device=dev)
-    rows = max(1, ROW_CHUNK // max(v, 1))
-    for r0 in range(0, m, rows):
-        r1 = min(r0 + rows, m)
-        p = pts[r0:r1].reshape(-1, 2)
-        dx = p[:, 0:1] - flat[None, :, 0]
-        dy = p[:, 1:2] - flat[None, :, 1]
-        d2 = dx * dx + dy * dy
-        ok = vv[r0:r1].reshape(-1)[:, None] & fv[None, :]
-        d2 = torch.where(ok, d2, BIG)
-        out[r0:r1] = d2.reshape(r1 - r0, v, m, v).amin(dim=(1, 3))
-    return out
+    bool.  ``cross_min_d2`` of the buffers with themselves: the same
+    fma(dy, dy, dx·dx) as the jitted reference, bit for bit."""
+    return cross_min_d2(contours, counts, valid, contours, counts, valid)
 
 
 # -- LM stack: attention and the Mamba-2 SSD scan ----------------------------

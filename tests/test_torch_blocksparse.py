@@ -373,7 +373,7 @@ def test_cpu_tensors_never_launch_the_sparse_kernels():
     assert counts["neighbor_count_sparse"] == counts["min_label_sweep_sparse"] == 0
     assert set(counts) == {"neighbor_count", "min_label_sweep", "neighbor_count_sparse",
                            "min_label_sweep_sparse", "pairwise_dist_sq", "contour_min_d2",
-                           "flash_attention", "ssd_scan", "dispatch_gather"}
+                           "cross_min_d2", "flash_attention", "ssd_scan", "dispatch_gather"}
 
 
 # -- dbscan(block_sparse="always") -------------------------------------------------

@@ -135,7 +135,7 @@ class TestMergeMany:
         jb, tb = jstack([je, jc, je, jc]), tddc.stack_clustersets([te, tc, te, tc])
         jd2 = jddc.contour_pair_d2(jb, JCFG)
         td2 = tddc.contour_pair_d2(tb, TCFG)
-        np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(td2.numpy(), np.asarray(jd2))
         for exclude in (None, np.array([False, True, False, False]),
                         np.array([True, True, True, True])):
             jm, jmaps = jddc.merge_from_d2(

@@ -165,6 +165,120 @@ def test_contour_min_d2(cuda, m, v):
     assert torch.equal(got, want)
 
 
+def _contour_side(rng, m, v, kind, cuda):
+    contours = rng.uniform(0, 1, (m, v, 2)).astype(np.float32)
+    counts = rng.integers(0, v + 1, m).astype(np.int32)
+    valid = rng.random(m) > 0.25
+    if kind == "invalid":          # every slot empty: all BIG, no item
+        valid[:] = False
+    elif kind == "one":            # one valid slot
+        valid[:] = False
+        valid[m // 2], counts[m // 2] = True, max(1, v // 3)
+    elif kind == "full":           # no padding vertex anywhere: no BIG in any min
+        counts[:], valid[:] = v, True
+    elif kind == "ragged":         # counts past v and below 0 clamp as the plain version's
+        counts[0], counts[-1] = v + 7, -3
+        contours[1] = contours[0]  # duplicate slots: a zero distance
+    return tuple(torch.as_tensor(a, device=cuda) for a in (contours, counts, valid))
+
+
+@pytest.mark.parametrize("m,v,kind", [(256, 128, "invalid"), (256, 128, "one"),
+                                      (64, 8, "ragged"), (40, 128, "full"), (17, 2048, "ragged"),
+                                      (300, 16, "mixed"), (256, 128, "mixed")])
+def test_contour_min_d2_valid_slots(cuda, m, v, kind):
+    """B5's square form: only valid slots tested, each unordered pair once
+    and written both ways; bit for bit the plain version, symmetric, and
+    equal to the rectangular form of the same rows; two launches equal."""
+    c, n, val = _contour_side(np.random.default_rng(m + v), m, v, kind, cuda)
+    before = dict(contour_dist.launches)
+    got = contour_dist.contour_min_d2(c, n, val)
+    assert contour_dist.launches["contour_min_d2"] == before["contour_min_d2"] + 1
+    assert torch.equal(got, ref.contour_min_d2(c, n, val))
+    assert torch.equal(got, got.T) and torch.equal(got, contour_dist.contour_min_d2(c, n, val))
+    rows = torch.arange(0, m, 3, device=cuda)
+    rect = contour_dist.cross_min_d2(c[rows], n[rows], val[rows], c, n, val)
+    assert contour_dist.launches["cross_min_d2"] == before["cross_min_d2"] + 1
+    assert torch.equal(rect, got[rows])
+    if kind == "invalid":
+        assert bool((got == 1e30).all())
+
+
+@pytest.mark.parametrize("a,b,v,kind_a,kind_b", [(96, 256, 128, "mixed", "mixed"),
+                                                 (3, 300, 16, "one", "mixed"),
+                                                 (50, 7, 2048, "ragged", "full"),
+                                                 (20, 30, 8, "invalid", "mixed"),
+                                                 (1, 1, 5, "full", "full")])
+def test_cross_min_d2(cuda, a, b, v, kind_a, kind_b):
+    """B5's rectangular form, A != B: bit for bit the plain version."""
+    rng = np.random.default_rng(a * b + v)
+    side_a = _contour_side(rng, a, v, kind_a, cuda)
+    side_b = _contour_side(rng, b, v, kind_b, cuda)
+    got = contour_dist.cross_min_d2(*side_a, *side_b)
+    assert got.shape == (a, b)
+    assert torch.equal(got, ref.cross_min_d2(*side_a, *side_b))
+    assert torch.equal(got, ops.cross_min_d2(*side_a, *side_b))
+    with pytest.raises(ValueError):
+        contour_dist.cross_min_d2(*side_a, side_b[0].cpu(), *side_b[1:])
+    with pytest.raises(ValueError):
+        contour_dist.cross_min_d2(*side_a, side_b[0][:, :1].contiguous(), *side_b[1:])
+
+
+@pytest.mark.parametrize("n,m", [(32768, 1), (32768, 3), (32768, 16), (257, 8), (255, 300),
+                                 (77, 4), (300, 128), (4097, 2049), (100, 4100)])
+def test_pairwise_dist_sq_rows(cuda, n, m):
+    """B6's warp of 32 rows stored in order: k 4 to 128 (float4 stores,
+    four columns a lane), k 1, 3, 300 and past a warp's 32 lanes (single
+    floats), ragged n."""
+    rng = np.random.default_rng(n + m)
+    x = torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32), device=cuda)
+    y = torch.as_tensor(rng.normal(size=(m, 2)).astype(np.float32), device=cuda)
+    got = pairwise_dist.pairwise_dist_sq(x, y)
+    assert torch.equal(got, ref.pairwise_dist_sq(x, y))
+    assert torch.equal(got, pairwise_dist.pairwise_dist_sq(x, y))
+
+
+def test_launch_floor_kernel(cuda):
+    """The empty kernel builds and launches; other devices raise."""
+    from repro_torch.kernels import launch_floor
+    launch_floor.empty(cuda)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        launch_floor.empty("cpu")
+
+
+@pytest.mark.parametrize("dirty,exclude", [([1, 3, 6], None), ([3], None), ([1, 3, 6, 3], 5),
+                                           ([], None)])
+def test_merge_delta_card_equals_rebuild_and_cpu(cuda, dirty, exclude):
+    """The delta merge on the card: patching a cached matrix (one
+    rectangular launch) equals the rebuild bit for bit, in the matrix, the
+    maps and the merged set, and equals the CPU run."""
+    make, eps, min_pts, grid, max_verts, max_clusters = spatial.PARITY_CASES["rings"]
+    cfg = ddc.DDCConfig(eps=eps, min_pts=min_pts, grid=grid, max_verts=max_verts,
+                        max_clusters=max_clusters, block_sparse="never")
+    mask = np.ones(2048, bool)
+    traces = [{}, {}]
+    ddc.make_ddc_fn(cfg, 8, device=cuda)(make(), mask, traces[0])
+    ddc.make_ddc_fn(cfg, 8, device=cuda)(spatial.make_rings(2048, seed=7), mask, traces[1])
+    old, other = traces[0]["batch"], traces[1]["batch"]
+    batch = ddc.stack_clustersets([ddc.lane_set(other if i in dirty else old, i)
+                                   for i in range(8)])
+    cached = ddc.contour_pair_d2(old, cfg)
+    ex = None
+    if exclude is not None:
+        ex = torch.zeros(8, dtype=torch.bool, device=cuda)
+        ex[exclude] = True
+    before = contour_dist.launches["cross_min_d2"]
+    got = ddc.merge_delta(batch, cached.clone(), dirty, cfg, ex)
+    assert contour_dist.launches["cross_min_d2"] == before + (1 if dirty else 0)
+    rebuild = ddc.merge_delta(batch, None, None, cfg, ex)
+    cpu_batch = ddc.ClusterSet(*(t.cpu() for t in batch))
+    on_cpu = ddc.merge_delta(cpu_batch, cached.cpu(), dirty, cfg, None if ex is None else ex.cpu())
+    for want in (rebuild, on_cpu):
+        (gm, gmaps, gd2), (wm, wmaps, wd2) = got, want
+        assert torch.equal(gd2.cpu(), wd2.cpu()) and torch.equal(gmaps.cpu(), wmaps.cpu())
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(gm, wm))
+
+
 def _sorted_on_card(layout, n, bt, seed, cuda, empty_tile=False):
     rng = np.random.default_rng(seed)
     if layout == "one_cell":  # every tile pair active: frac = 1

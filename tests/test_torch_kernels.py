@@ -112,6 +112,19 @@ class TestPairwise:
         assert tref.eps_sq_f32(e) != float(np.float32(e * e))
 
 
+def _np_fma(a, b, c):
+    """float32 fma(a, b, c) in NumPy: a·b exact in float64, the sum
+    rounded to odd (TwoSum's error sets the last bit), then to float32."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    odd = np.where((err != 0) & (s.view(np.int64) & 1 == 0),
+                   np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return odd.astype(np.float32)
+
+
 def _contours(m, v, seed):
     rng = np.random.default_rng(seed)
     contours = rng.uniform(0, 1, (m, v, 2)).astype(np.float32)
@@ -123,33 +136,36 @@ def _contours(m, v, seed):
 class TestContourMinD2:
     @pytest.mark.parametrize("m,v", [(16, 32), (32, 64), (8, 16), (24, 8), (11, 16)])
     def test_sweep(self, m, v):
-        """Within test_kernels.py's tolerance of the jnp oracle: XLA's CPU
-        backend contracts the oracle's dx·dx + dy·dy into an FMA, which
-        rounds once where the port (and its CUDA kernel, which must not
-        contract) rounds twice, so about one entry in ten differs in the
-        last bit."""
+        """Bit for bit the jnp oracle: XLA's CPU backend contracts the
+        oracle's dx·dx + dy·dy into fma(dy, dy, dx·dx), rounded once, and
+        the port (and its CUDA kernel) computes that rounding."""
         contours, counts, valid = _contours(m, v, m * v)
         want = np.asarray(jref.contour_min_d2(jnp.asarray(contours), jnp.asarray(counts),
                                               jnp.asarray(valid)))
         got = tref.contour_min_d2(t(contours), t(counts), t(valid)).numpy()
-        np.testing.assert_array_equal(got >= 1e29, want >= 1e29)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(got, want)
 
     @pytest.mark.parametrize("m,v", [(16, 32), (11, 16)])
     def test_exact_difference_form(self, m, v):
-        """Bit-exact against the FMA-free float32 difference form in NumPy —
-        the expression the CUDA kernel reproduces."""
+        """Bit-exact against the float32 difference form in NumPy, d2 =
+        fma(dy, dy, dx·dx) rounded once — the expression the CUDA kernel
+        reproduces — built as ``ref.fma_f32`` builds it: dy·dy exact in
+        float64, the float64 sum rounded to odd, then once to float32 (a
+        float64 sum rounded to nearest could round twice)."""
         contours, counts, valid = _contours(m, v, m + v)
         vv = (np.arange(v)[None, :] < counts[:, None]) & valid[:, None]
         want = np.full((m, m), np.float32(1e30))
         for i in range(m):
             for j in range(m):
                 d = contours[i][:, None, :] - contours[j][None, :, :]
-                d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                d2 = _np_fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0])
                 d2 = np.where(vv[i][:, None] & vv[j][None, :], d2, np.float32(1e30))
                 want[i, j] = d2.min()
         got = tref.contour_min_d2(t(contours), t(counts), t(valid)).numpy()
         np.testing.assert_array_equal(got, want)
+        dx = contours[:, :, None, None, 0] - contours[None, None, :, :, 0]
+        dy = contours[:, :, None, None, 1] - contours[None, None, :, :, 1]
+        assert (dx * dx + dy * dy != _np_fma(dy, dy, dx * dx)).any()  # the FMA-free form
 
     def test_empty_slots_get_big(self):
         m, v = 8, 16
@@ -173,6 +189,8 @@ class TestDispatch:
         assert torch.equal(ops.min_label_sweep(x, mask, lab, core, 0.3),
                            tref.min_label_sweep(x, mask, lab, core, 0.3))
         assert torch.equal(ops.contour_min_d2(c, cnt, val), tref.contour_min_d2(c, cnt, val))
+        assert torch.equal(ops.cross_min_d2(c[:2], cnt[:2], val[:2], c, cnt, val),
+                           tref.cross_min_d2(c[:2], cnt[:2], val[:2], c, cnt, val))
         assert torch.equal(pairwise_dist.neighbor_count(x, mask, 0.3),
                            tref.neighbor_count(x, mask, 0.3))
         assert torch.equal(contour_dist.contour_min_d2(c, cnt, val),
@@ -181,7 +199,7 @@ class TestDispatch:
         assert ops.launch_counts() == {
             "neighbor_count": 0, "min_label_sweep": 0, "neighbor_count_sparse": 0,
             "min_label_sweep_sparse": 0, "pairwise_dist_sq": 0, "contour_min_d2": 0,
-            "flash_attention": 0, "ssd_scan": 0, "dispatch_gather": 0}
+            "cross_min_d2": 0, "flash_attention": 0, "ssd_scan": 0, "dispatch_gather": 0}
         assert not ops.use_gpu_kernels(x)
 
     def test_force_ref_keeps_plain_versions(self, monkeypatch):
@@ -199,3 +217,8 @@ class TestDispatch:
             contour_dist.contour_min_d2(torch.zeros((2, 4, 2), device="meta"),
                                         torch.zeros(2, dtype=torch.int32, device="meta"),
                                         torch.zeros(2, dtype=torch.bool, device="meta"))
+        side = (torch.zeros((2, 4, 2), device="meta"),
+                torch.zeros(2, dtype=torch.int32, device="meta"),
+                torch.zeros(2, dtype=torch.bool, device="meta"))
+        with pytest.raises(ValueError):
+            contour_dist.cross_min_d2(*side, *side)
