@@ -31,11 +31,15 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    kernel run's tokens, is held to the kernel run on the prefill's
    last-token logits and on every decode step's logits, in bf16 and with
    the weights cast to float32 (tolerances at ``LM_F32_TOL`` and
-   ``LM_BF16_NOISE``); how many greedy tokens the plain run would pick
-   alike is reported, not gated.  For llama4-scout the token-copies
-   dropped at capacity are printed per layer, and the routing decisions
-   that differ between the kernel and plain runs in bf16 and in float32,
-   where there must be none.  Prefill time, decode time per token,
+   ``LM_BF16_NOISE``); in bf16 the plain run routes every MoE token by
+   the kernel run's decisions (replayed from its route log, the gates
+   from its own probabilities), so that a routing flip between two bf16
+   runs is not what the gate measures; how many greedy tokens the plain
+   run would pick alike is reported, not gated.  For llama4-scout the
+   token-copies dropped at capacity are printed per layer, and the
+   routing decisions that differ between the kernel and plain runs in
+   float32, where there must be none, and in bf16 without the replay
+   (reported; with it they are 0 by construction, and checked).  Prefill time, decode time per token,
    tokens/s and peak memory are printed beside the card.  Each LM kernel
    is held against its plain version on the inputs the main path gave its
    first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
@@ -67,8 +71,12 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
      clustering equals sync's only under the reference's vertex-budget
      rule (DESIGN.md §7), which the full-width lanes break at grid 128
      (their outlines fill any budget up to 4,096 vertices), so agreement
-     with sync is reported there and held on a 64 × 64 raster with
-     max_verts 2,048, which no contour fills;
+     with sync is reported there; it is held through the facade
+     (``DDC(DDCConfig(backend="jit", ...))``) at full width on ``UNCUT``
+     (make_d2, eps 0.01, min_pts 24, grid 128, max_verts 2,048), where the
+     noise stays noise, no local or merged contour fills max_verts and
+     the data holds at least 3 global clusters: the three schedules must
+     give the same clustering and equal cluster counts;
    - K-Means (``local_algo="kmeans"``, k 8, 25 Lloyd steps, async merge):
      208 ``pairwise_dist_sq`` launches, and every lane's labels, centroids
      and inertia equal to the plain run's, both seeded alike;
@@ -94,7 +102,24 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    torch.profiler give the device time by kernel and the device's busy
    share (``profile``, ``profile_dense``, ``profile_kmeans``); the default
    and dense profiles must show the count and sweep kernels of their
-   path.
+   path.  Then the facade at full width (``facade_full_width`` line, the
+   card beside every number): ``DDC(DDCConfig(eps, min_pts=4,
+   backend="jit", shards=8, schedule=s)).fit`` on the same set for sync
+   and async, whose ``labels_`` must equal those paths' global labels bit
+   for bit, with B3, B4 and B5 launched inside the fit; its query tier on
+   8,192 probes (``FACADE_PROBES``: fitted points, points within ±eps of
+   them, points outside the bounds), once through ``query`` and once as
+   32 requests through ``submit`` / ``drain`` (coalesced), whose labels
+   must equal the same snapshot's query on the CPU bit for bit (probes
+   per second, ms and peak memory of a launch); save and ``DDC.load`` on
+   the card (labels, answers and gauges unchanged, no refit, the
+   snapshot's bytes); the host backend on the card beside the jit backend
+   at the 2,048-point ``PHASE2_LAYOUTS``, k in {2, 4, 8} (the same
+   clustering; the host backend cannot run at full width: ``dbscan_ref``
+   builds an n × n float64 matrix); ``validate(sample=...)`` on 4,096
+   points of the set, timed, its verdict printed; the fit's wall time
+   beside the path's phase times, and the device's busy share over one
+   fit and one drain.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -118,9 +143,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,7 +155,19 @@ ROOT = Path(__file__).resolve().parent
 FULL_N = 262_144
 LANES = 8
 PARITY_SHARDS = (2, 4, 8)
-UNCUT_GRID, UNCUT_VERTS = 64, 2048  # raster and budget of the schedule-equivalence check
+# The schedule-equivalence check: make_d2 at full width with an eps and
+# min_pts at which the 4 % uniform noise stays noise (at the searched eps
+# its points are core and join every shape into one cluster), on a raster
+# and budget no local or merged contour fills (DESIGN.md §7).
+UNCUT = dict(eps=0.01, min_pts=24, grid=128, max_verts=2048)
+UNCUT_MIN_CLUSTERS = 3
+# The facade at full width: query probes (fitted points, points jittered
+# within ±eps of fitted points, points outside the bounds), the requests
+# the tier's drain coalesces, and the host backend's cells.
+FACADE_PROBES = (4096, 3072, 1024)
+FACADE_REQUESTS = 32
+FACADE_SAMPLE = 4096
+FACADE_HOST_N = 2048
 # (schedule, block_sparse) of the parity runs: sync on both phase-1 paths,
 # then the two other schedules.
 PARITY_RUNS = (("sync", "never"), ("sync", "auto"), ("async", "never"), ("tree", "never"))
@@ -1073,6 +1112,32 @@ def record_routes(L):
         L._route = orig
 
 
+@contextlib.contextmanager
+def replay_routes(L, log: list):
+    """While active, every MoE layer routes by the next (topi, keep) of
+    ``log`` (another run's route log, call for call), its gates from its
+    own probabilities (``layers.route_given``); what it routes is appended
+    to the yielded list.  Raises if a call does not line up with the log;
+    the caller checks that every logged call was replayed."""
+    calls, orig, logged = [], L._route, iter(log)
+
+    def route(probs, k, capacity):
+        step = next(logged, None)
+        if step is None or step[0].shape != (probs.shape[0], k):
+            raise RuntimeError("replayed routing: the MoE calls do not line up with the log")
+        r = L.route_given(probs, step[0], capacity)
+        if not r.keep.equal(step[1]):
+            raise RuntimeError("replayed routing: the replayed choice keeps other copies")
+        calls.append((r.topi, r.keep))
+        return r
+
+    L._route = route
+    try:
+        yield calls
+    finally:
+        L._route = orig
+
+
 def route_diffs(torch, a: list, b: list, n_moe: int) -> dict:
     """Tokens routed to other experts in run ``b`` than in run ``a`` (the
     same inputs' route logs), in prefill and in decode."""
@@ -1188,11 +1253,25 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         del cache_p
 
         # The plain run of the same path, teacher-forced on the kernel run's
-        # tokens, in bf16; then both runs again with the weights in float32.
-        # Each logs its MoE routing, call for call beside the kernel run's.
-        with record_routes(L) as routes_p:
+        # tokens, in bf16 and routed by the kernel run's decisions (replayed
+        # from its route log, the gates from the plain run's own
+        # probabilities): where the two bf16 runs would route a token
+        # differently, the bf16 gate would measure that flip, not the
+        # kernel.  For a MoE model the plain run is also made unreplayed,
+        # to report how often it routes otherwise.  Then both runs again
+        # with the weights in float32, each logging its own routing, call
+        # for call beside the kernel run's.
+        with replay_routes(L, routes_k) as routes_p:
             plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
                                                 toks, plain=True)
+        if len(routes_p) != len(routes_k):
+            raise RuntimeError(f"{arch}: the replayed plain run made {len(routes_p)} MoE calls, "
+                               f"the kernel run {len(routes_k)}")
+        plain_u, routes_u = plain, routes_p
+        if routes_k:
+            with record_routes(L) as routes_u:
+                plain_u, _ = forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks,
+                                        plain=True)
         model32 = cast_model(torch, T, cfg, model, torch.float32)
         before32 = route_counts(fa, ssd)
         with record_routes(L) as routes_k32:
@@ -1213,16 +1292,20 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             n_moe = len(routes_k) // LM_STEPS
             moe = {"capacity_factor": cfg.capacity_factor, "moe_layers": n_moe,
                    "dropped": route_drops(routes_k, n_moe),
-                   "dropped_plain": route_drops(routes_p, n_moe),
+                   "dropped_plain_unreplayed": route_drops(routes_u, n_moe),
                    "route_diffs_bf16": route_diffs(torch, routes_k, routes_p, n_moe),
+                   "route_diffs_bf16_unreplayed": route_diffs(torch, routes_k, routes_u, n_moe),
                    "route_diffs_f32": route_diffs(torch, routes_k32, routes_p32, n_moe),
-                   "route_diffs_bf16_vs_f32": route_diffs(torch, routes_p32, routes_p, n_moe)}
+                   "route_diffs_bf16_vs_f32": route_diffs(torch, routes_p32, routes_u, n_moe)}
             log(f"{arch}: MoE routing {moe}")
+            if moe["route_diffs_bf16"]["prefill"] or moe["route_diffs_bf16"]["decode"]:
+                raise RuntimeError(f"{arch}: the replayed plain run routes otherwise: "
+                                   f"{moe['route_diffs_bf16']}")
             f32_diffs = moe["route_diffs_f32"]
             if f32_diffs["prefill"] or f32_diffs["decode"]:
                 raise RuntimeError(f"{arch}: the float32 kernel run routes tokens to other "
                                    f"experts than the plain run: {f32_diffs}")
-        del routes_k, routes_p, routes_k32, routes_p32
+        del routes_k, routes_p, routes_u, routes_k32, routes_p32
 
         def rms(a, b):
             return float((a.double() - b.double()).pow(2).mean().sqrt())
@@ -1232,6 +1315,8 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         rms_kp = [rms(a, b) for a, b in zip(tr["logits"], plain)]
         rms_p32 = [rms(a, b) for a, b in zip(plain, plain32)]
         rms_k32 = [rms(a, b) for a, b in zip(tr["logits"], plain32)]
+        rms_ku = [rms(a, b) for a, b in zip(tr["logits"], plain_u)]
+        rms_u32 = [rms(a, b) for a, b in zip(plain_u, plain32)]
         scale = max(float(p.double().abs().max()) for p in plain)
         agree = sum(int((torch.argmax(p[..., :cfg.vocab], -1) == toks[:, i]).sum())
                     for i, p in enumerate(plain))
@@ -1266,13 +1351,245 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             "f32_tolerance": list(LM_F32_TOL), "f32_max_abs_err": errs32,
             "bf16_noise_factor": LM_BF16_NOISE, "bf16_max_abs_err": errs,
             "bf16_rms_kernel_vs_plain": rms_kp, "bf16_rms_plain_vs_f32": rms_p32,
-            "bf16_rms_kernel_vs_f32": rms_k32, "max_abs_logit": scale,
+            "bf16_rms_kernel_vs_f32": rms_k32, "bf16_plain_routes": "replayed from the kernel run",
+            **({"bf16_rms_kernel_vs_plain_unreplayed": rms_ku,
+                "bf16_rms_plain_unreplayed_vs_f32": rms_u32} if plain_u is not plain else {}),
+            "max_abs_logit": scale,
             "greedy_agreement": [agree, toks.numel()], "first_tokens": toks[0, :8].tolist(),
             **moe}
         print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
-        del model, tr, tr2, runs, toks, toks2, plain, kern32, plain32
+        del model, tr, tr2, runs, toks, toks2, plain, plain_u, kern32, plain32
         torch.cuda.empty_cache()
     return launches_by_kernel, captured, lm_routes
+
+
+class FrozenSource:
+    """A query tier's snapshot source that serves one published view."""
+
+    def __init__(self, snap):
+        self.snap = snap
+
+    def snapshot(self):
+        return self.snap
+
+    def read_snapshot(self):
+        return self.snap
+
+
+def facade_model(torch, T, cfg_kw: dict, pts, dev):
+    """Fit ``DDC(DDCConfig(**cfg_kw))`` on ``pts`` on ``dev`` and read its
+    labels (the lazy refit).  Returns (model, labels, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.DDC(T.DDCConfig(**cfg_kw), device=dev).fit(pts)
+    labels = model.labels_
+    torch.cuda.synchronize()
+    return model, labels, time.perf_counter() - t0
+
+
+def schedule_check(torch, np, ddc, pts, dev) -> dict:
+    """The three schedules through the facade (``backend="jit"``) at full
+    width on ``UNCUT``, where no local or merged contour fills max_verts,
+    no cluster budget overflows and the data holds at least
+    ``UNCUT_MIN_CLUSTERS`` global clusters: the clusterings must be the
+    same and the cluster counts equal."""
+    from repro_torch import ddc as T
+
+    out = {}
+    for sched in ("sync", "async", "tree"):
+        model, labels, wall = facade_model(
+            torch, T, dict(UNCUT, backend="jit", shards=LANES, schedule=sched), pts, dev)
+        tr = model.backend.last_trace
+        gcs = tr["gcs"]
+        out[sched] = {"labels": labels, "n_clusters": int(gcs.valid.sum()),
+                      "facade_clusters": model.n_clusters_,
+                      "max_local_count": int(tr["batch"].counts.max()),
+                      "max_merged_count": int(gcs.counts.max()),
+                      "overflow": bool(gcs.overflow) or bool(tr["batch"].overflow.any()),
+                      "phase1_s": tr["phase1_s"], "phase2_s": tr["phase2_s"], "fit_s": wall}
+        log(f"schedule check {sched}: {({k: v for k, v in out[sched].items() if k != 'labels'})}")
+        o = out[sched]
+        if max(o["max_local_count"], o["max_merged_count"]) >= UNCUT["max_verts"] \
+                or o["overflow"]:
+            raise RuntimeError(f"schedule check ({sched}): a contour fills max_verts "
+                               f"{UNCUT['max_verts']} or a budget overflows: {o}")
+        if o["n_clusters"] < UNCUT_MIN_CLUSTERS or o["facade_clusters"] != o["n_clusters"]:
+            raise RuntimeError(f"schedule check ({sched}): {o['n_clusters']} global "
+                               f"clusters, need at least {UNCUT_MIN_CLUSTERS}")
+        if o["n_clusters"] != out["sync"]["n_clusters"] \
+                or not ddc.same_clustering(o["labels"], out["sync"]["labels"]):
+            raise RuntimeError(f"schedule check: the {sched} schedule's clustering differs "
+                               f"from sync's where no contour is cut")
+        del model
+    return {"generator": "make_d2", "n": FULL_N, "lanes": LANES, **UNCUT,
+            "merge_radius": ddc.DDCConfig(**UNCUT).merge_radius, "through": "DDC facade, jit",
+            "same_clustering": True,
+            **{k: {f: v for f, v in o.items() if f != "labels"} for k, o in out.items()}}
+
+
+def facade_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, sched_labels, ts,
+                      card: str) -> dict:
+    """The facade on the card at full width (see the module docstring,
+    phase 2's last item).  Returns its line."""
+    from repro_torch import ddc as T
+    from repro_torch.serve import query_tier as qt
+
+    base = dict(eps=eps, min_pts=4, backend="jit", shards=LANES)
+    fits = {}
+    for sched in ("sync", "async"):
+        ops.reset_launch_counts()
+        model, labels, wall = facade_model(torch, T, dict(base, schedule=sched), pts, dev)
+        launches = ops.launch_counts()
+        if not np.array_equal(labels, sched_labels[sched]) or labels.dtype != np.int32:
+            raise RuntimeError(f"facade ({sched}): labels_ differ from the full-width path's "
+                               f"global labels")
+        if any(launches[k] < 1 for k in ("neighbor_count_sparse", "min_label_sweep_sparse",
+                                         "contour_min_d2")):
+            raise RuntimeError(f"facade ({sched}): the fit did not launch B3, B4 and B5: "
+                               f"{launches}")
+        tr = model.backend.last_trace
+        fits[sched] = {"fit_s": wall, "phase1_s": tr["phase1_s"], "phase2_s": tr["phase2_s"],
+                       "host_overhead_s": wall - tr["phase1_s"] - tr["phase2_s"],
+                       "launches": {k: v for k, v in launches.items() if v},
+                       "labels_equal_path": True}
+        if sched == "sync":
+            sync_model, sync_labels = model, labels
+        else:
+            del model
+    fits["sync"]["path_phase1_s_plus_phase2_s"] = ts["phase1_s"] + ts["phase2_s"]
+    model = sync_model
+
+    # The query tier: one request of every probe, then the same probes as
+    # FACADE_REQUESTS requests through submit / drain (coalesced).
+    rng = np.random.default_rng(7)
+    n_fit, n_near, n_out = FACADE_PROBES
+    near = pts[rng.integers(0, FULL_N, n_near)] + rng.uniform(-eps, eps, (n_near, 2))
+    outside = rng.uniform(1.05, 1.5, (n_out, 2)) * rng.choice([-1.0, 1.0], (n_out, 2))
+    fit_idx = rng.choice(FULL_N, n_fit, replace=False)
+    probes = np.concatenate([pts[fit_idx], near, outside]).astype(np.float32)
+    t0 = time.perf_counter()
+    res = model.query(probes)
+    query_s = time.perf_counter() - t0
+    labels_q = res.labels
+    tier = model.query_tier
+    before = tier.counters()
+
+    def drain():
+        for part in np.array_split(probes, FACADE_REQUESTS):
+            tier.submit(part)
+        return tier.drain()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drained = drain()
+    drain_s = time.perf_counter() - t0
+    after = tier.counters()
+    tier_counts = {k: after[k] - before[k] for k in after}
+    if not np.array_equal(np.concatenate([r.labels for r in drained]), labels_q):
+        raise RuntimeError("facade: the coalesced drain's labels differ from one query's")
+    routed = sum(1 for r in drained if r.scanned_shards)
+    if tier_counts["coalesced_requests"] != routed or routed < 2:
+        raise RuntimeError(f"facade: the drain did not coalesce its {routed} routed requests: "
+                           f"{tier_counts}")
+    snap = model.backend.snapshot()
+    cpu_snap = dataclasses.replace(snap, pts=snap.pts.cpu(), mask=snap.mask.cpu(),
+                                   glabels=snap.glabels.cpu())
+    t0 = time.perf_counter()
+    labels_cpu = qt.QueryTier(FrozenSource(cpu_snap), max_queries=model.config.max_queries,
+                              bucket_min=model.config.query_bucket_min).query(probes).labels
+    cpu_query_s = time.perf_counter() - t0
+    if not np.array_equal(labels_q, labels_cpu):
+        raise RuntimeError(f"facade: card query labels differ from the CPU's on "
+                           f"{int((labels_q != labels_cpu).sum())} of {len(probes)} probes")
+    own = sync_labels[fit_idx]
+    if not np.array_equal(labels_q[:n_fit][own >= 0], own[own >= 0]) \
+            or (labels_q[n_fit + n_near:] != -1).any():
+        raise RuntimeError("facade: a fitted clustered probe did not get its own label, or "
+                           "a probe outside the bounds hit a cluster")
+    # One launch at the full width: every shard scanned, max_queries rows.
+    sel = np.arange(LANES)
+    g_pts, g_mask, g_lab = tier._gather(snap, sel)
+    q_dev = torch.as_tensor(probes[:model.config.max_queries], device=dev)
+    launch_ms = median_ms(torch, lambda: qt._snapshot_query(q_dev, g_pts, g_mask, g_lab,
+                                                            snap.eps), 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    qt._snapshot_query(q_dev, g_pts, g_mask, g_lab, snap.eps)
+    torch.cuda.synchronize()
+    launch_peak = torch.cuda.max_memory_allocated(dev) - mem0
+    query = {"probes": len(probes), "fitted": n_fit, "near": n_near, "outside": n_out,
+             "requests": FACADE_REQUESTS, "routed_requests": routed, "query_s": query_s,
+             "query_probes_per_s": len(probes) / query_s, "drain_s": drain_s,
+             "drain_probes_per_s": len(probes) / drain_s, **tier_counts,
+             "launch_ms": launch_ms, "launch_rows": int(q_dev.shape[0]),
+             "launch_slots": int(g_pts.shape[0] * g_pts.shape[1]),
+             "launch_peak_bytes": launch_peak, "cpu_query_s": cpu_query_s,
+             "card_equals_cpu": True, "hits": int((labels_q >= 0).sum())}
+
+    # Where the time goes: one facade fit and one drain under the profiler.
+    prof_fit = profile_fn(torch, lambda: T.DDC(T.DDCConfig(**base, schedule="sync"),
+                                                device=dev).fit(pts).labels_,
+                          fits["sync"]["fit_s"], top=8)
+    prof_drain = profile_fn(torch, drain, drain_s, top=6)
+
+    # Save and load at full width: no refit, the same labels and answers.
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt")
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        restored = T.DDC.load(path, device=dev)
+        load_s = time.perf_counter() - t0
+    if not np.array_equal(restored.labels_, model.labels_) \
+            or not np.array_equal(restored.query(probes).labels, labels_q):
+        raise RuntimeError("facade: the restored model's labels or answers differ")
+    g0, g1 = model.stats().gauges, restored.stats().gauges
+    if restored.backend.refits or (g1.n_live, g1.n_clusters, g1.shards, g1.capacity) != \
+            (g0.n_live, g0.n_clusters, g0.shards, g0.capacity):
+        raise RuntimeError(f"facade: the restored model refitted or its gauges differ: "
+                           f"{g1} vs {g0}")
+    snapshot = {"bytes": nbytes, "save_s": save_s, "load_s": load_s, "refits_after_load": 0,
+                "labels_equal": True, "answers_equal": True, "gauges_equal": True}
+    del restored, model, sync_model
+
+    # The host backend on the card, against the jit backend, at the repo's
+    # 2,048-point layouts.  dbscan_ref materialises n × n float64, so the
+    # host backend cannot run at full width.
+    host = {}
+    for layout, spec in spatial.PHASE2_LAYOUTS.items():
+        lpts = spec["make"](FACADE_HOST_N)
+        kw = {k: spec[k] for k in ("eps", "min_pts", "grid", "max_verts", "max_clusters")}
+        for k in (2, 4, 8):
+            m_host, l_host, host_s = facade_model(torch, T, dict(kw, backend="host", shards=k),
+                                                  lpts, dev)
+            _, l_jit, jit_s = facade_model(torch, T, dict(kw, backend="jit", shards=k,
+                                                          schedule="sync"), lpts, dev)
+            answers = m_host.query(lpts).labels
+            if not ddc.same_clustering(l_host, l_jit) \
+                    or not np.array_equal(answers[l_host >= 0], l_host[l_host >= 0]):
+                raise RuntimeError(f"facade host backend on {layout} k={k}: differs from the "
+                                   f"jit backend, or its answers from its labels")
+            host[f"{layout}/{k}"] = {"host_s": host_s, "jit_s": jit_s,
+                                     "clusters": int(len(set(l_host[l_host >= 0].tolist())))}
+    sample = pts[np.random.default_rng(3).choice(FULL_N, FACADE_SAMPLE, replace=False)]
+    t0 = time.perf_counter()
+    try:
+        T.DDCConfig(**base).validate(sample=sample)
+        verdict = "accepted"
+    except T.ConfigError as e:
+        verdict = str(e)
+    validate = {"n": FACADE_SAMPLE, "s": time.perf_counter() - t0, "verdict": verdict}
+    return {"card": card, "n": FULL_N, "lanes": LANES, "eps": eps, "fits": fits,
+            "query": query, "profile_fit": prof_fit, "profile_drain": prof_drain,
+            "snapshot": snapshot,
+            "host_backend": {"n": FACADE_HOST_N, "same_clustering_as_jit": True,
+                             "answers_equal_labels": True, "cells": host,
+                             "full_width": "not run: dbscan_ref builds the n x n float64 "
+                                           "distance matrix (core/dbscan.py:54)"},
+            "validate_sample": validate}
 
 
 def main() -> int:
@@ -1371,13 +1688,12 @@ def main() -> int:
     # contour fits max_verts); at grid 128 the full-width lanes' outlines
     # fill any budget up to 4,096 and are cut, and a cut outline merges
     # differently in pairs than all at once, in the reference too.  So
-    # agreement is reported on the default path and held on a 64 × 64
-    # raster with max_verts 2,048, which no contour fills there (the check
-    # fails if one does).  That raster merges the data into one global
-    # cluster, so the check compares the noise sets and whether every
-    # lane's clusters reach it.
+    # agreement is reported on the default path and held by
+    # ``schedule_check`` where no contour is cut and the data holds several
+    # global clusters (``UNCUT``), through the facade.
     schedules = {"sync": {"phase1_s": ts["phase1_s"], "phase2_s": ts["phase2_s"],
                           "merge_calls": ts["merge_calls"], "meter": meter_s.snapshot()}}
+    sched_labels = {"sync": out_s[0].cpu().numpy()}
     for sched in ("async", "tree"):
         scfg = dataclasses.replace(cfg, schedule=sched)
         meter = ddc.CommMeter()
@@ -1394,28 +1710,9 @@ def main() -> int:
             "launches": launches_x, "bit_identical_to_plain": True,
             "same_clustering_as_sync": ddc.same_clustering(out_x[0].cpu().numpy(),
                                                            out_s[0].cpu().numpy())}
-    uncut = dataclasses.replace(cfg, grid=UNCUT_GRID, max_verts=UNCUT_VERTS)
-    held = {}
-    for sched in ("sync", "async", "tree"):
-        tu: dict = {}
-        out_u = ddc.make_ddc_fn(dataclasses.replace(uncut, schedule=sched), LANES,
-                                device=dev)(pts, mask, tu)
-        held[sched] = {"labels": out_u[0].cpu().numpy(), "n_clusters": int(out_u[1].valid.sum()),
-                       "phase2_s": tu["phase2_s"],
-                       "max_count": max(int(tu["batch"].counts.max()),
-                                        int(out_u[1].counts.max()))}
-        if held[sched]["max_count"] >= uncut.max_verts or bool(out_u[1].overflow):
-            raise RuntimeError(f"{sched} on the {UNCUT_GRID}-cell raster: a contour fills "
-                               f"max_verts or the budget overflows")
-        if not ddc.same_clustering(held[sched]["labels"], held["sync"]["labels"]):
-            raise RuntimeError(f"the {sched} schedule's clustering differs from sync's on the "
-                               f"{UNCUT_GRID} x {UNCUT_GRID} raster, where no contour is cut")
-    print(json.dumps({"schedules_full_width": {
-        **schedules, "uncut": {"grid": UNCUT_GRID, "max_verts": uncut.max_verts,
-                               "merge_radius": uncut.merge_radius,
-                               "same_clustering_as_sync": True,
-                               **{k: {f: v[f] for f in ("n_clusters", "phase2_s", "max_count")}
-                                  for k, v in held.items()}}}}), flush=True)
+        sched_labels[sched] = out_x[0].cpu().numpy()
+    uncut = schedule_check(torch, np, ddc, pts, dev)
+    print(json.dumps({"schedules_full_width": {**schedules, "uncut": uncut}}), flush=True)
 
     # K-Means (this slice's path): the defaults (k 8, 25 Lloyd steps, async
     # merge) at the eps found above, which sets only the merge radius.
@@ -1601,6 +1898,13 @@ def main() -> int:
     print(json.dumps({"profile_kmeans": profile_fn(torch, lambda: run_km(pts, mask),
                                                    tkm["phase1_s"] + tkm["phase2_s"], top=10)}),
           flush=True)
+
+    # The facade at full width: DDC(DDCConfig(...)).fit through the jit
+    # backend, its query tier, save / load, the host backend.
+    print(json.dumps({"facade_full_width": facade_full_width(
+        torch, np, ddc, ops, spatial, dev, eps, pts, sched_labels, ts,
+        card.splitlines()[0])}), flush=True)
+    torch.cuda.empty_cache()
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------
     bench_rows = phase1_bench(torch, np, dbscan, ops, spatial, dev)

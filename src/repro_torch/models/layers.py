@@ -277,15 +277,24 @@ class Routing(NamedTuple):
 def _route(probs: torch.Tensor, k: int, capacity: int) -> Routing:
     """Top-k routing with per-expert capacity, as the reference computes
     it from ``probs`` (t, E): top-k by a stable descending sort (so ties go
-    to the lower expert id, as ``jax.lax.top_k``), the gates' sum folded
-    left to right, a stable argsort of the copies by expert, ``first`` by
-    a left searchsorted, and each copy's rank within its expert; copies
-    ranked at or past ``capacity`` are dropped.  ``idx`` inverts the slot
-    map for ``dispatch_gather``.  Needs no host sync."""
+    to the lower expert id, as ``jax.lax.top_k``), then ``route_given``.
+    Needs no host sync."""
+    topi = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+    return route_given(probs, topi, capacity)
+
+
+def route_given(probs: torch.Tensor, topi: torch.Tensor, capacity: int) -> Routing:
+    """The routing of the choice ``topi`` (t, k), best first: the gates
+    are ``probs``' values there, their sum folded left to right; a stable
+    argsort of the copies by expert, ``first`` by a left searchsorted, and
+    each copy's rank within its expert; copies ranked at or past
+    ``capacity`` are dropped.  ``idx`` inverts the slot map for
+    ``dispatch_gather``.  (A caller may pass another run's ``topi`` to
+    route by its decisions.)"""
     t, e = probs.shape
+    k = topi.shape[1]
     dev = probs.device
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
+    topv = probs.gather(1, topi)
     total = topv[:, 0]
     for i in range(1, k):
         total = total + topv[:, i]

@@ -1,2 +1,3 @@
-"""Serving: the LM stack's prefill/decode engine."""
-from . import engine  # noqa: F401
+"""Serving: the LM stack's prefill/decode engine, and the DDC facade's
+query tier and fault-injection plan."""
+from . import engine, faults, query_tier  # noqa: F401

@@ -31,7 +31,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import contour_dist, flash_attention, ops, pairwise_dist, ref  # noqa: E402
 from repro_torch.kernels import moe_gather, ssd_scan  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.serve import engine  # noqa: E402
+from repro_torch.serve import engine, query_tier  # noqa: E402
+from repro_torch import ddc as ddc_api  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -919,3 +920,89 @@ def test_dispatch_gather_rejects_bad_inputs(cuda):
         moe_gather.dispatch_gather(x[None], idx, quant=False)
     with pytest.raises(ValueError):  # ids on another device
         moe_gather.dispatch_gather(x, idx.cpu(), quant=False)
+
+
+# -- the DDC facade (repro_torch.ddc) and its snapshot query tier -----------------
+
+def _facade(backend, k, schedule, device, n=2048, layout="rings"):
+    spec = spatial.PHASE2_LAYOUTS[layout]
+    cfg = ddc_api.DDCConfig(eps=spec["eps"], min_pts=spec["min_pts"], grid=spec["grid"],
+                            max_verts=spec["max_verts"], max_clusters=spec["max_clusters"],
+                            backend=backend, shards=k, schedule=schedule)
+    pts = spec["make"](n)
+    return ddc_api.DDC(cfg, device=device).fit(pts), pts
+
+
+def _probes(pts):
+    rng = np.random.default_rng(1)
+    return np.concatenate([pts[::5], pts[::3] + rng.uniform(-0.01, 0.01, (len(pts[::3]), 2)),
+                           rng.uniform(1.2, 1.5, (16, 2))]).astype(np.float32)
+
+
+@pytest.mark.parametrize("schedule", ["sync", "async", "tree"])
+@pytest.mark.parametrize("k", [2, 8])
+def test_facade_jit_card_equals_cpu(cuda, k, schedule):
+    """The jit backend on the card (default device) launches the path's
+    kernels inside the fit and equals the CPU run: labels, query answers
+    and comm counts."""
+    ops.reset_launch_counts()
+    on_card, pts = _facade("jit", k, schedule, "cuda")
+    labels = on_card.labels_
+    counts = ops.launch_counts()
+    assert counts["contour_min_d2"] > 0
+    assert counts["neighbor_count"] + counts["neighbor_count_sparse"] == k
+    on_cpu, _ = _facade("jit", k, schedule, "cpu")
+    np.testing.assert_array_equal(labels, on_cpu.labels_)
+    q = _probes(pts)
+    np.testing.assert_array_equal(np.asarray(on_card.query(q)), np.asarray(on_cpu.query(q)))
+    assert on_card.comm_stats() == on_cpu.comm_stats()
+    snap = on_card.backend.snapshot()
+    assert snap.pts.device.type == snap.mask.device.type == snap.glabels.device.type == "cuda"
+
+
+def test_facade_default_device_is_the_card(cuda):
+    spec = spatial.PHASE2_LAYOUTS["rings"]
+    model = ddc_api.DDC(ddc_api.DDCConfig(eps=spec["eps"], backend="host", shards=2))
+    assert model.device.type == "cuda" and model.backend.device.type == "cuda"
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_facade_host_card_equals_cpu(cuda, k):
+    on_card, pts = _facade("host", k, "sync", "cuda", layout="linked_ovals")
+    on_cpu, _ = _facade("host", k, "sync", "cpu", layout="linked_ovals")
+    np.testing.assert_array_equal(on_card.labels_, on_cpu.labels_)
+    q = _probes(pts)
+    np.testing.assert_array_equal(np.asarray(on_card.query(q)), np.asarray(on_cpu.query(q)))
+    jit, _ = _facade("jit", k, "sync", "cuda", layout="linked_ovals")
+    assert ddc.same_clustering(on_card.labels_, jit.labels_)
+
+
+def test_facade_save_load_on_card(cuda, tmp_path):
+    model, pts = _facade("jit", 4, "tree", "cuda")
+    q = _probes(pts)
+    want = np.asarray(model.query(q))
+    model.save(str(tmp_path / "ckpt"))
+    for device in ("cuda", "cpu"):
+        restored = ddc_api.DDC.load(str(tmp_path / "ckpt"), device=device)
+        np.testing.assert_array_equal(restored.labels_, model.labels_)
+        np.testing.assert_array_equal(np.asarray(restored.query(q)), want)
+        assert restored.backend.refits == 0
+
+
+@pytest.mark.parametrize("n,cap,k", [(32, 64, 1), (256, 4096, 8), (17, 300, 3)])
+def test_snapshot_query_card_equals_cpu(cuda, n, cap, k):
+    """The snapshot query (plain torch, fma(dy, dy, dx·dx)) gives the same
+    labels on the card as on the CPU: ties, masked and noise rows."""
+    rng = np.random.default_rng(n + cap)
+    q = (0.5 + rng.integers(0, 1 << 22, (n, 2)) * 2.0 ** -24).astype(np.float32)
+    d = (rng.integers(1 << 15, 1 << 17, (n, 2)) * 2.0 ** -24).astype(np.float32)
+    pts = rng.uniform(0, 1, (k, cap, 2)).astype(np.float32)
+    flat = pts.reshape(-1, 2)
+    flat[0:2 * n:2] = q + d
+    flat[1:2 * n:2] = q + d[:, ::-1]
+    mask = rng.random((k, cap)) > 0.1
+    glab = rng.integers(-1, 7, (k, cap)).astype(np.int32)
+    args = [torch.tensor(a) for a in (q, pts, mask, glab)]
+    want = query_tier._snapshot_query(*args, 0.05)
+    got = query_tier._snapshot_query(*(a.to(cuda) for a in args), 0.05)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
