@@ -119,7 +119,32 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    builds an n × n float64 matrix); ``validate(sample=...)`` on 4,096
    points of the set, timed, its verdict printed; the fit's wall time
    beside the path's phase times, and the device's busy share over one
-   fit and one drain.
+   fit and one drain.  Then the stream engine (``stream_full_width``
+   line): ``DDC(DDCConfig(eps, min_pts=4, backend="stream", shards=8,
+   max_batch=256)).fit`` streams the set into 8 rings of 32,768 (B3, B4,
+   B5 square), then ``STREAM_ROUNDS`` rounds each ingest 4,096 points of
+   ``make_d2`` at ``DELTA_SEED`` into shard r mod 8 through
+   ``partial_fit`` (stamped with a fix clock; the full ring evicts its
+   oldest), refresh (one local phase, one rectangular B5 patch: checked
+   every round) and answer 256 probes through the engine's sync query;
+   every 8th round expires everything older than the clock minus
+   ``STREAM_WINDOW`` and refreshes the 8 dirty shards; a forced full
+   re-merge ends the path (launch counts zeroed before each part and
+   read after; B3, B4 and both B5 forms must have launched; the metered
+   bytes must be B + K·C·4 a round and K·B + K·C·4 for the full
+   re-merge).  Six checks: (a) the patched matrix equals B5's square
+   rebuild of the final batch and the full re-merge keeps labels and
+   matrix; (b) the labels equal the batch path (``local_phase`` on each
+   final ring, ``merge_many``); (c) the query tier's drain equals the sync
+   query; (d) ``state_dict`` → ``from_state`` on the card, then one more
+   round on both, equal; (e) shard 3's delta dropped beyond
+   ``max_retries`` quarantines it, a query near it routes around it
+   (degraded), and ``recover`` plus a refresh equal the restored twin of
+   (d); (f) a reduced run (``STREAM_SMALL``) equal on the card and on the
+   CPU in labels, matrix, answers, meter and ``state_dict``.  Printed:
+   fit s, ingest / refresh / query ms (p50, p99), the full re-merge's ms,
+   bytes, probes/s (sync and tier), launches a round, one refresh's
+   profile and busy share, peak memory.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -186,6 +211,26 @@ DELTA_DIRTY = (1, 3, 6)
 DELTA_ONE = 3
 DELTA_EXCLUDE = 5
 DELTA_SEED = 2
+# The stream engine at full width (stream_full_width): rounds of traffic
+# after the fit, each STREAM_ROUND_N new points of make_d2 at DELTA_SEED
+# into shard r mod 8 in chunks of STREAM_CHUNK (a full ring evicts as
+# many), a sync query of STREAM_PROBES probes; every STREAM_TTL_EVERY-th
+# round a TTL expiry of everything stamped older than the clock minus
+# STREAM_WINDOW.  The reduced card-vs-CPU run: STREAM_SMALL = (shards,
+# capacity, rounds, points a round), at STREAM_SMALL_EPS times the
+# full-width eps, block-sparse on both devices in tiles of
+# STREAM_SMALL_TILE (the CPU's plain dense DBSCAN would take 5–10 s a
+# local phase at 4,096 points; its plain sparse path takes about 1 s).
+STREAM_ROUNDS = 32
+STREAM_ROUND_N = 4096
+STREAM_CHUNK = 256
+STREAM_PROBES = 256
+STREAM_TTL_EVERY = 8
+STREAM_WINDOW = FULL_N - 8192
+STREAM_FAULT_SHARD = 3
+STREAM_SMALL = (4, 4096, 8, 1024)
+STREAM_SMALL_EPS = 2.0
+STREAM_SMALL_TILE = 128
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
 # The LM phase: three full-width models, each with the LM kernel whose
 # first-layer inputs its run captures for the per-kernel check.
@@ -1592,6 +1637,321 @@ def facade_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, sched_labels,
             "validate_sample": validate}
 
 
+def pct(xs, q: float) -> float:
+    """The q-quantile of ``xs`` (linear between order statistics)."""
+    xs = sorted(xs)
+    i = q * (len(xs) - 1)
+    lo = math.floor(i)
+    return xs[lo] + (xs[min(lo + 1, len(xs) - 1)] - xs[lo]) * (i - lo)
+
+
+def stream_probes(np, pts, eps, n: int, seed: int):
+    """Query probes: half fitted points, three eighths within ±eps of one,
+    one eighth outside the bounds."""
+    rng = np.random.default_rng(seed)
+    n_fit, n_near = n // 2, 3 * n // 8
+    near = pts[rng.integers(0, len(pts), n_near)] + rng.uniform(-eps, eps, (n_near, 2))
+    outside = rng.uniform(1.05, 1.5, (n - n_fit - n_near, 2))
+    return np.concatenate([pts[rng.choice(len(pts), n_fit, replace=False)], near,
+                           outside]).astype(np.float32)
+
+
+def stream_state(svc) -> dict:
+    """What two equal engines share: global labels, maps, the pair-d2
+    cache and the dense local labels, copied to the host (on the CPU a
+    bare ``.numpy()`` would alias tensors that later refreshes write in
+    place)."""
+    return {k: getattr(svc, k).to("cpu", copy=True).numpy()
+            for k in ("_glabels", "_maps", "_pair_d2", "_dense")}
+
+
+def states_equal(np, a: dict, b: dict) -> bool:
+    return all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def stream_reduced(torch, np, ddc, spatial, dev, eps: float) -> dict:
+    """The reduced stream run of check (f) on ``dev``: STREAM_SMALL's
+    shards and capacity, make_d2 Morton-sorted (spatially compact shards),
+    block-sparse DBSCAN in tiles of STREAM_SMALL_TILE on either device, a
+    round-robin fit, then rounds of new points into shard r mod K, each
+    refreshed and queried.  Returns everything the two devices must agree
+    on."""
+    from repro_torch.serve import cluster_service as cs
+
+    k, cap, rounds, per = STREAM_SMALL
+    pts = spatial.morton_sorted(spatial.make_d2(k * cap, seed=1))
+    new = spatial.morton_sorted(spatial.make_d2(rounds * per, seed=DELTA_SEED))
+    probes = stream_probes(np, pts, eps, STREAM_PROBES, 11)
+    scfg = cs.StreamConfig(shards=k, capacity=cap, max_batch=STREAM_CHUNK,
+                           ddc=ddc.DDCConfig(eps=eps, min_pts=4, block_sparse="always",
+                                             block_tile=STREAM_SMALL_TILE))
+    svc = cs.ClusterService(scfg, meter=ddc.CommMeter(), device=dev)
+    for shard, chunk in spatial.stream_batches(pts, k, STREAM_CHUNK):
+        svc.ingest(shard, chunk, t=0.0)
+    svc.refresh()
+    out = {"states": [stream_state(svc)], "answers": [svc.query(probes).labels]}
+    for r in range(rounds):
+        svc.ingest(r % k, new[r * per:(r + 1) * per], t=float(r + 1))
+        svc.refresh()
+        out["states"].append(stream_state(svc))
+        out["answers"].append(svc.query(probes).labels)
+    out["meter"] = svc.meter.snapshot()
+    out["state_dict"] = svc.state_dict()
+    out["clusters"] = int(svc.global_set.valid.sum())
+    return out
+
+
+def stream_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) -> dict:
+    """The stream engine through the facade at full width (see the module
+    docstring, phase 2's last item).  Returns its line."""
+    from repro_torch import ddc as T
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import faults
+    from repro_torch.serve import query_tier as qt
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = T.DDCConfig(eps=eps, min_pts=4, backend="stream", shards=LANES,
+                      max_batch=STREAM_CHUNK)
+    model = T.DDC(cfg, meter=ddc.CommMeter(), device=dev)
+    meter = model.backend.meter
+    core = cfg.core()
+    # The main path: the fit, the rounds and the forced full re-merge, the
+    # launch counts zeroed just before each and read just after.
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(pts)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = ops.launch_counts()
+    svc = model.service
+    if svc.scfg.capacity != FULL_N // LANES:
+        raise RuntimeError(f"stream: rings of {svc.scfg.capacity}, not {FULL_N // LANES}")
+    fit_bytes = meter.snapshot()["bytes_total"]
+    new = spatial.make_d2(FULL_N, seed=DELTA_SEED)
+    parts = np.array_split(np.arange(FULL_N), LANES)
+    probes = stream_probes(np, pts, eps, STREAM_PROBES, 9)
+    ingest_ms, refresh_ms, query_ms, round_launches, round_bytes = [], [], [], [], []
+    expiries = []
+    totals = dict(fit_launches)
+    clock = float(svc._next_seq)
+
+    def ingest_round(r):
+        """Round r's points, the next block of shard r mod 8's part of the
+        second set, stamped with the fix clock (one tick a point)."""
+        nonlocal clock
+        shard = r % LANES
+        block = new[parts[shard][(r // LANES) * STREAM_ROUND_N:][:STREAM_ROUND_N]]
+        for off in range(0, STREAM_ROUND_N, STREAM_CHUNK):
+            stamps = clock + np.arange(STREAM_CHUNK, dtype=np.float64)
+            model.partial_fit(shard, block[off:off + STREAM_CHUNK], t=stamps)
+            clock += STREAM_CHUNK
+
+    def one_round(r):
+        ops.reset_launch_counts()
+        meter.reset()
+        t0 = time.perf_counter()
+        ingest_round(r)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        svc.refresh()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model.query(probes)
+        t3 = time.perf_counter()
+        launches = ops.launch_counts()
+        ingest_ms.append((t1 - t0) * 1e3)
+        refresh_ms.append((t2 - t1) * 1e3)
+        query_ms.append((t3 - t2) * 1e3)
+        round_launches.append({k: v for k, v in launches.items() if v})
+        round_bytes.append(meter.snapshot()["bytes_total"])
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    for r in range(STREAM_ROUNDS):
+        one_round(r)
+        if r % STREAM_TTL_EVERY == STREAM_TTL_EVERY - 1:
+            cutoff = clock - STREAM_WINDOW
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            evicted = model.expire(cutoff)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n_dirty = len(svc._dirty)
+            svc.refresh()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = ops.launch_counts()
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            expiries.append({"round": r, "t": cutoff, "evicted": evicted,
+                             "dirty_shards": n_dirty, "expire_ms": (t1 - t0) * 1e3,
+                             "refresh_ms": (t2 - t1) * 1e3,
+                             "launches": {k: v for k, v in launches.items() if v}})
+            if evicted < 1:
+                raise RuntimeError(f"stream: the TTL expiry at round {r} evicted nothing")
+    # (a) the patched matrix against B5's square rebuild of the final batch,
+    # then the forced full re-merge (its launches join the main path's).
+    d2_delta = svc.pair_d2
+    labels_delta = svc._glabels.clone()
+    ops.reset_launch_counts()
+    meter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.refresh(mode="full", force=True)
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    full_bytes = meter.snapshot()["bytes_total"]
+    for k, v in ops.launch_counts().items():
+        totals[k] = totals.get(k, 0) + v
+    main_kernels = ("neighbor_count_sparse", "min_label_sweep_sparse", "contour_min_d2",
+                    "cross_min_d2")
+    if any(totals.get(k, 0) < 1 for k in main_kernels):
+        raise RuntimeError(f"stream: a kernel of the stream path never launched: {totals}")
+    # A one-shard round: one phase 1 (B3/B4, or B1/B2 where the lane's
+    # tile pairs fall back to dense) and one rectangular B5 patch.
+    if any(rl.get("cross_min_d2", 0) != 1 or "contour_min_d2" in rl
+           or rl.get("neighbor_count_sparse", 0) + rl.get("neighbor_count", 0) != 1
+           for rl in round_launches):
+        raise RuntimeError(f"stream: a one-shard round did not run one phase 1 and one "
+                           f"rectangular B5 patch: {round_launches}")
+    b_bytes, c = core.buffer_bytes(), core.max_clusters
+    want_delta, want_full = b_bytes + LANES * c * 4, LANES * b_bytes + LANES * c * 4
+    if set(round_bytes) != {want_delta} or full_bytes != want_full:
+        raise RuntimeError(f"stream: metered bytes {sorted(set(round_bytes))} / {full_bytes}, "
+                           f"expected {want_delta} / {want_full}")
+    square = ddc.contour_pair_d2(svc._batch, core)
+    delta_equals_full = bool(torch.equal(d2_delta, square)) \
+        and bool(torch.equal(svc._pair_d2, square)) and bool(torch.equal(svc._glabels,
+                                                                         labels_delta))
+    if not delta_equals_full:
+        raise RuntimeError("stream: the delta-patched pair_d2 or labels differ from the full "
+                           "re-merge's")
+    # (b) the batch path over the final rings.
+    dense, sets = [], []
+    for i in range(LANES):
+        d, cs_i = ddc.local_phase(svc._pts[i], svc._mask[i], core)
+        dense.append(d)
+        sets.append(cs_i)
+    _, maps_b = ddc.merge_many(ddc.stack_clustersets(sets), core)
+    labels_b = cs._global_labels(torch.stack(dense), torch.stack(svc._mask), maps_b)
+    matches_batch = bool(torch.equal(labels_b, svc._glabels))
+    if not matches_batch:
+        raise RuntimeError("stream: the streamed global labels differ from the batch path's")
+    # One more round's refresh under the profiler: its device time against
+    # the rounds' median refresh.
+    ingest_round(STREAM_ROUNDS)
+    prof = profile_fn(torch, svc.refresh, pct(refresh_ms, 0.5) / 1e3, top=8,
+                      require=("neighbor_count_sparse_sym_kernel", "min_label_sparse_sym_kernel"))
+    # (c) the query tier over the published snapshot against the sync query.
+    sync = model.query(probes)
+    tier = model.query_tier
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for part in np.array_split(probes, 8):
+        tier.submit(part)
+    drained = tier.drain()
+    tier_s = time.perf_counter() - t0
+    tier_labels = np.concatenate([r.labels for r in drained])
+    snapshot_matches_sync = bool(np.array_equal(tier_labels, sync.labels))
+    if not snapshot_matches_sync or drained[0].version != sync.version:
+        raise RuntimeError("stream: the tier's answers differ from the sync query's")
+    # (d) state_dict -> from_state on the card, then one more round on both.
+    arrays, manifest = svc.state_dict()
+    twin = cs.ClusterService.from_state(svc.scfg, arrays, manifest, device=dev)
+    restore_same = states_equal(np, stream_state(twin), stream_state(svc))
+    shard = (STREAM_ROUNDS + 1) % LANES
+    more = new[parts[shard][-STREAM_ROUND_N:]]
+    for e in (svc, twin):
+        e.ingest(shard, more)
+        e.refresh()
+    restore_bitexact = restore_same and states_equal(np, stream_state(twin), stream_state(svc))
+    if not restore_bitexact:
+        raise RuntimeError("stream: the restored engine differs from the original")
+    # (e) shard 3's delta dropped beyond max_retries: quarantine, routed
+    # queries, recovery, then the fault-free twin's state.
+    attempts = svc.scfg.max_retries + 2
+    svc.faults = faults.FaultPlan(events=(faults.FaultEvent(
+        "drop", shard=STREAM_FAULT_SHARD, delivery=None, attempts=attempts),))
+    more = new[parts[STREAM_FAULT_SHARD][-2 * STREAM_ROUND_N:-STREAM_ROUND_N]]
+    for e in (svc, twin):
+        e.ingest(STREAM_FAULT_SHARD, more)
+        e.refresh()
+    near3 = svc._hpts[STREAM_FAULT_SHARD][svc._live[STREAM_FAULT_SHARD]][:64]
+    routed = model.query(near3)
+    quarantined = dict(svc.quarantined)
+    svc.faults = None                       # the link heals; the shard rejoins
+    recovered = svc.recover(STREAM_FAULT_SHARD)
+    svc.refresh()
+    drill = {"quarantined": list(quarantined) == [STREAM_FAULT_SHARD],
+             "routed_around": routed.degraded and STREAM_FAULT_SHARD not in routed.scanned_shards,
+             "recovered": recovered and not svc.quarantined,
+             "state_equal": states_equal(np, stream_state(twin), stream_state(svc)),
+             "answers_equal": bool(np.array_equal(model.query(probes).labels,
+                                                  twin.query(probes).labels))}
+    recovered_bitexact = all(drill.values())
+    if not recovered_bitexact:
+        raise RuntimeError(f"stream: the fault drill failed: {drill}, quarantined "
+                           f"{quarantined}, routed {routed!r}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_clusters = int(svc.global_set.valid.sum())
+    del twin
+    # (f) the reduced run, on the card and on the CPU.
+    eps_small = eps * STREAM_SMALL_EPS
+    t0 = time.perf_counter()
+    small_card = stream_reduced(torch, np, ddc, spatial, dev, eps_small)
+    t1 = time.perf_counter()
+    small_cpu = stream_reduced(torch, np, ddc, spatial, "cpu", eps_small)
+    t2 = time.perf_counter()
+    (ca, cm), (pa, pm) = small_card["state_dict"], small_cpu["state_dict"]
+    diffs = [f"refresh {i} {k}: {int((a[k] != b[k]).sum())}"
+             for i, (a, b) in enumerate(zip(small_card["states"], small_cpu["states"]))
+             for k in a if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+    diffs += [f"answers {i}: {int((a != b).sum())}"
+              for i, (a, b) in enumerate(zip(small_card["answers"], small_cpu["answers"]))
+              if not np.array_equal(a, b)]
+    diffs += [f"state_dict {k}" for k in sorted(set(ca) | set(pa))
+              if k not in ca or k not in pa or ca[k].dtype != pa[k].dtype
+              or not np.array_equal(ca[k], pa[k])]
+    diffs += ["meter"] * (small_card["meter"] != small_cpu["meter"]) + ["manifest"] * (cm != pm)
+    card_equals_cpu = not diffs
+    if not card_equals_cpu:
+        raise RuntimeError(f"stream: the reduced run on the card differs from the CPU's: "
+                           f"{diffs[:20]}")
+    sync_probes_per_s = STREAM_PROBES / (pct(query_ms, 0.5) / 1e3)
+    return {
+        "card": card, "n": FULL_N, "shards": LANES, "capacity": svc.scfg.capacity,
+        "eps": eps, "min_pts": 4, "max_batch": STREAM_CHUNK, "rounds": STREAM_ROUNDS,
+        "round_points": STREAM_ROUND_N, "probes": STREAM_PROBES, "fit_s": fit_s,
+        "fit_bytes": fit_bytes, "fit_launches": {k: v for k, v in fit_launches.items() if v},
+        "ingest_ms": {"p50": pct(ingest_ms, 0.5), "p99": pct(ingest_ms, 0.99)},
+        "refresh_ms": {"p50": pct(refresh_ms, 0.5), "p99": pct(refresh_ms, 0.99),
+                       "max": max(refresh_ms)},
+        "query_ms": {"p50": pct(query_ms, 0.5), "p99": pct(query_ms, 0.99)},
+        "full_remerge_ms": full_ms, "delta_bytes": round_bytes[0], "full_bytes": full_bytes,
+        "bytes_ratio": full_bytes / round_bytes[0],
+        "sync_probes_per_s": sync_probes_per_s, "tier_probes_per_s": STREAM_PROBES / tier_s,
+        "tier_launches": tier.query_launches,
+        "launches_per_round": round_launches[0], "launches_per_round_all_equal":
+            all(rl == round_launches[0] for rl in round_launches),
+        "b4_launches_per_round": [rl.get("min_label_sweep_sparse", 0) for rl in round_launches],
+        "main_path_launches": {k: v for k, v in totals.items() if v},
+        "expiries": expiries, "profile_refresh": prof, "peak_bytes": peak,
+        "n_clusters": n_clusters, "n_live": svc.n_live(),
+        "checks": {"delta_equals_full": delta_equals_full, "matches_batch": matches_batch,
+                   "snapshot_matches_sync": snapshot_matches_sync,
+                   "restore_bitexact": restore_bitexact,
+                   "recovered_bitexact": recovered_bitexact,
+                   "card_equals_cpu": card_equals_cpu},
+        "reduced": {"shards": STREAM_SMALL[0], "capacity": STREAM_SMALL[1],
+                    "rounds": STREAM_SMALL[2], "round_points": STREAM_SMALL[3],
+                    "eps": eps_small, "block_tile": STREAM_SMALL_TILE,
+                    "clusters": small_card["clusters"],
+                    "card_s": t1 - t0, "cpu_s": t2 - t1},
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -1904,6 +2264,12 @@ def main() -> int:
     print(json.dumps({"facade_full_width": facade_full_width(
         torch, np, ddc, ops, spatial, dev, eps, pts, sched_labels, ts,
         card.splitlines()[0])}), flush=True)
+    torch.cuda.empty_cache()
+
+    # The stream engine at full width: DDC(DDCConfig(backend="stream")).fit,
+    # rounds of ingest / refresh / query, TTL expiry, its six checks.
+    print(json.dumps({"stream_full_width": stream_full_width(
+        torch, np, ddc, ops, spatial, dev, eps, pts, card.splitlines()[0])}), flush=True)
     torch.cuda.empty_cache()
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------

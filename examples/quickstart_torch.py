@@ -18,11 +18,15 @@ The canonical snippet — one config, one facade, either backend:
 
 ``--backend host`` is the paper-faithful NumPy oracle (its read snapshot
 and queries on the device), ``jit`` the one-device pipeline on the
-port's kernels (sync/async/tree schedules).  Both produce the same global
-clustering.  ``stream`` and ``dist`` have no port yet and are refused.
+port's kernels (sync/async/tree schedules), ``stream`` the online serve
+engine (ring-buffer ingest, dirty-shard phase 1, exact delta merge; its
+rings on the device).  All three produce the same global clustering.
+``dist`` has no port yet and is refused; so is the stream engine's
+cluster tracking, which the reference's quickstart also shows.
 
   PYTHONPATH=src python examples/quickstart_torch.py --backend host
   PYTHONPATH=src python examples/quickstart_torch.py --backend jit --shards 8
+  PYTHONPATH=src python examples/quickstart_torch.py --backend stream
   PYTHONPATH=src python examples/quickstart_torch.py --backend jit --device cpu
 """
 import argparse
@@ -72,6 +76,8 @@ def main():
 
     print(f"== DDC on D1-like dataset (n={n}, backend={cfg.backend}, "
           f"{k} shards, device={args.device}) ==")
+    # t=0.0 stamps the batch for TTL eviction (stream backend; ignored by
+    # the batch backends).
     model.fit(pts, t=0.0)
     glabels = model.labels_
     print(f"global clusters: {model.n_clusters_}   "
@@ -110,6 +116,11 @@ def main():
           f"{st.counters.query_launches} launches "
           f"({st.counters.coalesced_requests} coalesced), "
           f"p.version={handles[-1].result.version}")
+
+    if cfg.backend == "stream":
+        # Streaming extras: timestamped writes and TTL eviction.
+        model.partial_fit(0, pts[:64], t=1.0)
+        model.expire(t=0.0)              # nothing older than t=0 yet
 
     # A snapshot of the fitted model restores without a refit.
     with tempfile.TemporaryDirectory() as d:

@@ -249,3 +249,45 @@ PARITY_CASES |= {
            spec["grid"], spec["max_verts"], spec["max_clusters"])
     for name, spec in PHASE2_LAYOUTS.items()
 }
+
+
+def shard_capacity(n: int, shards: int) -> int:
+    """Ring slots per shard so a block partition of ``n`` points fits
+    exactly: the largest ``np.array_split`` part, i.e. ceil(n/shards).
+    The one sizing rule shared by the stream backend and the equivalence
+    tests."""
+    return max(-(-n // shards), 1)
+
+
+def stream_batches(pts: np.ndarray, shards: int, batch: int,
+                   order: str = "round_robin", seed: int | None = None):
+    """Deterministic ingest schedule for the streaming serve engine.
+
+    Block-partitions ``pts`` into ``shards`` contiguous parts (the same
+    ``np.array_split`` ``ddc_host`` uses, so streaming≡batch equivalence
+    compares identical per-shard memberships), slices each part into
+    ``batch``-point chunks, and returns a list of (shard, chunk) pairs:
+
+    * ``round_robin`` — interleave shards chunk-by-chunk (steady traffic
+      touching every shard in turn);
+    * ``sequential`` — all of shard 0's chunks, then shard 1's, …;
+    * ``shuffled`` — a ``seed``-deterministic permutation of the chunks.
+
+    Any order yields the same final per-shard point sets.
+    """
+    parts = np.array_split(np.arange(len(pts)), shards)
+    per_shard = [
+        [(s, pts[idx[o:o + batch]]) for o in range(0, len(idx), batch)]
+        for s, idx in enumerate(parts)
+    ]
+    if order == "sequential":
+        return [c for chunks in per_shard for c in chunks]
+    rounds = max((len(c) for c in per_shard), default=0)
+    interleaved = [chunks[r] for r in range(rounds)
+                   for chunks in per_shard if r < len(chunks)]
+    if order == "round_robin":
+        return interleaved
+    if order == "shuffled":
+        rng = np.random.default_rng(seed)
+        return [interleaved[i] for i in rng.permutation(len(interleaved))]
+    raise ValueError(order)

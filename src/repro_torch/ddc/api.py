@@ -8,14 +8,15 @@ Counterpart of the reference package's ``ddc/api.py``::
     cfg = DDCConfig(eps=0.02, min_pts=5, backend="jit", shards=8
                     ).validate(sample=pts)
     model = DDC(cfg).fit(pts)            # batch fit, on the card
-    model.partial_fit(shard=3, batch=new_pts)   # buffered write
+    model.partial_fit(shard=3, batch=new_pts)   # buffered (stream: ingested)
     model.labels_                        # global labels of fitted points
     model.query(probes)                  # point -> global cluster id
     model.comm_stats()                   # exact wire-byte accounting
     model.save("ckpt/"); DDC.load("ckpt/")   # bit-identical resume
 
-The backend (``host`` | ``jit``) is a config knob; both produce the
-identical global clustering on the same per-shard membership.  Configs
+The backend (``host`` | ``jit`` | ``stream``) is a config knob; all
+three produce the identical global clustering on the same per-shard
+membership.  Configs
 are validated at construction (``DDCConfig.validate``), so
 schedule/backend mismatches and DESIGN.md §7 sizing violations fail
 loudly before any work runs.  ``device`` is an argument, not a config

@@ -13,10 +13,15 @@ rewrite.
   2 under the configured schedule (sync / async / tree), which gives the
   reference's collectives' result lane for lane.
 
-The streaming backends (``stream``, ``dist``) are known names whose
-engines have no port yet (``UNPORTED``): ``DDCConfig.validate`` applies
-their rules, and constructing a ``DDC`` with either raises
-``ConfigError``.
+* ``stream`` — wraps ``repro_torch.serve.cluster_service.ClusterService``:
+  ring-buffer ingest, dirty-shard phase 1, exact delta merge, TTL
+  eviction, the failure model and bit-identical snapshot/restore, its
+  buffers on the backend's device.  Only its flat aggregator is ported:
+  ``agg_degree`` and ``track=True`` are refused until their slice lands.
+
+``dist`` is a known name whose engine has no port yet (``UNPORTED``):
+``DDCConfig.validate`` applies its rules, and constructing a ``DDC`` with
+it raises ``ConfigError``.
 
 Both batch backends consume the same per-shard membership (the block
 ``np.array_split`` partition), so they produce the identical global
@@ -35,15 +40,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import ddc as core_ddc
+from repro_torch.data import spatial
 from repro_torch.ddc.config import ConfigError, DDCConfig
+from repro_torch.serve import cluster_service
 from repro_torch.serve import query_tier as qt
 
 BACKENDS: Dict[str, Type["Backend"]] = {}
 
 # Backend names the reference registers whose engines are not ported yet:
-# the streaming serve engine and its device-resident edition.
+# the stream engine's device-resident edition.
 UNPORTED = {
-    "stream": "the streaming serve engine (ROADMAP A7)",
     "dist": "the device-resident dist engine (ROADMAP A8)",
 }
 
@@ -63,7 +69,7 @@ def backend_class(name: str) -> Type["Backend"]:
     if name in UNPORTED:
         raise ConfigError(
             f"backend {name!r} has no port yet: {UNPORTED[name]} is still to "
-            f"be ported; use backend='host' or 'jit'")
+            f"be ported; use backend='host', 'jit' or 'stream'")
     return BACKENDS[name]
 
 
@@ -433,3 +439,138 @@ class JitBackend(_BufferedBatchBackend):
         flat = glabels.cpu().numpy().reshape(k, cap)
         return np.concatenate(
             [flat[s, :n] for s, n in enumerate(lens)]).astype(np.int32)
+
+
+@register_backend("stream")
+class StreamBackend(Backend):
+    """The online serve engine: ring-buffer ingest, dirty-shard phase 1,
+    exact delta-merge, bbox-routed point queries, TTL eviction, and
+    bit-identical snapshot/restore, its buffers on the backend's device.
+    ``fit`` streams the batch in; ``partial_fit`` is the native write
+    path."""
+
+    def __init__(self, cfg: DDCConfig, meter=None, faults=None, *, device="cuda"):
+        reason = cluster_service.unported_reason(cfg.agg_degree, cfg.track)
+        if reason:
+            raise ConfigError(f"backend {self.name!r} with {reason}")
+        super().__init__(cfg, meter, faults=faults, device=device)
+        self._svc: Optional[cluster_service.ClusterService] = None
+
+    @property
+    def service(self) -> cluster_service.ClusterService:
+        """The underlying service engine (built lazily: the ring capacity
+        may be sized by the first ``fit``)."""
+        if self._svc is None:
+            if self.cfg.capacity is None:
+                raise ConfigError(
+                    f"backend={self.name!r} with partial_fit before fit "
+                    f"needs an explicit capacity in DDCConfig (fit() would "
+                    f"size it from the batch)")
+            self._svc = self._build(self.cfg.capacity)
+        return self._svc
+
+    def _stream_config(self, capacity: int) -> cluster_service.StreamConfig:
+        cfg = self.cfg
+        return cluster_service.StreamConfig(
+            shards=cfg.shards, capacity=capacity,
+            max_batch=min(cfg.max_batch, capacity),
+            max_queries=cfg.max_queries,
+            merge_mode=cfg.merge_mode,
+            max_retries=cfg.max_retries,
+            retry_backoff=cfg.retry_backoff,
+            journal_limit=cfg.journal_limit,
+            agg_degree=cfg.agg_degree,
+            track=cfg.track,
+            track_history=cfg.track_history,
+            match_min_overlap=cfg.match_min_overlap,
+            ddc=cfg.core())
+
+    def _build(self, capacity: int) -> cluster_service.ClusterService:
+        return cluster_service.ClusterService(
+            self._stream_config(capacity), meter=self.meter, faults=self.faults,
+            device=self.device)
+
+    def fit(self, points: np.ndarray, t: float | None = None) -> None:
+        pts = np.asarray(points, np.float32).reshape(-1, 2)
+        k = self.cfg.shards
+        cap = self.cfg.capacity or spatial.shard_capacity(len(pts), k)
+        self._svc = self._build(cap)
+        batch = min(self.cfg.max_batch, cap)
+        for shard, chunk in spatial.stream_batches(pts, k, batch):
+            self._svc.ingest(shard, chunk, t=t)
+        self._svc.refresh()
+
+    def partial_fit(self, shard, batch, t=None) -> None:
+        self.service.ingest(shard, batch, t=t)
+
+    def expire(self, t: float) -> int:
+        return sum(self.service.evict_older_than(s, t) for s in range(self.cfg.shards))
+
+    def tracks(self):
+        raise ConfigError(
+            "cluster tracking is disabled for this model; construct "
+            "with DDCConfig(track=True, backend='stream'|'dist') to "
+            "assign stable track IDs at refresh")
+
+    def labels(self) -> np.ndarray:
+        return self.service.live()[2]
+
+    def points(self) -> np.ndarray:
+        return self.service.live()[0]
+
+    def parts(self) -> List[np.ndarray]:
+        return self.service.live()[1]
+
+    def query(self, points: np.ndarray, legacy: bool = False):
+        return self.service.query(points, legacy=legacy)
+
+    # -- snapshot-versioned reads (delegate to the serve engine) -----------
+
+    def snapshot(self):
+        return self._svc.snapshot() if self._svc is not None else None
+
+    def read_snapshot(self):
+        if self._svc is None and self.cfg.capacity is None:
+            return None          # nothing fitted, nothing to publish
+        return self.service.read_snapshot()
+
+    @property
+    def quarantined(self) -> dict:
+        return self._svc.quarantined if self._svc is not None else {}
+
+    def service_stats(self):
+        if self._svc is None:
+            return qt.ServiceStats(
+                backend=self.name, counters=qt.ServiceCounters(),
+                gauges=qt.ServiceGauges(shards=self.cfg.shards),
+                comm=self.meter.snapshot())
+        return self.service.service_stats(tier=getattr(self, "_tier", None))
+
+    def comm_stats(self) -> dict:
+        if self._svc is None:
+            return {"backend": self.name} | self.meter.snapshot()
+        return self.service_stats().comm_dict()
+
+    def state(self) -> tuple[dict, dict]:
+        return self.service.state_dict()
+
+    def load_state(self, arrays, manifest) -> None:
+        cfg = self.cfg
+        scfg = cluster_service.StreamConfig(
+            shards=int(manifest["shards"]),
+            capacity=int(manifest["capacity"]),
+            max_batch=int(manifest["max_batch"]),
+            max_queries=int(manifest["max_queries"]),
+            merge_mode=manifest["merge_mode"],
+            max_retries=int(manifest.get("max_retries", cfg.max_retries)),
+            retry_backoff=float(manifest.get("retry_backoff", cfg.retry_backoff)),
+            journal_limit=int(manifest.get("journal_limit", cfg.journal_limit)),
+            agg_degree=manifest.get("agg_degree", cfg.agg_degree),
+            track=bool(manifest.get("track", cfg.track)),
+            track_history=int(manifest.get("track_history", cfg.track_history)),
+            match_min_overlap=float(manifest.get("match_min_overlap",
+                                                 cfg.match_min_overlap)),
+            ddc=cfg.core())
+        self._svc = cluster_service.ClusterService.from_state(
+            scfg, arrays, manifest, meter=self.meter, faults=self.faults,
+            device=self.device)

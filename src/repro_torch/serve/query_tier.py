@@ -251,10 +251,18 @@ def _snapshot_query(q, pts, mask, glabels, eps):
     d2 = fma(dy, dy, dx·dx), rounded once, as the jitted reference
     computes it; 1e30 where the row is not a clustered live point; the
     first index of a tie wins (``jnp.argmin``'s rule); a hit is d2 <= eps²
-    with eps² a float32 product.  The query rows go in chunks of
+    with eps² a float32 product."""
+    _LAUNCH_SHAPES.add((int(q.shape[0]), int(pts.shape[0]), int(pts.shape[1])))
+    return nearest_labels(q, pts, mask, glabels, eps)
+
+
+def nearest_labels(q, pts, mask, glabels, eps):
+    """The flat argmin behind ``_snapshot_query`` and the stream engine's
+    synchronous query: per row of ``q``, the global label of the nearest
+    clustered live row of ``pts`` (any leading shard axis, flattened in
+    order) if it lies within eps, else -1.  The query rows go in chunks of
     ``PAIR_CHUNK`` pair tests, which bounds the float64 temporaries of
     ``fma_f32`` and changes no argmin (each row is its own reduction)."""
-    _LAUNCH_SHAPES.add((int(q.shape[0]), int(pts.shape[0]), int(pts.shape[1])))
     flat = pts.reshape(-1, 2)
     ok = (mask & (glabels >= 0)).reshape(-1)
     flab = glabels.reshape(-1)

@@ -176,7 +176,8 @@ def test_sizing_probe_matches_reference(layout, over, match):
 
 
 def test_backend_names_and_unported_engines():
-    assert set(T.BACKENDS) == {"host", "jit"}
+    assert set(T.BACKENDS) == {"host", "jit", "stream"}
+    assert set(T.UNPORTED) == {"dist"}
     assert set(T.BACKENDS) | set(T.UNPORTED) == set(J.BACKENDS)
     for name in T.UNPORTED:
         cfg = T.DDCConfig(backend=name, capacity=256).validate()
@@ -479,9 +480,10 @@ def test_scenarios_and_simulation_equal_reference(which):
 
 
 def test_quickstart_torch_ends_like_the_reference():
-    """examples/quickstart_torch.py on the CPU (host backend, a smaller
-    set): exit 0, the MATCH line, a bit-identical restore, and the
-    reference's sync-vs-async table, computed here from its modules."""
+    """examples/quickstart_torch.py on the CPU (host and stream backends,
+    a smaller set): exit 0, the MATCH line, a bit-identical restore, and
+    the reference's sync-vs-async table, computed here from its modules;
+    ``--backend dist`` is refused."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
                            "--backend", "host", "--n", "3000", "--device", "cpu"],
@@ -502,6 +504,14 @@ def test_quickstart_torch_ends_like_the_reference():
                               "--backend", "dist", "--n", "600", "--device", "cpu"],
                              capture_output=True, text=True, timeout=300, env=env)
     assert refused.returncode != 0 and "no port yet" in refused.stderr
+    streamed = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+                               "--backend", "stream", "--n", "3000", "--device", "cpu"],
+                              capture_output=True, text=True, timeout=300, env=env)
+    assert streamed.returncode == 0, streamed.stdout + streamed.stderr
+    slines = streamed.stdout.splitlines()
+    assert any(line.endswith("-> MATCH") for line in slines), streamed.stdout
+    assert "snapshot -> restore: labels bit-identical = True" in slines
+    assert slines[-2:] == table
     assert math.isfinite(float(lines[-1].split("async")[1].split("ms")[0]))
 
 

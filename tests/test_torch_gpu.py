@@ -1006,3 +1006,84 @@ def test_snapshot_query_card_equals_cpu(cuda, n, cap, k):
     want = query_tier._snapshot_query(*args, 0.05)
     got = query_tier._snapshot_query(*(a.to(cuda) for a in args), 0.05)
     assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def _stream_run(device, layout, k):
+    """One call sequence through the stream engine on ``device``: fit-style
+    round-robin ingest, a refresh after every round, an eviction, a TTL
+    expiry, a forced full re-merge and queries.  Returns what it saw."""
+    from repro_torch.serve import cluster_service as cs
+
+    spec = spatial.PHASE2_LAYOUTS[layout]
+    pts = spec["make"](2048)
+    cfg = ddc.DDCConfig(**{f: spec[f] for f in ("eps", "min_pts", "grid", "max_verts",
+                                                "max_clusters")})
+    scfg = cs.StreamConfig(shards=k, capacity=spatial.shard_capacity(2048, k), max_batch=128,
+                           ddc=cfg)
+    svc = cs.ClusterService(scfg, meter=ddc.CommMeter(), device=device)
+    seen = []
+    for i, (shard, chunk) in enumerate(spatial.stream_batches(pts, k, 128)):
+        svc.ingest(shard, chunk, t=float(i))
+        if i % k == k - 1:
+            svc.refresh()
+            seen.append((svc._glabels.cpu().numpy(), svc.pair_d2.cpu().numpy()))
+    svc.evict_oldest(1, 50)
+    svc.refresh()
+    svc.evict_older_than(2, 3.0)
+    seen.append(svc.query(pts[::3]).labels)
+    svc.refresh(mode="full", force=True)
+    seen.append((svc._glabels.cpu().numpy(), svc.pair_d2.cpu().numpy()))
+    arrays, manifest = svc.state_dict()
+    back = cs.ClusterService.from_state(scfg, arrays, manifest, device=device)
+    seen.append(back.query(pts[::5]).labels)
+    return seen, svc.meter.snapshot(), arrays, manifest
+
+
+@pytest.mark.parametrize("layout", ["rings", "linked_ovals"])
+def test_stream_engine_card_equals_cpu(cuda, layout):
+    """The stream engine on the card gives the CPU's labels, pair-d2,
+    answers, meter counts and state_dict arrays, bit for bit, at K 4."""
+    ops.reset_launch_counts()
+    card = _stream_run(cuda, layout, 4)
+    counts = ops.launch_counts()
+    cpu = _stream_run("cpu", layout, 4)
+    assert counts["contour_min_d2"] >= 2 and counts["cross_min_d2"] >= 1
+    for a, b in zip(card[0], cpu[0]):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y)
+    assert card[1] == cpu[1]
+    assert sorted(card[2]) == sorted(cpu[2]) and card[3] == cpu[3]
+    for key in card[2]:
+        assert card[2][key].dtype == cpu[2][key].dtype, key
+        np.testing.assert_array_equal(card[2][key], cpu[2][key], err_msg=key)
+
+
+def test_stream_engine_fault_recovery_on_card(cuda):
+    """A lane killed on the card: quarantine, writes journaled during the
+    outage, journal recovery, then the fault-free engine's labels, pair-d2
+    and answers, bit for bit."""
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import faults
+
+    spec = spatial.PHASE2_LAYOUTS["rings"]
+    pts = spec["make"](2048)
+    cfg = ddc.DDCConfig(**{f: spec[f] for f in ("eps", "min_pts", "grid", "max_verts",
+                                                "max_clusters")})
+    scfg = cs.StreamConfig(shards=4, capacity=512, max_batch=128, ddc=cfg)
+    plan = faults.FaultPlan(events=(faults.FaultEvent("kill", shard=3),))
+    hit = cs.ClusterService(scfg, faults=plan, device=cuda)
+    clean = cs.ClusterService(scfg, device=cuda)
+    for svc in (hit, clean):
+        for shard, chunk in spatial.stream_batches(pts[:1536], 4, 128):
+            svc.ingest(shard, chunk)
+        svc.refresh()
+    assert 3 in hit.quarantined and not hit._mask[3].any()
+    for svc in (hit, clean):
+        svc.ingest(3, pts[1536:])
+        svc.refresh()
+    assert hit.recover(3)
+    hit.refresh()
+    assert not hit.quarantined
+    np.testing.assert_array_equal(hit.pair_d2.cpu().numpy(), clean.pair_d2.cpu().numpy())
+    np.testing.assert_array_equal(hit._glabels.cpu().numpy(), clean._glabels.cpu().numpy())
+    np.testing.assert_array_equal(hit.query(pts[::3]).labels, clean.query(pts[::3]).labels)

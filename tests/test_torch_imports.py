@@ -50,7 +50,8 @@ def test_every_submodule_listed():
             "repro_torch.configs.mamba2_1_3b", "repro_torch.serve.engine",
             "repro_torch.ddc", "repro_torch.ddc.api", "repro_torch.ddc.backends",
             "repro_torch.ddc.config", "repro_torch.serve.query_tier",
-            "repro_torch.serve.faults", "repro_torch.core.simulate"} <= names
+            "repro_torch.serve.faults", "repro_torch.core.simulate",
+            "repro_torch.serve.cluster_service", "repro_torch.serve.journal"} <= names
     for name in names:
         importlib.import_module(name)
 
