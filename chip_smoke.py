@@ -145,6 +145,39 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    fit s, ingest / refresh / query ms (p50, p99), the full re-merge's ms,
    bytes, probes/s (sync and tier), launches a round, one refresh's
    profile and busy share, peak memory.
+   Then the tree of aggregators (``hierarchy_full_width`` line): the same
+   262,144 points of ``make_d2``, Morton-sorted, in 64 rings of 4,096 on
+   ``UNCUT`` (32 clusters), fed alike to three ``ClusterService``s — the
+   flat aggregator and trees of degree 4 (depth 3, 21 nodes) and 2 (depth
+   6, 63 nodes); after the fit, 16 rounds of 1,024 points into shard
+   r·4 mod 64 (from that shard's block of a Morton-sorted ``make_d2`` at
+   ``DELTA_SEED``), every 4th round a TTL expiry of the next 64 fit stamps
+   of every shard.  After every refresh both trees' labels, maps, ``valid``
+   and ``sizes`` must equal the flat engine's bit for bit, and no local
+   contour, node summary or global contour may fill ``max_verts`` (where
+   the tree's equivalence is not promised; the largest is printed); the
+   data must hold at least 3 global clusters; at the end every node cache
+   equals its rebuild.  Then ``BENCH_hierarchy.json``'s 10 rows (16–256
+   shards × degree 2 and 4, ``benchmarks/hierarchy.py``'s refresh
+   sequence) on the card, their hardware-free fields equal to the file.
+   Printed per topology: refresh ms p50 / p99, folds, absorbed folds and
+   the busiest node's bytes a round, metered bytes a refresh, B3 / B4 /
+   B5 (rectangular, square) launches in the fit, the rounds and the
+   expiries, and one more round's refresh under the profiler.  Then
+   cluster tracking (``tracking_full_width`` line): 8 blobs drifting in
+   separate lanes (``make_drifting_blobs``, 32,768 points a frame, 24
+   frames) played through ``DDC(DDCConfig(backend="stream", shards=8,
+   track=True, ...))`` with ``tracking.play`` (window 7: rings of 32,768,
+   229,376 points live at each refresh), flat and with the tree of degree
+   2; the two tracker states must be bit-identical, as must a save at
+   frame 12, ``DDC.load`` on the card and the resumed run, and the same
+   frames under ``ops.FORCE = "ref"``; 8 births and no other event, ID
+   stability 1.0, and every track's velocity within 5e-3 of the true one.
+   Printed: refresh ms p50, tracker update ms (mean, last), B5
+   rectangular launches a generation, ``_global_d2``'s time at 256 × 256
+   slots.  B5's rectangular entry in the kernels line adds its time at the
+   tracker's shape and at a node fold's shape (a leaf's first child's 32
+   rows against the leaf's D·32 slots), each beside the launch floor.
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -231,6 +264,49 @@ STREAM_FAULT_SHARD = 3
 STREAM_SMALL = (4, 4096, 8, 1024)
 STREAM_SMALL_EPS = 2.0
 STREAM_SMALL_TILE = 128
+# The tree of aggregators at full width (hierarchy_full_width): make_d2 at
+# FULL_N, Morton-sorted, in HIER_SHARDS rings of HIER_SHARD_N (each shard a
+# compact region, as a spatial partitioner gives it), on UNCUT (no local or
+# node contour fills max_verts, where tree == flat is promised); the flat
+# aggregator and trees of the HIER_DEGREES fed the same calls.  After the
+# fit, HIER_ROUNDS rounds each ingest HIER_ROUND_N points of the same
+# shard's block of a Morton-sorted make_d2 at DELTA_SEED into shard
+# r * 4 mod HIER_SHARDS (the full ring evicts as many); every
+# HIER_TTL_EVERY-th round expires the next HIER_TTL_STEP fit stamps of
+# every shard (the fit stamps each point with its place in its block).
+HIER_SHARDS = 64
+HIER_SHARD_N = FULL_N // HIER_SHARDS
+HIER_DEGREES = (4, 2)
+HIER_ROUNDS = 16
+HIER_ROUND_N = 1024
+HIER_TTL_EVERY = 4
+HIER_TTL_STEP = 64
+# benchmarks/hierarchy.py's workload: its blob layout, configuration and
+# BENCH_hierarchy.json's hardware-free fields.
+BENCH_HIER_N = 8192
+BENCH_HIER_BLOBS = 8
+BENCH_HIER_CFG = dict(eps=0.03, min_pts=3, grid=48, max_clusters=8, max_verts=24)
+BENCH_HIER_FIELDS = ("depth", "n_nodes", "n_clusters", "flat_refresh_bytes",
+                     "hier_refresh_bytes", "flat_churn_bytes", "hier_churn_bytes",
+                     "flat_bottleneck_bytes", "hier_bottleneck_bytes", "buffer_bytes",
+                     "absorbed_steady", "maps_match", "valid_match", "sizes_match",
+                     "root_d2_exact", "overflow")
+# Cluster tracking at full width (tracking_full_width): BENCH_tracking.json's
+# scaling row (eps 0.015, min_pts 3, grid 96, max_verts 96; 8 blobs of
+# radius 0.02 moving 0.01 a step) at TRACK_FRAME_N points a frame in
+# TRACK_SHARDS shards, TRACK_WINDOW + 1 frames live; 32 clusters a shard,
+# so the tracker matches 256 × 256 slots.  Block-sparse DBSCAN on every
+# run: the plain run (ops.FORCE = "ref", where "auto" takes the dense
+# path) then takes the kernel run's path.
+TRACK_STEPS = 24
+TRACK_FRAME_N = 32_768
+TRACK_BLOBS = 8
+TRACK_SHARDS = 8
+TRACK_WINDOW = 7
+TRACK_CFG = dict(eps=0.015, min_pts=3, grid=96, max_verts=96, max_clusters=32,
+                 block_sparse="always")
+TRACK_RESUME_AT = 12
+TRACK_V_TOL = 5e-3   # tests/test_tracking.py::test_velocity_and_heading_match_ground_truth
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
 # The LM phase: three full-width models, each with the LM kernel whose
 # first-layer inputs its run captures for the per-kernel check.
@@ -1952,6 +2028,433 @@ def stream_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) ->
         "phase_s": time.perf_counter() - t_phase}
 
 
+def bench_hierarchy_points(np, seed: int):
+    """benchmarks/hierarchy.py's blob layout (8 Gaussian clusters)."""
+    rng = np.random.default_rng(seed)
+    centers = [(0.18 + 0.32 * (i % 3), 0.18 + 0.32 * (i // 3)) for i in range(BENCH_HIER_BLOBS)]
+    per = BENCH_HIER_N // BENCH_HIER_BLOBS
+    pts = np.concatenate([c + rng.normal(scale=0.018, size=(per, 2)) for c in centers])
+    return np.clip(pts, 0.01, 0.99).astype(np.float32)
+
+
+def bench_hierarchy_batches(torch, np, ddc, k: int, dev):
+    """benchmarks/hierarchy.py's shard batch at ``k`` shards (contiguous
+    partition, one ``local_phase`` a shard) and its churn variant (shard 0
+    from the seed-1 layout)."""
+    cfg = ddc.DDCConfig(**BENCH_HIER_CFG)
+
+    def sets(pts, only=None):
+        slices = np.array_split(pts, k)
+        cap = max(len(s) for s in slices)
+        out = []
+        for sl in slices[:only]:
+            buf = np.zeros((cap, 2), np.float32)
+            buf[:len(sl)] = sl
+            mask = np.zeros((cap,), bool)
+            mask[:len(sl)] = True
+            out.append(ddc.local_phase(torch.from_numpy(buf).to(dev),
+                                       torch.from_numpy(mask).to(dev), cfg)[1])
+        return out
+
+    batch = ddc.stack_clustersets(sets(bench_hierarchy_points(np, 0)))
+    alt0 = sets(bench_hierarchy_points(np, 1), only=1)[0]
+    batch_alt = ddc.ClusterSet(*(b.clone() for b in batch))
+    for b, a in zip(batch_alt, alt0):
+        b[0] = a
+    return cfg, batch, batch_alt
+
+
+def bench_hierarchy_row(torch, ddc, hierarchy, cfg, batch, batch_alt, k: int, degree: int,
+                        dev) -> dict:
+    """One row of BENCH_hierarchy.json, its hardware-free fields: the
+    refresh sequence of benchmarks/hierarchy.py (the cold build, steady
+    one-dirty refreshes of shard 0, churn toggles of shard 0 between the
+    two batches, a last steady refresh) through the flat fold and the
+    port's ``AggregatorTree``.  The benchmark's timing loops repeat
+    refreshes that leave the state as they found it, so one pass of each
+    gives its stats."""
+    bbytes, row = cfg.buffer_bytes(), cfg.max_clusters * 4
+    merged, maps, d2 = ddc.merge_delta(batch, None, None, cfg, None)
+    for b in (batch, batch_alt, batch):
+        merged, maps, d2 = ddc.merge_delta(b, d2, [0], cfg, None)
+    tree = hierarchy.AggregatorTree(k, degree, cfg, device=dev)
+    tree.refresh(batch, None, None)
+    for _ in range(3):
+        tree.refresh(batch, [0], None)
+    steady = dict(tree.last_stats)
+    for b in (batch_alt, batch, batch_alt, batch):
+        tree.refresh(b, [0], None)
+    churn = dict(tree.last_stats)
+    g, tmaps = tree.refresh(batch, [0], None)
+
+    def wire(stats):
+        return (stats["up_shard_payloads"] * bbytes + stats["internal_up_edges"] * bbytes
+                + stats["down_internal_edges"] * row + stats["down_shard_rows"] * row)
+
+    return {
+        "depth": tree.depth, "n_nodes": tree.n_nodes, "n_clusters": int(merged.valid.sum()),
+        "flat_refresh_bytes": bbytes + k * row, "hier_refresh_bytes": wire(steady),
+        "flat_churn_bytes": bbytes + k * row, "hier_churn_bytes": wire(churn),
+        "flat_bottleneck_bytes": bbytes + k * row,
+        "hier_bottleneck_bytes": steady["bottleneck_bytes"],
+        "buffer_bytes": bbytes, "absorbed_steady": steady["absorbed"],
+        "maps_match": bool(torch.equal(tmaps, maps)),
+        "valid_match": bool(torch.equal(g.valid, merged.valid)),
+        "sizes_match": bool(torch.equal(g.sizes, merged.sizes)),
+        "root_d2_exact": tree.cache_exact(),
+        "overflow": bool(merged.overflow | g.overflow),
+    }
+
+
+def largest_count(svc) -> int:
+    """The most vertices any contour of ``svc`` holds: its local
+    (per-shard) contours, its global set and, in tree mode, every node
+    summary."""
+    counts = [svc._batch.counts.max(), svc.global_set.counts.max()]
+    if svc.hierarchy is not None:
+        counts += [n.summary.counts.max() for level in svc.hierarchy.levels for n in level
+                   if n.summary is not None]
+    return int(max(int(c) for c in counts))
+
+
+B5_RECT = ("cross_min_d2",)
+B5_SQUARE = ("contour_min_d2",)
+B4 = ("min_label_sweep_sparse", "min_label_sweep")
+B3 = ("neighbor_count_sparse", "neighbor_count")
+
+
+def kernel_families(launches: dict) -> dict:
+    """Launch counts by kernel family: B3 (the counts), B4 (the sweeps),
+    B5 in its rectangular and square forms (dense and sparse forms of the
+    pair kernels summed)."""
+    return {name: sum(launches.get(k, 0) for k in keys)
+            for name, keys in (("b3", B3), ("b4", B4), ("b5_rect", B5_RECT),
+                               ("b5_square", B5_SQUARE))}
+
+
+def hierarchy_full_width(torch, np, ddc, ops, spatial, dev, card: str):
+    """The tree of aggregators at full width (see the module docstring).
+    Returns its line and, for the kernels line, a tree-of-degree-2 leaf's
+    B5 rectangular inputs at each degree."""
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import hierarchy
+
+    t_phase = time.perf_counter()
+    k, per = HIER_SHARDS, HIER_SHARD_N
+    pts = spatial.morton_sorted(spatial.make_d2(k * per, seed=1))
+    new = spatial.morton_sorted(spatial.make_d2(k * per, seed=DELTA_SEED))
+    core = ddc.DDCConfig(**UNCUT)
+    topo = {"flat": None, **{f"tree{d}": d for d in HIER_DEGREES}}
+    svcs = {name: cs.ClusterService(
+        cs.StreamConfig(shards=k, capacity=per, max_batch=HIER_ROUND_N, agg_degree=deg,
+                        ddc=core), meter=ddc.CommMeter(), device=dev)
+        for name, deg in topo.items()}
+    rec = {name: {"refresh_ms": [], "launches": {"fit": {}, "round": {}, "expiry": {}},
+                  "bytes": [], "folds": [], "absorbed": [], "bottleneck_bytes": [],
+                  "expiry_refresh_ms": []} for name in svcs}
+    biggest = [0]
+
+    def refresh_all(kind: str):
+        """Refresh each service (launch counts zeroed just before and read
+        just after each), then hold both trees to the flat engine."""
+        for name, svc in svcs.items():
+            r = rec[name]
+            ops.reset_launch_counts()
+            svc.meter.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.refresh()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = r["launches"][kind]
+            for key, v in ops.launch_counts().items():
+                got[key] = got.get(key, 0) + v
+            if kind == "round":
+                r["refresh_ms"].append(ms)
+                r["bytes"].append(svc.meter.snapshot()["bytes_total"])
+                if svc.hierarchy is not None:
+                    st = svc.hierarchy.last_stats
+                    r["folds"].append(st["folds"])
+                    r["absorbed"].append(st["absorbed"])
+                    r["bottleneck_bytes"].append(st["bottleneck_bytes"])
+            elif kind == "expiry":
+                r["expiry_refresh_ms"].append(ms)
+            else:
+                r["fit_refresh_ms"] = ms
+            biggest[0] = max(biggest[0], largest_count(svc))
+        if biggest[0] >= core.max_verts:
+            raise RuntimeError(f"hierarchy: a contour fills max_verts ({biggest[0]}): tree "
+                               f"== flat is not promised there")
+        flat = svcs["flat"]
+        for name, svc in svcs.items():
+            if svc is flat:
+                continue
+            same_all = (torch.equal(svc._glabels, flat._glabels)
+                        and torch.equal(svc._maps, flat._maps)
+                        and torch.equal(svc.global_set.valid, flat.global_set.valid)
+                        and torch.equal(svc.global_set.sizes, flat.global_set.sizes))
+            if not same_all or svc.pair_d2 is not None:
+                raise RuntimeError(f"hierarchy: {name} differs from the flat aggregator after "
+                                   f"a {kind} refresh")
+
+    t0 = time.perf_counter()
+    for svc in svcs.values():
+        for s in range(k):
+            svc.ingest(s, pts[s * per:(s + 1) * per], t=np.arange(per, dtype=np.float64))
+    refresh_all("fit")
+    fit_s = time.perf_counter() - t0
+    n_clusters = int(svcs["flat"].global_set.valid.sum())
+    if n_clusters < UNCUT_MIN_CLUSTERS or bool(svcs["flat"].global_set.overflow):
+        raise RuntimeError(f"hierarchy: {n_clusters} global clusters (overflow "
+                           f"{bool(svcs['flat'].global_set.overflow)}); the phase needs at "
+                           f"least {UNCUT_MIN_CLUSTERS} and no overflow")
+    evicted = []
+    for r in range(HIER_ROUNDS + 1):
+        s = (r * 4) % k
+        block = new[s * per:(s + 1) * per][(r // (k // 4)) * HIER_ROUND_N:][:HIER_ROUND_N]
+        for svc in svcs.values():
+            svc.ingest(s, block, t=float(per + r))
+        if r == HIER_ROUNDS:
+            break                                   # the profiled round below
+        refresh_all("round")
+        if r % HIER_TTL_EVERY == HIER_TTL_EVERY - 1:
+            cutoff = float(HIER_TTL_STEP * (r // HIER_TTL_EVERY + 1))
+            got = [sum(svc.evict_older_than(i, cutoff) for i in range(k))
+                   for svc in svcs.values()]
+            if len(set(got)) != 1 or got[0] < 1:
+                raise RuntimeError(f"hierarchy: the TTL expiry at round {r} evicted {got}")
+            evicted.append(got[0])
+            refresh_all("expiry")
+    trees = {name: svc.hierarchy for name, svc in svcs.items() if svc.hierarchy is not None}
+    if not all(t.cache_exact() for t in trees.values()):
+        raise RuntimeError("hierarchy: a node cache differs from its rebuild")
+    # One more round's refresh of each service under the profiler (the
+    # last ingest above), against its rounds' median refresh.
+    profiles = {}
+    for name, svc in svcs.items():
+        profiles[name] = profile_fn(torch, svc.refresh, pct(rec[name]["refresh_ms"], 0.5) / 1e3,
+                                    top=6)
+    if not (torch.equal(svcs["tree2"]._glabels, svcs["flat"]._glabels)
+            and torch.equal(svcs["tree4"]._maps, svcs["flat"]._maps)):
+        raise RuntimeError("hierarchy: the profiled round differs from flat")
+    out = {"card": card, "n": k * per, "shards": k, "capacity": per, "config": UNCUT,
+           "max_clusters": core.max_clusters, "rounds": HIER_ROUNDS,
+           "round_points": HIER_ROUND_N, "ttl_evicted": evicted, "fit_s": fit_s,
+           "n_clusters": n_clusters, "largest_count": biggest[0],
+           "max_verts": core.max_verts, "tree_equals_flat_every_refresh": True,
+           "cache_exact": True, "topologies": {}}
+    for name, svc in svcs.items():
+        r = rec[name]
+        fam = {kind: kernel_families(v) for kind, v in r["launches"].items()}
+        total = {f: sum(fam[kind][f] for kind in fam) for f in fam["fit"]}
+        if total["b5_rect"] < 1 or total["b5_square"] < 1 or total["b3"] < 1 or total["b4"] < 1:
+            raise RuntimeError(f"hierarchy: a kernel of {name}'s path never launched: "
+                               f"{r['launches']}")
+        entry = {"refresh_ms": {"p50": pct(r["refresh_ms"], 0.5),
+                                "p99": pct(r["refresh_ms"], 0.99)},
+                 "fit_refresh_ms": r["fit_refresh_ms"],
+                 "expiry_refresh_ms": r["expiry_refresh_ms"],
+                 "metered_bytes_per_refresh": statistics.mean(r["bytes"]),
+                 "launches": {"fit": fam["fit"], "rounds": fam["round"],
+                              "expiries": fam["expiry"], "total": total},
+                 "profile_refresh": profiles[name]}
+        if svc.hierarchy is not None:
+            entry |= {"degree": svc.hierarchy.degree, "depth": svc.hierarchy.depth,
+                      "n_nodes": svc.hierarchy.n_nodes,
+                      "folds_per_round": statistics.mean(r["folds"]),
+                      "absorbed_per_round": statistics.mean(r["absorbed"]),
+                      "bottleneck_bytes_per_round": statistics.mean(r["bottleneck_bytes"])}
+        out["topologies"][name] = entry
+    # BENCH_hierarchy.json's rows on the card.
+    t0 = time.perf_counter()
+    bench = json.loads((ROOT / "BENCH_hierarchy.json").read_text())
+    rows = {}
+    for kb in bench["shards"]:
+        cfg_b, batch, batch_alt = bench_hierarchy_batches(torch, np, ddc, kb, dev)
+        for deg in bench["degrees"]:
+            want = next(w for w in bench["rows"] if (w["shards"], w["degree"]) == (kb, deg))
+            got = bench_hierarchy_row(torch, ddc, hierarchy, cfg_b, batch, batch_alt, kb, deg,
+                                      dev)
+            diff = {f: (got[f], want[f]) for f in BENCH_HIER_FIELDS if got[f] != want[f]}
+            if diff:
+                raise RuntimeError(f"hierarchy: BENCH_hierarchy.json row k={kb} d={deg} "
+                                   f"differs: {diff}")
+            rows[f"k{kb}_d{deg}"] = {f: got[f] for f in ("hier_refresh_bytes",
+                                                         "hier_bottleneck_bytes",
+                                                         "absorbed_steady")}
+    out["bench_rows"] = {"rows": len(rows), "equal_to_json": True, "s": time.perf_counter() - t0,
+                         "fields": list(BENCH_HIER_FIELDS), "by_row": rows}
+    # B5's rectangular form at a node fold's shape: a leaf's first child's
+    # C rows against the leaf's D·C slots.
+    c, v = core.max_clusters, core.max_verts
+    shapes = {}
+    for name, tree in trees.items():
+        b = tree.levels[0][0].batch
+        conts = b.contours.reshape(-1, v, 2).contiguous()
+        cnts = b.counts.reshape(-1).contiguous()
+        vals = b.valid.reshape(-1).contiguous()
+        shapes[f"degree_{tree.degree}"] = (conts[:c].contiguous(), cnts[:c].contiguous(),
+                                           vals[:c].contiguous(), conts, cnts, vals)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, shapes
+
+
+def tracker_states_equal(np, a, b) -> bool:
+    """Two ``ClusterTracker.state_dict()`` results: the manifests and every
+    array (dtype included)."""
+    (aa, am), (ba, bm) = a, b
+    return am == bm and set(aa) == set(ba) and all(
+        aa[k].dtype == ba[k].dtype and np.array_equal(aa[k], ba[k]) for k in aa)
+
+
+def tracking_full_width(torch, np, ddc, ops, spatial, dev, card: str):
+    """Cluster tracking at full width (see the module docstring).  Returns
+    its line and the tracker's B5 rectangular inputs (previous × current
+    generation's slots) for the kernels line."""
+    from repro_torch import ddc as T
+    from repro_torch.serve import tracking
+
+    t_phase = time.perf_counter()
+    traj = spatial.make_drifting_blobs(steps=TRACK_STEPS, n_per_step=TRACK_FRAME_N,
+                                       n_blobs=TRACK_BLOBS, radius=0.02, speed=0.01, seed=0)
+    cap = spatial.trajectory_capacity(TRACK_FRAME_N, TRACK_WINDOW, TRACK_SHARDS)
+
+    def model(agg=None):
+        cfg = T.DDCConfig(**TRACK_CFG, backend="stream", shards=TRACK_SHARDS, capacity=cap,
+                          max_batch=cap // (TRACK_WINDOW + 1), agg_degree=agg,
+                          track=True).validate()
+        return T.DDC(cfg, device=dev)
+
+    def timed(m, gens: list):
+        """Time each refresh of ``m``'s engine and count its launches
+        (zeroed just before, read just after)."""
+        svc = m.service
+        inner = svc.refresh
+
+        def refresh(*a, **kw):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            gens.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": kernel_families(ops.launch_counts()),
+                         "update_ms": svc.tracker.last_update_ms})
+            return out
+
+        svc.refresh = refresh
+        return m
+
+    def play_steps(m, frames, start=0):
+        """tracking.play's loop from frame ``start`` on."""
+        for i, frame in enumerate(frames):
+            step = start + i
+            for shard, part in enumerate(np.array_split(frame, TRACK_SHARDS)):
+                m.partial_fit(shard, part, t=float(step) * np.ones(len(part)))
+            if step + 1 > TRACK_WINDOW:
+                m.expire(float(step - TRACK_WINDOW + 1))
+            m.service.refresh()
+
+    runs = {}
+    for name, agg in (("flat", None), ("tree2", 2)):
+        gens = []
+        m = timed(model(agg), gens)
+        t0 = time.perf_counter()
+        snap = tracking.play(m, traj.frames, window=TRACK_WINDOW)
+        runs[name] = {"model": m, "snap": snap, "gens": gens, "s": time.perf_counter() - t0,
+                      "state": m.service.tracker.state_dict()}
+    flat = runs["flat"]
+    if not tracker_states_equal(np, flat["state"], runs["tree2"]["state"]):
+        raise RuntimeError("tracking: the tree's tracker state differs from the flat engine's")
+    # Save at TRACK_RESUME_AT, load on the card, resume.
+    part1 = model()
+    play_steps(part1, traj.frames[:TRACK_RESUME_AT])
+    with tempfile.TemporaryDirectory() as d:
+        part1.save(os.path.join(d, "snap"))
+        resumed = T.DDC.load(os.path.join(d, "snap"), device=dev)
+        play_steps(resumed, traj.frames[TRACK_RESUME_AT:], TRACK_RESUME_AT)
+    resumed_bitexact = tracker_states_equal(np, flat["state"],
+                                            resumed.service.tracker.state_dict())
+    if not resumed_bitexact:
+        raise RuntimeError("tracking: save -> load -> resume differs from the uninterrupted run")
+    # The plain versions of the kernels on the same frames (every generation).
+    plain = model()
+    t0 = time.perf_counter()
+    ops.FORCE = "ref"
+    try:
+        play_steps(plain, traj.frames)
+    finally:
+        ops.FORCE = None
+    plain_s = time.perf_counter() - t0
+    plain_bitexact = tracker_states_equal(np, flat["state"], plain.service.tracker.state_dict())
+    if not plain_bitexact:
+        raise RuntimeError("tracking: the plain run's tracker state differs from the kernels'")
+    # The ground truth: eight lanes that never meet.
+    snap = flat["snap"]
+    late = sum(1 for e in snap.events if e.kind == "birth" and e.gen > 1)
+    churn = late + snap.deaths + snap.merges + snap.splits
+    id_stability = 1.0 if snap.continuations + churn == 0 else \
+        snap.continuations / (snap.continuations + churn)
+    v_err = []
+    for t in snap.alive:
+        b = int(np.argmin(((traj.centers[t.last_gen - 1] - t.centroid) ** 2).sum(1)))
+        g1, g0 = t.last_gen, t.last_gen - (t.hits - 1)
+        true_v = (traj.centers[g1 - 1, b] - traj.centers[g0 - 1, b]) / (g1 - g0)
+        v_err.append(float(max(abs(t.velocity[0] - true_v[0]), abs(t.velocity[1] - true_v[1]))))
+    truth = {"births": snap.births, "deaths": snap.deaths, "merges": snap.merges,
+             "splits": snap.splits, "id_stability": id_stability, "alive": len(snap.alive),
+             "velocity_max_err": max(v_err, default=None)}
+    if (snap.births, snap.deaths, snap.merges, snap.splits, len(snap.alive)) != \
+            (TRACK_BLOBS, 0, 0, 0, TRACK_BLOBS) or id_stability != 1.0 \
+            or not all(e < TRACK_V_TOL for e in v_err):
+        raise RuntimeError(f"tracking: the events or velocities miss the ground truth: {truth}")
+    # The tracker's B5 rectangular inputs and its _global_d2 at 256 × 256.
+    tracker = flat["model"].service.tracker
+    prev = tracker._prev
+    pc, pn, pg = tracker._prev_dev
+    b5_in = (pc, pn, pg >= 0, pc, pn, pg >= 0)
+    global_d2_ms = median_ms(torch, lambda: tracker._global_d2(prev, tracker._prev_dev,
+                                                               prev["gmap"], prev["slots"]), 10)
+    out = {"card": card, "steps": TRACK_STEPS, "frame_points": TRACK_FRAME_N,
+           "blobs": TRACK_BLOBS, "shards": TRACK_SHARDS, "window": TRACK_WINDOW,
+           "capacity": cap, "live_points": flat["model"].service.n_live(),
+           "config": TRACK_CFG, "max_verts": TRACK_CFG["max_verts"],
+           "largest_count": largest_count(flat["model"].service),
+           "slots": [int(pc.shape[0]), int(pc.shape[0])], "truth": truth,
+           "checks": {"tree_equals_flat": True, "resumed_bitexact": resumed_bitexact,
+                      "resumed_at": TRACK_RESUME_AT, "plain_bitexact": plain_bitexact,
+                      "plain_generations": TRACK_STEPS, "plain_s": plain_s},
+           "global_d2_ms": global_d2_ms, "runs": {}}
+    for name, run in runs.items():
+        gens = run["gens"]
+        rect = [g["launches"]["b5_rect"] for g in gens]
+        if sum(rect) < 1:
+            raise RuntimeError(f"tracking: B5's rectangular form never launched ({name})")
+        upd = [g["update_ms"] for g in gens]
+        out["runs"][name] = {
+            "play_s": run["s"], "refresh_ms_p50": pct([g["ms"] for g in gens], 0.5),
+            "update_ms_mean": statistics.mean(upd[2:]), "update_ms_last": upd[-1],
+            "b5_rect_per_generation": rect, "launches_last_generation": gens[-1]["launches"],
+            "launches_total": {f: sum(g["launches"][f] for g in gens) for f in gens[0]["launches"]}}
+    if out["largest_count"] >= TRACK_CFG["max_verts"]:
+        raise RuntimeError(f"tracking: a contour fills max_verts ({out['largest_count']})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, b5_in
+
+
+def shape_timing(torch, ops, ref, args, floor_ms: float) -> dict:
+    """B5's rectangular form on ``args`` against its plain version (bit for
+    bit), its device time and the plain one's, beside the launch floor."""
+    got, want = ops.cross_min_d2(*args), ref.cross_min_d2(*args)
+    if not same(torch, got, want):
+        raise RuntimeError("cross_min_d2: the kernel differs from its plain version at "
+                           f"{list(got.shape)}")
+    return {"shape": [int(args[0].shape[0]), int(args[3].shape[0]), int(args[0].shape[1])],
+            "exact": True, "ms": median_ms(torch, lambda: ops.cross_min_d2(*args), 20, per=10),
+            "plain_ms": median_ms(torch, lambda: ref.cross_min_d2(*args), 3),
+            "floor_ms": floor_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2239,7 +2742,6 @@ def main() -> int:
                                                  "median of 20 batches"}}), flush=True)
     for entry in kernels + lm_kernels:
         entry["floor_ms"] = floor_ms
-    print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
     # One more default-path run, dense run and K-Means run under the
     # profiler, against the unprofiled runs' wall time.
     run = ddc.make_ddc_fn(cfg, LANES, device=dev)
@@ -2271,6 +2773,24 @@ def main() -> int:
     print(json.dumps({"stream_full_width": stream_full_width(
         torch, np, ddc, ops, spatial, dev, eps, pts, card.splitlines()[0])}), flush=True)
     torch.cuda.empty_cache()
+
+    # The tree of aggregators at 64 shards (both trees == flat after every
+    # refresh, BENCH_hierarchy.json's rows), then cluster tracking at full
+    # width (flat == tree == resumed == plain tracker states).
+    hier_line, node_b5 = hierarchy_full_width(torch, np, ddc, ops, spatial, dev,
+                                              card.splitlines()[0])
+    print(json.dumps({"hierarchy_full_width": hier_line}), flush=True)
+    torch.cuda.empty_cache()
+    track_line, track_b5 = tracking_full_width(torch, np, ddc, ops, spatial, dev,
+                                               card.splitlines()[0])
+    print(json.dumps({"tracking_full_width": track_line}), flush=True)
+    torch.cuda.empty_cache()
+    # B5's rectangular form at the shapes these two paths give it.
+    b5 = next(e for e in kernels if e["name"] == "cross_min_d2")
+    b5["at_tracker_shape"] = shape_timing(torch, ops, ref, track_b5, floor_ms)
+    b5["at_node_fold_shape"] = {name: shape_timing(torch, ops, ref, args, floor_ms)
+                                for name, args in node_b5.items()}
+    print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------
     bench_rows = phase1_bench(torch, np, dbscan, ops, spatial, dev)

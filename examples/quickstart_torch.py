@@ -21,8 +21,9 @@ and queries on the device), ``jit`` the one-device pipeline on the
 port's kernels (sync/async/tree schedules), ``stream`` the online serve
 engine (ring-buffer ingest, dirty-shard phase 1, exact delta merge; its
 rings on the device).  All three produce the same global clustering.
-``dist`` has no port yet and is refused; so is the stream engine's
-cluster tracking, which the reference's quickstart also shows.
+The stream run ends with the cluster-tracking demo (``track=True``: a
+drifting-blobs trajectory, one tracked refresh per frame).  ``dist`` has
+no port yet and is refused.
 
   PYTHONPATH=src python examples/quickstart_torch.py --backend host
   PYTHONPATH=src python examples/quickstart_torch.py --backend jit --shards 8
@@ -128,6 +129,35 @@ def main():
         restored = DDC.load(os.path.join(d, "ckpt"), device=args.device)
         same = np.array_equal(model.labels_, restored.labels_)
     print(f"snapshot -> restore: labels bit-identical = {same}")
+
+    if cfg.backend == "stream":
+        # Cluster tracking (DESIGN §14): with track=True the engine
+        # assigns stable track IDs across refreshes and derives motion
+        # analytics per track.  Play a drifting-blobs stream — one
+        # tracked refresh per frame, sliding-window eviction — and read
+        # the TrackSnapshot via model.tracks() (published at the same
+        # version as the query tier's Snapshot).
+        from repro_torch.serve import tracking
+        spec = spatial.TRAJECTORY_LAYOUTS["drifting_blobs"]
+        traj = spec["make"](steps=10, n_per_step=spec["n_per_step"])
+        tcap = spatial.trajectory_capacity(spec["n_per_step"], spec["window"], k)
+        tcfg = DDCConfig(
+            eps=spec["eps"], min_pts=spec["min_pts"], grid=spec["grid"],
+            max_clusters=spec["max_clusters"], max_verts=spec["max_verts"],
+            backend=cfg.backend, shards=k, capacity=tcap,
+            max_batch=min(256, tcap), track=True,
+        ).validate()
+        snap = tracking.play(DDC(tcfg, device=args.device), traj.frames,
+                             window=spec["window"])
+        print(f"tracking: {len(snap.alive)} tracks over "
+              f"{snap.generation} generations (births={snap.births} "
+              f"deaths={snap.deaths} merges={snap.merges} "
+              f"splits={snap.splits} "
+              f"continuations={snap.continuations})")
+        for t in snap.alive:
+            print(f"  track {t.track_id}: size={t.size:3d} "
+                  f"speed={t.speed:.4f}/gen "
+                  f"heading={t.heading_deg:+6.1f}deg  {t.motion}")
 
     seq = dbscan.dbscan_ref(pts, cfg.eps, cfg.min_pts)
     # Micro-fragments (< 2*min_pts points) can fall below min_pts when a

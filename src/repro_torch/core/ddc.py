@@ -143,6 +143,13 @@ def clusterset_to_numpy(cs: ClusterSet) -> ClusterSet:
     return ClusterSet(*(t.detach().cpu().numpy() for t in cs))
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a NumPy array that shares no memory with it (on the CPU
+    a bare ``.numpy()`` aliases a tensor that a later in-place write
+    changes)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def _check_cfg(cfg: DDCConfig) -> None:
     for field, allowed in (("local_algo", LOCAL_ALGOS), ("schedule", SCHEDULES),
                            ("merge_refine", MERGE_REFINES)):

@@ -12,6 +12,8 @@ described structure.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 MORTON_BITS = 10
@@ -291,3 +293,146 @@ def stream_batches(pts: np.ndarray, shards: int, batch: int,
         rng = np.random.default_rng(seed)
         return [interleaved[i] for i in rng.permutation(len(interleaved))]
     raise ValueError(order)
+
+
+# --------------------------------------------------------------------------
+# Trajectory stream generators (cluster tracking, serve/tracking.py).
+#
+# Each generator produces a deterministic sequence of per-step point
+# frames plus the ground-truth per-step centre and velocity field of
+# every moving group.  Frames are Morton-ordered so a block partition
+# hands each shard a spatially compact subset (same reasoning as
+# ``morton_sorted`` above), which keeps per-shard density above
+# ``min_pts`` at 8 shards.  One frame == one refresh generation.
+# --------------------------------------------------------------------------
+
+
+class Trajectory(NamedTuple):
+    """A seeded moving-cluster stream.
+
+    ``frames[t]`` is the (n_t, 2) float32 point cloud ingested at step
+    ``t``; ``centers[t, b]`` / ``velocities[t, b]`` are the true centre
+    and per-step displacement of group ``b`` at that step (the velocity
+    field the tracker's analytics are checked against).
+    """
+
+    frames: tuple
+    centers: np.ndarray       # (steps, B, 2) float64
+    velocities: np.ndarray    # (steps, B, 2) float64
+
+
+def _frames_from_paths(rng, centers, radii, weights, n_per_step):
+    """Render centre paths into per-step Morton-ordered point frames."""
+    steps, nb = centers.shape[:2]
+    w = np.asarray(weights, np.float64)
+    counts = np.maximum((w / w.sum() * n_per_step).astype(int), 1)
+    counts[0] += n_per_step - counts.sum()
+    frames = []
+    for t in range(steps):
+        parts = [
+            _disc(rng, counts[b], centers[t, b, 0], centers[t, b, 1], radii[b])
+            for b in range(nb)
+        ]
+        frames.append(morton_sorted(
+            np.clip(np.concatenate(parts), 0, 1).astype(np.float32)))
+    return tuple(frames)
+
+
+def make_drifting_blobs(steps: int = 24, n_per_step: int = 96,
+                        n_blobs: int = 3, seed: int = 0,
+                        speed: float = 0.015,
+                        radius: float = 0.05) -> Trajectory:
+    """``n_blobs`` uniform discs drifting horizontally in separate
+    lanes, bouncing off the arena walls — lanes are far apart so the
+    groups never interact and a perfect tracker reports only
+    continuations after the first generation (the ID-stability
+    layout)."""
+    rng = np.random.default_rng(seed)
+    ys = (np.linspace(0.2, 0.8, n_blobs) if n_blobs > 1
+          else np.array([0.5]))
+    xs = rng.uniform(0.25, 0.75, n_blobs)
+    vx = speed * rng.uniform(0.75, 1.25, n_blobs)
+    vx *= np.where(np.arange(n_blobs) % 2 == 0, 1.0, -1.0)
+    lo, hi = 0.12, 0.88
+    centers = np.zeros((steps, n_blobs, 2))
+    velocities = np.zeros((steps, n_blobs, 2))
+    for t in range(steps):
+        for b in range(n_blobs):
+            nxt = xs[b] + vx[b]
+            if nxt < lo or nxt > hi:       # bounce off the wall
+                vx[b] = -vx[b]
+            xs[b] += vx[b]
+            centers[t, b] = (xs[b], ys[b])
+            velocities[t, b] = (vx[b], 0.0)
+    frames = _frames_from_paths(
+        rng, centers, [radius] * n_blobs, [1.0] * n_blobs, n_per_step)
+    return Trajectory(frames, centers, velocities)
+
+
+def make_merging_crowds(steps: int = 24, n_per_step: int = 96,
+                        seed: int = 1, speed: float = 0.02,
+                        radius: float = 0.055) -> Trajectory:
+    """Two crowds walking toward each other along one lane: they fuse
+    into a single global cluster mid-run (merge event) and separate
+    again after crossing (split event).  A stationary bystander group
+    checks that unrelated tracks keep their IDs throughout."""
+    rng = np.random.default_rng(seed)
+    centers = np.zeros((steps, 3, 2))
+    velocities = np.zeros((steps, 3, 2))
+    for t in range(steps):
+        centers[t, 0] = (0.22 + speed * t, 0.5)
+        centers[t, 1] = (0.78 - speed * t, 0.5)
+        centers[t, 2] = (0.5, 0.88)
+        velocities[t, 0] = (speed, 0.0)
+        velocities[t, 1] = (-speed, 0.0)
+    frames = _frames_from_paths(
+        rng, centers, [radius, radius, 0.04], [0.4, 0.4, 0.2], n_per_step)
+    return Trajectory(frames, centers, velocities)
+
+
+def make_convoys(steps: int = 20, n_per_step: int = 96, seed: int = 2,
+                 speed: float = 0.02, radius: float = 0.04) -> Trajectory:
+    """Two convoys of two vehicles each, moving in opposite lanes with a
+    shared per-convoy velocity; in-convoy spacing stays above the merge
+    radius — including the trail of window-aged points each vehicle
+    drags behind it — so each vehicle keeps its own track while the
+    analytics see the convoy's common heading."""
+    rng = np.random.default_rng(seed)
+    centers = np.zeros((steps, 4, 2))
+    velocities = np.zeros((steps, 4, 2))
+    for t in range(steps):
+        centers[t, 0] = (0.10 + speed * t, 0.30)   # convoy A, eastbound
+        centers[t, 1] = (0.36 + speed * t, 0.30)
+        centers[t, 2] = (0.90 - speed * t, 0.72)   # convoy B, westbound
+        centers[t, 3] = (0.64 - speed * t, 0.72)
+        velocities[t, 0] = velocities[t, 1] = (speed, 0.0)
+        velocities[t, 2] = velocities[t, 3] = (-speed, 0.0)
+    frames = _frames_from_paths(
+        rng, centers, [radius] * 4, [1.0] * 4, n_per_step)
+    return Trajectory(frames, centers, velocities)
+
+
+# Trajectory layout registry: generator + DDC parameters + the stream
+# shape (steps, points per step, sliding-window length in steps).  Tuned
+# like PHASE2_LAYOUTS: contours fit the vertex budget at 2-8 shards,
+# inter-group gaps clear the merge radius (eps + 1.5*cell ≈ 0.051), and
+# the per-step displacement stays well inside the match gate so
+# continuations are unambiguous.
+TRAJECTORY_LAYOUTS = {
+    "drifting_blobs": dict(make=make_drifting_blobs, eps=0.02, min_pts=3,
+                           grid=48, max_verts=96, max_clusters=8,
+                           steps=24, n_per_step=96, window=4),
+    "merging_crowds": dict(make=make_merging_crowds, eps=0.02, min_pts=3,
+                           grid=48, max_verts=96, max_clusters=8,
+                           steps=24, n_per_step=96, window=4),
+    "convoys": dict(make=make_convoys, eps=0.02, min_pts=3,
+                    grid=48, max_verts=96, max_clusters=8,
+                    steps=20, n_per_step=96, window=4),
+}
+
+
+def trajectory_capacity(n_per_step: int, window: int, shards: int) -> int:
+    """Ring slots per shard for a windowed trajectory run: the largest
+    per-frame block-partition part times the frames live at once (the
+    window plus the frame ingested before that step's eviction)."""
+    return shard_capacity(n_per_step, shards) * (window + 1)

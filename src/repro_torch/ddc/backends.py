@@ -16,8 +16,8 @@ rewrite.
 * ``stream`` — wraps ``repro_torch.serve.cluster_service.ClusterService``:
   ring-buffer ingest, dirty-shard phase 1, exact delta merge, TTL
   eviction, the failure model and bit-identical snapshot/restore, its
-  buffers on the backend's device.  Only its flat aggregator is ported:
-  ``agg_degree`` and ``track=True`` are refused until their slice lands.
+  buffers on the backend's device; ``agg_degree`` swaps in the tree of
+  aggregators and ``track=True`` the cluster tracker (``tracks()``).
 
 ``dist`` is a known name whose engine has no port yet (``UNPORTED``):
 ``DDCConfig.validate`` applies its rules, and constructing a ``DDC`` with
@@ -450,9 +450,6 @@ class StreamBackend(Backend):
     path."""
 
     def __init__(self, cfg: DDCConfig, meter=None, faults=None, *, device="cuda"):
-        reason = cluster_service.unported_reason(cfg.agg_degree, cfg.track)
-        if reason:
-            raise ConfigError(f"backend {self.name!r} with {reason}")
         super().__init__(cfg, meter, faults=faults, device=device)
         self._svc: Optional[cluster_service.ClusterService] = None
 
@@ -507,10 +504,15 @@ class StreamBackend(Backend):
         return sum(self.service.evict_older_than(s, t) for s in range(self.cfg.shards))
 
     def tracks(self):
-        raise ConfigError(
-            "cluster tracking is disabled for this model; construct "
-            "with DDCConfig(track=True, backend='stream'|'dist') to "
-            "assign stable track IDs at refresh")
+        if not self.cfg.track:
+            raise ConfigError(
+                "cluster tracking is disabled for this model; construct "
+                "with DDCConfig(track=True, backend='stream'|'dist') to "
+                "assign stable track IDs at refresh")
+        # Freshness-seeking like read_snapshot: fold pending writes so
+        # the returned TrackSnapshot reflects everything ingested.
+        self.service.read_snapshot()
+        return self.service.track_snapshot()
 
     def labels(self) -> np.ndarray:
         return self.service.live()[2]

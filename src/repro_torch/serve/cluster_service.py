@@ -61,9 +61,14 @@ ClusterSets up (K·B bytes, B = ``DDCConfig.buffer_bytes()``), a delta
 refresh only the dirty ones (|dirty|·B); both ship each shard its (C,)
 slot-map row back down (K·C·4 bytes).
 
-Only the flat aggregator is ported: ``StreamConfig`` refuses
-``agg_degree`` (the aggregator tree) and ``track=True`` (cluster
-tracking) until their slice lands.
+Aggregator topologies: with ``agg_degree`` unset the engine owns the
+flat (K·C)² cache above; with ``agg_degree`` = D the flat cache stays
+None and ``serve.hierarchy.AggregatorTree`` (a D-ary tree of small
+delta-cached aggregators, DESIGN.md §13) folds the same mirror into the
+same global set and slot maps.  With ``track=True`` every post-gate
+refresh is folded into ``serve.tracking.ClusterTracker`` (stable track
+IDs, lifecycle events, motion analytics, DESIGN.md §14), whose snapshot
+is cut with the read view's version.
 """
 from __future__ import annotations
 
@@ -77,24 +82,12 @@ import torch
 
 from repro_torch.core import ddc as core_ddc
 from repro_torch.serve import faults as faults_mod
+from repro_torch.serve import hierarchy
 from repro_torch.serve import journal as journal_mod
 from repro_torch.serve import query_tier as qt
+from repro_torch.serve import tracking as tracking_mod
 
 ClusterSet = core_ddc.ClusterSet
-
-
-def unported_reason(agg_degree, track) -> Optional[str]:
-    """Why a stream configuration cannot run in this package yet, or
-    None.  The aggregator tree and cluster tracking are the next slice."""
-    if agg_degree is not None:
-        return (f"agg_degree={agg_degree!r}: the hierarchical aggregator tree "
-                f"(serve/hierarchy.py) has no port yet; it comes with the next "
-                f"slice of the stream engine (hierarchy / tracking)")
-    if track:
-        return ("track=True: cluster tracking (serve/tracking.py) has no port "
-                "yet; it comes with the next slice of the stream engine "
-                "(hierarchy / tracking)")
-    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,16 +103,11 @@ class StreamConfig:
     max_retries: int = 2            # delta re-deliveries per refresh
     retry_backoff: float = 0.0      # seconds; doubles per retry round
     journal_limit: int = 1024       # per-shard WAL entries before compaction
-    agg_degree: Optional[int] = None  # None: flat aggregator (only one ported)
-    track: bool = False             # cluster tracking (not ported)
-    track_history: int = 16
-    match_min_overlap: float = 0.0
+    agg_degree: Optional[int] = None  # None: flat aggregator; >=2: tree fan-in
+    track: bool = False             # cluster tracking fold (DESIGN.md §14)
+    track_history: int = 16         # per-track motion-history ring length
+    match_min_overlap: float = 0.0  # tighten the match gate, in [0, 1)
     ddc: core_ddc.DDCConfig = dataclasses.field(default_factory=core_ddc.DDCConfig)
-
-    def __post_init__(self):
-        reason = unported_reason(self.agg_degree, self.track)
-        if reason:
-            raise ValueError(f"StreamConfig: {reason}")
 
 
 def _device(device) -> torch.device:
@@ -141,9 +129,7 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a NumPy array that shares no memory with it."""
-    return t.detach().to("cpu", copy=True).numpy()
+_host = core_ddc.host_copy
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,6 +246,13 @@ class ShardControlPlane:
         self._pair_d2: Optional[torch.Tensor] = None
         self._global: Optional[ClusterSet] = None
         self._maps: Optional[torch.Tensor] = None
+        # Hierarchical aggregation (DESIGN.md §13): with ``agg_degree``
+        # set, the flat (K·C)² cache above stays None and the tree owns
+        # one small per-node cache per D children instead.
+        self._hier: Optional[hierarchy.AggregatorTree] = None
+        if scfg.agg_degree is not None:
+            self._hier = hierarchy.AggregatorTree(k, scfg.agg_degree, self.cfg, meter=meter,
+                                                  device=self.device)
         self.refreshes = 0
         self.delta_refreshes = 0
         self.query_chunks = 0
@@ -280,6 +273,14 @@ class ShardControlPlane:
         # refresh (and restore), never invalidated by ingest/evict.
         self._snapshot: Optional[qt.Snapshot] = None
         self._snapshot_version = 0
+        # Cluster tracking (DESIGN.md §14): a pure fold over the merged
+        # generations, observed at refresh (post-gate only, so faulted
+        # and fault-free runs fold identical inputs).
+        self._tracker: Optional[tracking_mod.ClusterTracker] = None
+        self._track_snapshot: Optional[tracking_mod.TrackSnapshot] = None
+        if scfg.track:
+            self._tracker = tracking_mod.ClusterTracker(
+                self.cfg, history=scfg.track_history, min_overlap=scfg.match_min_overlap)
 
     # -- data-plane hooks ---------------------------------------------------
 
@@ -466,11 +467,24 @@ class ShardControlPlane:
     def _merge_and_meter(self, dirty: list, mode: str) -> None:
         """Fold the aggregator mirror into the global state and account
         the up-leg: a delta refresh ships |dirty| ClusterSets, a full
-        re-merge all K.  The flat aggregator only."""
+        re-merge all K."""
         cfg = self.cfg
         k, c = self.scfg.shards, cfg.max_clusters
         bbytes = cfg.buffer_bytes()
         exclude = self._exclude_mask()
+        if self._hier is not None:
+            # Hierarchical aggregation (DESIGN.md §13): shard payloads go
+            # to their leaf aggregators; the tree meters its own internal
+            # summary/map edges and folds, so only the shard→leaf up-leg
+            # is accounted here.  The flat (K·C)² cache stays None.
+            delta = mode == "delta" and self._hier.ready
+            self._global, self._maps = self._hier.refresh(
+                self._batch, dirty if delta else None, exclude)
+            if self.meter is not None:
+                self.meter.add_collective(len(dirty) if delta else k, bbytes)
+            if delta:
+                self.delta_refreshes += 1
+            return
         if mode == "delta" and self._pair_d2 is not None:
             self._global, self._maps, self._pair_d2 = core_ddc.merge_delta(
                 self._batch, self._pair_d2, dirty, cfg, exclude)
@@ -626,23 +640,38 @@ class ShardControlPlane:
         """Rejoin every quarantined shard; returns the recovered list."""
         return [s for s in sorted(self._quarantined) if self.recover(s)]
 
-    def refresh(self, mode: str | None = None, force: bool = False):
+    def refresh(self, mode: str | None = None, force: bool = False,
+                track: bool | None = None):
         raise NotImplementedError
 
-    # -- the unported subsystems (aggregator tree, tracking) ----------------
+    # -- cluster tracking (DESIGN.md §14) -----------------------------------
 
     @property
-    def hierarchy(self):
-        """The aggregator tree: None (the flat aggregator)."""
-        return None
+    def tracker(self) -> Optional[tracking_mod.ClusterTracker]:
+        return self._tracker
 
-    @property
-    def tracker(self):
-        """The cluster tracker: None (tracking is off)."""
-        return None
+    def track_snapshot(self) -> Optional[tracking_mod.TrackSnapshot]:
+        """The ``TrackSnapshot`` cut alongside the last published read
+        view — same version, so labels+tracks reads are consistent.
+        None before the first refresh or with tracking disabled."""
+        return self._track_snapshot
 
-    def track_snapshot(self):
-        return None
+    def _track_update(self, track: bool | None) -> None:
+        """Fold the freshly merged generation into the tracker.
+
+        ``track=None`` (the default) folds iff tracking is enabled and
+        no shard is quarantined: the tracker observes only *post-gate*
+        complete generations, so a faulted run and its fault-free twin
+        fold identical inputs and their histories stay bit-identical.
+        ``track=False`` skips the fold for this refresh; ``track=True``
+        forces it."""
+        if self._tracker is None or self._global is None:
+            return
+        if track is None:
+            track = not self._quarantined
+        if not track:
+            return
+        self._tracker.update(self._batch, self._maps, self._global)
 
     # -- snapshot publish/swap (DESIGN.md §12) ------------------------------
 
@@ -668,6 +697,11 @@ class ShardControlPlane:
             n_live=self.n_live(),
             n_clusters=self._n_clusters(),
         )
+        if self._tracker is not None:
+            # Same version as the labels snapshot above: a reader pairing
+            # the two sees one consistent generation.
+            self._track_snapshot = self._tracker.snapshot(
+                version=self._snapshot_version, epoch=self.refreshes)
         return self._snapshot
 
     def _n_clusters(self) -> int:
@@ -788,6 +822,8 @@ class ShardControlPlane:
         arrays |= {f"batch_{f}": _host(t) for f, t in zip(ClusterSet._fields, self._batch)}
         if self._pair_d2 is not None:
             arrays["pair_d2"] = _host(self._pair_d2)
+        if self._tracker is not None:
+            arrays.update(self._tracker.state_arrays())
         return arrays
 
     def _mirror_manifest(self) -> dict:
@@ -822,7 +858,7 @@ class ShardControlPlane:
             "track": self.scfg.track,
             "track_history": self.scfg.track_history,
             "match_min_overlap": self.scfg.match_min_overlap,
-            "tracker": None,
+            "tracker": self._tracker.state_manifest() if self._tracker is not None else None,
         }
 
     def _restore_mirrors(self, arrays: dict, manifest: dict) -> None:
@@ -857,6 +893,9 @@ class ShardControlPlane:
         for s in range(k):
             self._journal.compact(s, self._hpts[s], self._live[s], self._ts[s], self._seq[s])
         self._journal.compactions = 0
+        # Tracker state (absent in snapshots without tracking -> fresh tracker).
+        if self._tracker is not None and manifest.get("tracker") is not None:
+            self._tracker.load_state(arrays, manifest["tracker"])
 
     def _restore_batch(self, arrays: dict) -> None:
         """Rebuild the aggregator ClusterSet mirror and the per-shard
@@ -867,10 +906,21 @@ class ShardControlPlane:
         self._local = [ClusterSet(*(t[i].clone() for t in self._batch)) for i in range(k)]
 
     def _restore_global(self, arrays: dict, manifest: dict) -> bool:
-        """Recompute the global set + slot maps from the saved pair-d2
-        cache (``merge_from_d2``).  False when the saved engine had no
-        global state yet."""
-        if not manifest.get("has_global") or "pair_d2" not in arrays:
+        """Recompute the global set + slot maps after ``_restore_batch``.
+
+        Flat mode replays the saved pair-d2 cache through
+        ``merge_from_d2``; tree mode rebuilds every node cache from
+        scratch over the restored batch — bit-identical to the saved tree
+        by the per-node DESIGN §8 argument (delta-patched ≡ from-scratch),
+        so nothing tree-shaped is serialised.  False when the saved
+        engine had no global state yet."""
+        if not manifest.get("has_global"):
+            return False
+        if self._hier is not None:
+            self._global, self._maps = self._hier.refresh(self._batch, None,
+                                                          self._exclude_mask())
+            return True
+        if "pair_d2" not in arrays:
             return False
         self._pair_d2 = _upload(np.asarray(arrays["pair_d2"], np.float32), self.device)
         self._global, self._maps = core_ddc.merge_from_d2(
@@ -915,6 +965,13 @@ class ShardControlPlane:
         """A copy of the cached slot-distance matrix (the cache itself is
         patched in place by the next delta refresh)."""
         return None if self._pair_d2 is None else self._pair_d2.clone()
+
+    @property
+    def hierarchy(self) -> Optional[hierarchy.AggregatorTree]:
+        """The aggregator tree (None in flat mode).  In tree mode
+        ``pair_d2`` is None by construction — the per-node caches are the
+        cache, reachable here for tests and the chaos sweep."""
+        return self._hier
 
     @property
     def global_set(self) -> Optional[ClusterSet]:
@@ -981,11 +1038,13 @@ class ClusterService(ShardControlPlane):
 
     # -- refresh (phase 1 on dirty shards + delta/full merge) --------------
 
-    def refresh(self, mode: str | None = None, force: bool = False):
+    def refresh(self, mode: str | None = None, force: bool = False,
+                track: bool | None = None):
         """Re-cluster dirty shards and fold them into the global state.
 
         ``mode`` overrides the configured merge mode for this call;
-        ``force`` recomputes even with no dirty shards.  Returns the
+        ``force`` recomputes even with no dirty shards; ``track`` is the
+        per-call tracking override (``_track_update``).  Returns the
         global ClusterSet."""
         mode = mode or self.scfg.merge_mode
         cfg = self.cfg
@@ -1009,6 +1068,7 @@ class ClusterService(ShardControlPlane):
         self._meter_maps_down()
         self._glabels = _global_labels(self._dense, torch.stack(self._mask), self._maps)
         self._dirty -= set(staged)
+        self._track_update(track)
         self.refreshes += 1
         self._publish_snapshot()
         return self._global

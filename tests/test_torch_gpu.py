@@ -1087,3 +1087,110 @@ def test_stream_engine_fault_recovery_on_card(cuda):
     np.testing.assert_array_equal(hit.pair_d2.cpu().numpy(), clean.pair_d2.cpu().numpy())
     np.testing.assert_array_equal(hit._glabels.cpu().numpy(), clean._glabels.cpu().numpy())
     np.testing.assert_array_equal(hit.query(pts[::3]).labels, clean.query(pts[::3]).labels)
+
+
+def _tree_run(device):
+    """One call sequence through the stream engine's tree of aggregators
+    (degree 2) on ``device``, at "rings", 4 shards: refreshes every second
+    chunk, a quarantined leaf and its recovery, a forced full re-merge and
+    a restore.  Returns what two devices must agree on."""
+    from repro_torch.serve import cluster_service as cs
+
+    spec = spatial.PHASE2_LAYOUTS["rings"]
+    pts = spec["make"](2048)
+    cfg = ddc.DDCConfig(**{f: spec[f] for f in ("eps", "min_pts", "grid", "max_verts",
+                                                "max_clusters")})
+    scfg = cs.StreamConfig(shards=4, capacity=512, max_batch=128, agg_degree=2, ddc=cfg)
+    svc = cs.ClusterService(scfg, meter=ddc.CommMeter(), device=device)
+    seen = []
+
+    def record():
+        g = svc.global_set
+        seen.append([svc._glabels.cpu().numpy(), svc._maps.cpu().numpy()]
+                    + [t.cpu().numpy() for t in g] + [dict(svc.hierarchy.last_stats)])
+
+    for i, (shard, chunk) in enumerate(spatial.stream_batches(pts, 4, 128)):
+        svc.ingest(shard, chunk)
+        if i % 2:
+            svc.refresh()
+            record()
+    svc._quarantine(3, "test fence")
+    svc.refresh(force=True)
+    record()
+    assert svc.recover(3)
+    svc.refresh()
+    record()
+    svc.refresh(mode="full", force=True)
+    record()
+    assert svc.pair_d2 is None and svc.hierarchy.cache_exact()
+    arrays, manifest = svc.state_dict()
+    back = cs.ClusterService.from_state(scfg, arrays, manifest, device=device)
+    assert back.hierarchy.cache_exact()
+    seen.append([back._glabels.cpu().numpy(), back.query(pts[::5]).labels])
+    return seen, svc.meter.snapshot(), svc.hierarchy.cache_arrays(), arrays, manifest
+
+
+def _assert_same(a, b):
+    if isinstance(a, dict):
+        assert a == b
+    else:
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_tree_card_equals_cpu(cuda):
+    """The tree of aggregators on the card gives the CPU's labels, maps,
+    global set, per-refresh stats, node caches, meter counts and
+    state_dict, bit for bit; its node folds run B5 in both forms."""
+    ops.reset_launch_counts()
+    card = _tree_run(cuda)
+    counts = ops.launch_counts()
+    cpu = _tree_run("cpu")
+    assert counts["contour_min_d2"] >= 1 and counts["cross_min_d2"] >= 1
+    for a, b in zip(card[0], cpu[0], strict=True):
+        for x, y in zip(a, b, strict=True):
+            _assert_same(x, y)
+    assert card[1] == cpu[1]
+    for x, y in zip(card[2], cpu[2], strict=True):
+        _assert_same(x, y)
+    assert sorted(card[3]) == sorted(cpu[3]) and card[4] == cpu[4]
+    for key in card[3]:
+        _assert_same(card[3][key], cpu[3][key])
+
+
+def _tracking_run(device, agg):
+    """drifting_blobs through the facade's stream backend with tracking,
+    at 4 shards (``agg`` the tree's degree, or None), on ``device``."""
+    from repro_torch.serve import tracking
+
+    spec = spatial.TRAJECTORY_LAYOUTS["drifting_blobs"]
+    cap = spatial.trajectory_capacity(spec["n_per_step"], spec["window"], 4)
+    cfg = ddc_api.DDCConfig(
+        eps=spec["eps"], min_pts=spec["min_pts"], grid=spec["grid"],
+        max_clusters=spec["max_clusters"], max_verts=spec["max_verts"], backend="stream",
+        shards=4, capacity=cap, max_batch=min(256, cap), agg_degree=agg, track=True).validate()
+    traj = spec["make"](steps=spec["steps"], n_per_step=spec["n_per_step"])
+    model = ddc_api.DDC(cfg, device=device)
+    snap = tracking.play(model, traj.frames, window=spec["window"])
+    return snap, model.service.tracker.state_dict()
+
+
+@pytest.mark.parametrize("agg", [None, 2])
+def test_tracking_card_equals_cpu(cuda, agg):
+    """The tracker on the card (its match distance on B5's rectangular
+    form) folds drifting_blobs at 4 shards to the CPU's state bit for bit:
+    every array, the manifest and the published TrackSnapshot."""
+    import dataclasses
+
+    ops.reset_launch_counts()
+    card_snap, (card_arrays, card_manifest) = _tracking_run(cuda, agg)
+    counts = ops.launch_counts()
+    cpu_snap, (cpu_arrays, cpu_manifest) = _tracking_run("cpu", agg)
+    steps = spatial.TRAJECTORY_LAYOUTS["drifting_blobs"]["steps"]
+    assert counts["cross_min_d2"] >= steps - 1
+    assert card_manifest == cpu_manifest
+    assert sorted(card_arrays) == sorted(cpu_arrays)
+    for key in card_arrays:
+        _assert_same(card_arrays[key], cpu_arrays[key])
+    assert dataclasses.asdict(card_snap) == dataclasses.asdict(cpu_snap)
+    assert card_snap.births == 3 and card_snap.deaths == 0

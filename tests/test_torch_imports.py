@@ -51,7 +51,8 @@ def test_every_submodule_listed():
             "repro_torch.ddc", "repro_torch.ddc.api", "repro_torch.ddc.backends",
             "repro_torch.ddc.config", "repro_torch.serve.query_tier",
             "repro_torch.serve.faults", "repro_torch.core.simulate",
-            "repro_torch.serve.cluster_service", "repro_torch.serve.journal"} <= names
+            "repro_torch.serve.cluster_service", "repro_torch.serve.journal",
+            "repro_torch.serve.hierarchy", "repro_torch.serve.tracking"} <= names
     for name in names:
         importlib.import_module(name)
 

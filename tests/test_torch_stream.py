@@ -13,7 +13,7 @@ held to its own ``ddc_host`` (``same_clustering``), as
 tests/test_serve_stream.py holds the reference's.
 
 Also here: ``shard_capacity`` / ``stream_batches`` and ``Journal`` equal
-to the reference's, ``StreamConfig``'s refusals and the constructor's
+to the reference's, ``StreamConfig`` taking the tree and tracking, the constructor's
 ``ValueError``s, the sync query on an FMA-decided tie, and
 ``state_dict`` arrays equal key by key, restoring across the packages.
 The fault model, the query tier over the engine and the facade's
@@ -244,10 +244,22 @@ def test_stream_config_fields_equal_reference():
 @pytest.mark.parametrize("kw,word", [(dict(agg_degree=2), "hierarchy"),
                                      (dict(agg_degree=4), "hierarchy"),
                                      (dict(track=True), "tracking")])
-def test_unported_subsystems_are_refused(kw, word):
-    with pytest.raises(ValueError, match="next slice") as e:
-        tcs.StreamConfig(shards=2, capacity=64, **kw)
-    assert word in str(e.value)
+def test_tree_and_tracking_are_accepted(kw, word):
+    """``StreamConfig`` takes ``agg_degree`` and ``track=True``; the engine
+    then holds the tree (``pair_d2`` None) or the tracker, as the
+    reference's does."""
+    scfg = tcs.StreamConfig(shards=2, capacity=64, max_batch=64, **kw)
+    svc = tcs.ClusterService(scfg, device="cpu")
+    ref = jcs.ClusterService(jcs.StreamConfig(shards=2, capacity=64, max_batch=64, **kw))
+    if word == "hierarchy":
+        assert svc.hierarchy is not None and svc.tracker is None
+        assert svc.hierarchy.degree == kw["agg_degree"] == ref.hierarchy.degree
+        assert svc.hierarchy.device == svc.device
+    else:
+        assert svc.tracker is not None and svc.hierarchy is None
+        assert svc.track_snapshot() is None
+    assert svc.pair_d2 is None and ref.pair_d2 is None
+    assert svc.state_dict()[1] == ref.state_dict()[1]
 
 
 @pytest.mark.parametrize("kw,match", [(dict(merge_mode="eager"), "eager"),

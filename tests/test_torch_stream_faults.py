@@ -385,11 +385,19 @@ def test_backend_is_registered():
 
 @pytest.mark.parametrize("kw,word", [(dict(agg_degree=2, shards=4), "hierarchy"),
                                      (dict(track=True), "tracking")])
-def test_facade_refuses_unported_subsystems(kw, word):
-    cfg = facade_cfg(T, backend="stream", **kw).validate()
-    with pytest.raises(T.ConfigError, match="next slice") as e:
-        T.DDC(cfg, device="cpu")
-    assert word in str(e.value)
+def test_facade_accepts_tree_and_tracking(kw, word):
+    """``DDC`` builds a stream backend with the tree or the tracker, and
+    its service holds it (``pair_d2`` None in tree mode)."""
+    pts = tsp.PHASE2_LAYOUTS["rings"]["make"](512)
+    model = T.DDC(facade_cfg(T, backend="stream", **kw).validate(), device="cpu").fit(pts)
+    ref = J.DDC(facade_cfg(J, backend="stream", **kw).validate()).fit(pts)
+    svc = model.backend.service
+    if word == "hierarchy":
+        assert svc.hierarchy is not None and svc.pair_d2 is None and svc.tracker is None
+    else:
+        assert svc.tracker is not None and svc.hierarchy is None
+        assert dataclasses.asdict(model.tracks()) == dataclasses.asdict(ref.tracks())
+    eq(model.labels_, ref.labels_)
 
 
 def test_stream_needs_a_card_unless_cpu(monkeypatch):
