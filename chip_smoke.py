@@ -145,6 +145,35 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    fit s, ingest / refresh / query ms (p50, p99), the full re-merge's ms,
    bytes, probes/s (sync and tier), launches a round, one refresh's
    profile and busy share, peak memory.
+   Then the dist engine (``dist_full_width`` line): ``DDC(DDCConfig(eps,
+   min_pts=4, backend="dist", shards=8, max_batch=256))``, 8 lanes on 8
+   CUDA streams, and a ``backend="stream"`` twin take the stream phase's
+   calls in the same call (the fit, ``STREAM_ROUNDS`` rounds with the sync
+   query, the TTL expiries that dirty all 8 shards, the forced full
+   re-merge; dist's launch counts zeroed before each part and read after,
+   B3, B4 and both B5 forms must have launched, one phase 1 and one
+   rectangular B5 a round).  After every refresh dist's labels, slot maps,
+   dense labels and pair-d2 must equal stream's bit for bit, and every
+   round's sync answers; the bytes metered from the fetched rows must be
+   exactly B + K·C·4 a round and K·B + K·C·4 for the full re-merge.  Then:
+   one more 8-dirty refresh under the profiler (kernels by stream from the
+   Chrome trace: how many overlapped one on another stream, the busy
+   share); ``state_dict`` → ``from_state`` from dist to stream and from
+   stream to dist, then one more round on all four engines, equal; shard
+   3's delta dropped beyond ``max_retries`` on both engines, quarantine,
+   routed query and recovery equal; the tree of degree 4 at 16 lanes
+   (``DIST_TREE_SHARDS`` Morton-sorted blocks on ``UNCUT``) equal to flat
+   dist after every refresh; the reduced run (``STREAM_SMALL``) through
+   dist, card == CPU; ``BENCH_serve.json``'s 32 rows (16 stream, 16 dist;
+   ``benchmarks/serve.py``'s sequence) equal to the file in their
+   hardware-free fields, with ``dist_axis_bytes_le_stream_delta``; and
+   ``python -m repro_torch.launch.serve --mode ddc --backend dist --shards
+   8`` and ``--mode track --backend dist`` on the card, each line's
+   hardware-free fields equal to the ``--backend stream`` run's.  Printed
+   beside the card: ingest, one-shard refresh, 8-dirty refresh and query
+   ms (p50, p99) for both engines, B3 / B4 / B5 launches a round, the
+   profile, peak memory.  The kernels line's B3, B4 and B5 entries carry
+   the dist path's launches (``dist_launches``).
    Then the tree of aggregators (``hierarchy_full_width`` line): the same
    262,144 points of ``make_d2``, Morton-sorted, in 64 rings of 4,096 on
    ``UNCUT`` (32 clusters), fed alike to three ``ClusterService``s — the
@@ -264,6 +293,27 @@ STREAM_FAULT_SHARD = 3
 STREAM_SMALL = (4, 4096, 8, 1024)
 STREAM_SMALL_EPS = 2.0
 STREAM_SMALL_TILE = 128
+# The dist engine at full width (dist_full_width) takes stream_full_width's
+# calls beside a stream twin; its tree check runs DIST_TREE_SHARDS lanes of
+# FULL_N / DIST_TREE_SHARDS on UNCUT (Morton-sorted blocks), the tree of
+# degree DIST_TREE_DEGREE against flat dist, over DIST_TREE_ROUNDS rounds
+# of DIST_TREE_ROUND_N points.  BENCH_serve.json's rows replay
+# benchmarks/serve.py's sequence (SERVE_BENCH_N points, the tier's
+# SERVE_BENCH_QPS requests: the file was written with --qps) and must
+# equal the file in SERVE_BENCH_FIELDS; the serve entry point's lines are
+# compared without SERVE_TIMING_FIELDS.
+DIST_TREE_SHARDS = 16
+DIST_TREE_DEGREE = 4
+DIST_TREE_ROUNDS = 4
+DIST_TREE_ROUND_N = 1024
+SERVE_BENCH_N = 2048
+SERVE_BENCH_QPS = 96
+SERVE_BENCH_FIELDS = ("n_live", "delta_bytes", "full_bytes", "delta_bytes_int8", "buffer_bytes",
+                      "d2_pairs_delta", "d2_pairs_full", "query_shards_scanned",
+                      "query_shards_possible", "n_clusters", "matches_host",
+                      "delta_equals_full", "snapshot_matches_sync")
+SERVE_TIMING_FIELDS = {"ingest_ms_per_batch", "query_ms", "match_ms_per_refresh",
+                       "wall_ms_per_frame", "qps", "p50_ms", "p99_ms", "jit_cache_entries"}
 # The tree of aggregators at full width (hierarchy_full_width): make_d2 at
 # FULL_N, Morton-sorted, in HIER_SHARDS rings of HIER_SHARD_N (each shard a
 # compact region, as a spatial partitioner gives it), on UNCUT (no local or
@@ -1736,23 +1786,27 @@ def stream_state(svc) -> dict:
     """What two equal engines share: global labels, maps, the pair-d2
     cache and the dense local labels, copied to the host (on the CPU a
     bare ``.numpy()`` would alias tensors that later refreshes write in
-    place)."""
-    return {k: getattr(svc, k).to("cpu", copy=True).numpy()
-            for k in ("_glabels", "_maps", "_pair_d2", "_dense")}
+    place).  The dist engine keeps labels per lane: stacked here."""
+    out = {}
+    for k in ("_glabels", "_maps", "_pair_d2", "_dense"):
+        v = getattr(svc, k)
+        out[k] = (svc.stacked(k) if isinstance(v, list) else v).to("cpu", copy=True).numpy()
+    return out
 
 
 def states_equal(np, a: dict, b: dict) -> bool:
     return all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
 
 
-def stream_reduced(torch, np, ddc, spatial, dev, eps: float) -> dict:
+def stream_reduced(torch, np, ddc, spatial, dev, eps: float, engine: str = "stream") -> dict:
     """The reduced stream run of check (f) on ``dev``: STREAM_SMALL's
     shards and capacity, make_d2 Morton-sorted (spatially compact shards),
     block-sparse DBSCAN in tiles of STREAM_SMALL_TILE on either device, a
     round-robin fit, then rounds of new points into shard r mod K, each
-    refreshed and queried.  Returns everything the two devices must agree
-    on."""
+    refreshed and queried, through the ``engine`` ("stream" or "dist").
+    Returns everything the two devices must agree on."""
     from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import dist_service as ds
 
     k, cap, rounds, per = STREAM_SMALL
     pts = spatial.morton_sorted(spatial.make_d2(k * cap, seed=1))
@@ -1761,7 +1815,8 @@ def stream_reduced(torch, np, ddc, spatial, dev, eps: float) -> dict:
     scfg = cs.StreamConfig(shards=k, capacity=cap, max_batch=STREAM_CHUNK,
                            ddc=ddc.DDCConfig(eps=eps, min_pts=4, block_sparse="always",
                                              block_tile=STREAM_SMALL_TILE))
-    svc = cs.ClusterService(scfg, meter=ddc.CommMeter(), device=dev)
+    cls = ds.DistClusterService if engine == "dist" else cs.ClusterService
+    svc = cls(scfg, meter=ddc.CommMeter(), device=dev)
     for shard, chunk in spatial.stream_batches(pts, k, STREAM_CHUNK):
         svc.ingest(shard, chunk, t=0.0)
     svc.refresh()
@@ -1775,6 +1830,21 @@ def stream_reduced(torch, np, ddc, spatial, dev, eps: float) -> dict:
     out["state_dict"] = svc.state_dict()
     out["clusters"] = int(svc.global_set.valid.sum())
     return out
+
+
+def reduced_diffs(np, a: dict, b: dict) -> list[str]:
+    """Where two ``stream_reduced`` runs differ (empty when equal)."""
+    (ca, cm), (pa, pm) = a["state_dict"], b["state_dict"]
+    diffs = [f"refresh {i} {k}: {int((x[k] != y[k]).sum())}"
+             for i, (x, y) in enumerate(zip(a["states"], b["states"]))
+             for k in x if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])]
+    diffs += [f"answers {i}: {int((x != y).sum())}"
+              for i, (x, y) in enumerate(zip(a["answers"], b["answers"]))
+              if not np.array_equal(x, y)]
+    diffs += [f"state_dict {k}" for k in sorted(set(ca) | set(pa))
+              if k not in ca or k not in pa or ca[k].dtype != pa[k].dtype
+              or not np.array_equal(ca[k], pa[k])]
+    return diffs + ["meter"] * (a["meter"] != b["meter"]) + ["manifest"] * (cm != pm)
 
 
 def stream_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) -> dict:
@@ -1980,17 +2050,7 @@ def stream_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) ->
     t1 = time.perf_counter()
     small_cpu = stream_reduced(torch, np, ddc, spatial, "cpu", eps_small)
     t2 = time.perf_counter()
-    (ca, cm), (pa, pm) = small_card["state_dict"], small_cpu["state_dict"]
-    diffs = [f"refresh {i} {k}: {int((a[k] != b[k]).sum())}"
-             for i, (a, b) in enumerate(zip(small_card["states"], small_cpu["states"]))
-             for k in a if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
-    diffs += [f"answers {i}: {int((a != b).sum())}"
-              for i, (a, b) in enumerate(zip(small_card["answers"], small_cpu["answers"]))
-              if not np.array_equal(a, b)]
-    diffs += [f"state_dict {k}" for k in sorted(set(ca) | set(pa))
-              if k not in ca or k not in pa or ca[k].dtype != pa[k].dtype
-              or not np.array_equal(ca[k], pa[k])]
-    diffs += ["meter"] * (small_card["meter"] != small_cpu["meter"]) + ["manifest"] * (cm != pm)
+    diffs = reduced_diffs(np, small_card, small_cpu)
     card_equals_cpu = not diffs
     if not card_equals_cpu:
         raise RuntimeError(f"stream: the reduced run on the card differs from the CPU's: "
@@ -2025,6 +2085,489 @@ def stream_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) ->
                     "eps": eps_small, "block_tile": STREAM_SMALL_TILE,
                     "clusters": small_card["clusters"],
                     "card_s": t1 - t0, "cpu_s": t2 - t1},
+        "phase_s": time.perf_counter() - t_phase}
+
+
+def stream_overlap(torch, fn, wall_s: float) -> dict:
+    """Kernels by CUDA stream over one call of ``fn`` under torch.profiler,
+    read from its Chrome trace: how many ran, on how many streams, how
+    many overlapped in time a kernel on another stream, their summed and
+    their union device time, and the union's share of ``wall_s`` (the
+    same work's unprofiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+    ks = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 (e.get("args") or {}).get("stream", e.get("tid")))
+                for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if not ks:
+        return {"kernels": 0, "device_ms": "not measured", "wall_s": wall_s}
+    overlapped, active = set(), []
+    for i, (t0, t1, st) in enumerate(ks):
+        active = [a for a in active if a[0] > t0]
+        for end, st2, j in active:
+            if st2 != st:
+                overlapped.update((i, j))
+        active.append((t1, st, i))
+    union, lo, hi = 0.0, ks[0][0], ks[0][1]
+    for t0, t1, _ in ks[1:]:
+        if t0 > hi:
+            union += hi - lo
+            lo, hi = t0, t1
+        else:
+            hi = max(hi, t1)
+    union += hi - lo
+    return {"kernels": len(ks), "streams": len({st for *_, st in ks}),
+            "overlapped_kernels": len(overlapped),
+            "device_ms_sum": sum(t1 - t0 for t0, t1, _ in ks) / 1e3,
+            "device_ms_union": union / 1e3, "wall_s": wall_s,
+            "busy_share": union / 1e6 / wall_s}
+
+
+def bench_serve_row(torch, np, ddc, spatial, name: str, spec: dict, k: int, backend: str,
+                    dev) -> dict:
+    """One row of BENCH_serve.json through the port on ``dev``:
+    benchmarks/serve.py's ``bench_cell`` sequence (round-robin ingest with
+    a refresh after every batch, a one-point delta refresh then three
+    timed, a full re-merge then three timed, a query warm-up then three
+    timed, the tier's ``SERVE_BENCH_QPS`` requests of 32 points in bursts
+    of 8, each answer held to the sync query), its hardware-free fields."""
+    from repro_torch import ddc as T
+    from repro_torch.parallel import compress
+    from repro_torch.serve import query_tier as qt
+
+    pts = spec["make"](SERVE_BENCH_N)
+    cap = spatial.shard_capacity(SERVE_BENCH_N, k)
+    batch = min(256, cap)
+    cfg = T.DDCConfig(eps=spec["eps"], min_pts=spec["min_pts"], grid=spec["grid"],
+                      max_clusters=spec["max_clusters"], max_verts=spec["max_verts"],
+                      backend=backend, shards=k, capacity=cap, max_batch=batch,
+                      max_queries=256).validate()
+    meter = ddc.CommMeter()
+    model = T.DDC(cfg, meter=meter, device=dev)
+    svc = model.service
+    for shard, chunk in spatial.stream_batches(pts, k, batch):
+        model.partial_fit(shard, chunk)
+        svc.refresh()
+    meter.reset()
+    model.partial_fit(0, pts[:1])
+    svc.refresh()
+    delta_bytes = meter.snapshot()["bytes_total"]
+    for _ in range(3):
+        model.partial_fit(0, pts[:1])
+        svc.refresh()
+    d2_delta = svc.pair_d2.cpu().numpy()
+    meter.reset()
+    svc.remerge_full()
+    full_bytes = meter.snapshot()["bytes_total"]
+    d2_full = svc.pair_d2.cpu().numpy()
+    for _ in range(3):
+        svc.remerge_full()
+    q = np.random.default_rng(0).uniform(0, 1, (256, 2)).astype(np.float32)
+    for _ in range(4):
+        model.query(q)
+    routing = svc.routing_stats()
+    tier = qt.QueryTier(svc, max_queries=256, max_staleness=float("inf"))
+    svc.read_snapshot()
+    rng = np.random.default_rng(1)
+    req = [rng.uniform(0, 1, (32, 2)).astype(np.float32) for _ in range(SERVE_BENCH_QPS)]
+    tier.query(req[0])
+    handles = []
+    for off in range(0, SERVE_BENCH_QPS, 8):
+        burst = [tier.submit(p) for p in req[off:off + 8]]
+        tier.drain()
+        handles.extend(burst)
+    matches = all(np.array_equal(np.asarray(h.result), svc.query(p, legacy=True))
+                  for p, h in zip(req, handles))
+    live, parts, labels = svc.live()
+    host, _, _ = ddc.ddc_host(live, len(parts), spec["eps"], spec["min_pts"], partition=parts,
+                              contour="grid")
+    return {"backend": backend, "layout": name, "shards": k, "n_live": int(len(live)),
+            "delta_bytes": delta_bytes, "full_bytes": full_bytes,
+            "delta_bytes_int8": compress.pytree_wire_bytes_int8(svc.local_set(0))
+            + k * cfg.max_clusters * 4,
+            "buffer_bytes": cfg.core().buffer_bytes(),
+            "d2_pairs_delta": cfg.max_clusters * k * cfg.max_clusters,
+            "d2_pairs_full": (k * cfg.max_clusters) ** 2,
+            "query_shards_scanned": routing["query_shards_scanned"],
+            "query_shards_possible": routing["query_shards_possible"],
+            "n_clusters": int(svc.global_set.valid.sum()),
+            "matches_host": ddc.same_clustering(labels, host),
+            "delta_equals_full": bool(np.array_equal(d2_delta, d2_full)),
+            "snapshot_matches_sync": bool(matches)}
+
+
+def bench_serve(torch, np, ddc, spatial, dev) -> dict:
+    """BENCH_serve.json's 32 rows on ``dev``: every hardware-free field
+    equal to the file's, and each dist row's bytes within its stream
+    row's (``dist_axis_bytes_le_stream_delta``)."""
+    bench = json.loads((ROOT / "BENCH_serve.json").read_text())
+    t0 = time.perf_counter()
+    rows, bad = [], []
+    for want in bench["rows"]:
+        name = want["layout"]
+        got = bench_serve_row(torch, np, ddc, spatial, name, spatial.PHASE2_LAYOUTS[name],
+                              want["shards"], want["backend"], dev)
+        diff = [f for f in SERVE_BENCH_FIELDS if got[f] != want[f]]
+        if diff:
+            bad.append({"row": [want["backend"], name, want["shards"]],
+                        "fields": {f: [got[f], want[f]] for f in diff}})
+        rows.append(got)
+    stream_delta = {(r["layout"], r["shards"]): r["delta_bytes"]
+                    for r in rows if r["backend"] == "stream"}
+    le = all(r["delta_bytes"] <= stream_delta[(r["layout"], r["shards"])]
+             for r in rows if r["backend"] == "dist")
+    if bad or not le or le != bench["summary"]["dist_axis_bytes_le_stream_delta"]:
+        raise RuntimeError(f"BENCH_serve.json: the card's rows differ: {bad[:6]}, "
+                           f"dist_axis_bytes_le_stream_delta {le}")
+    return {"rows": len(rows), "fields": list(SERVE_BENCH_FIELDS), "all_equal": True,
+            "dist_axis_bytes_le_stream_delta": le, "qps_requests": SERVE_BENCH_QPS,
+            "s": time.perf_counter() - t0}
+
+
+def serve_cli_runs(np, dev) -> dict:
+    """``python -m repro_torch.launch.serve`` on the card: ``--mode ddc``
+    and ``--mode track`` with ``--backend dist``, each beside the same
+    flags on ``--backend stream`` (run side by side); every line parses
+    and its hardware-free fields equal the stream run's."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+    for mode, flags in (("ddc", ["--shards", str(LANES)]), ("track", [])):
+        procs = {b: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode", mode, "--backend", b,
+             "--device", str(dev), *flags], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for b in ("dist", "stream")}
+        lines = {}
+        for b, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise RuntimeError(f"launch.serve --mode {mode} --backend {b} exited "
+                                   f"{p.returncode}: {stderr[-2000:]}")
+            lines[b] = json.loads(stdout.strip().splitlines()[-1])
+        d, st = lines["dist"], lines["stream"]
+        keys = sorted(set(d) - SERVE_TIMING_FIELDS - {"backend"})
+        diff = [k for k in keys if d[k] != st.get(k)]
+        if diff or set(d) != set(st):
+            raise RuntimeError(f"launch.serve --mode {mode}: dist differs from stream in "
+                               f"{diff}: {[d.get(k) for k in diff]} vs "
+                               f"{[st.get(k) for k in diff]}")
+        out[mode] = {"dist": {k: d[k] for k in sorted(d) if k != "tracks"},
+                     "stream_timing": {k: st[k] for k in sorted(st) if k in SERVE_TIMING_FIELDS},
+                     "fields_equal": keys}
+    return out
+
+
+def dist_full_width(torch, np, ddc, ops, spatial, dev, eps, pts, card: str) -> dict:
+    """The dist engine through the facade at full width, beside its stream
+    twin in the same call (see the module docstring).  Returns its line."""
+    from repro_torch import ddc as T
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import dist_service as ds
+    from repro_torch.serve import faults
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kw = dict(eps=eps, min_pts=4, shards=LANES, max_batch=STREAM_CHUNK)
+    names = ("dist", "stream")
+    models = {b: T.DDC(T.DDCConfig(backend=b, **kw), meter=ddc.CommMeter(), device=dev)
+              for b in names}
+    core = models["dist"].config.core()
+    b_bytes, c = core.buffer_bytes(), core.max_clusters
+    want_delta, want_full = b_bytes + LANES * c * 4, LANES * b_bytes + LANES * c * 4
+    rec = {b: {"ingest_ms": [], "refresh_ms": [], "query_ms": [], "expiry_refresh_ms": [],
+               "bytes": []} for b in names}
+    totals: dict = {}
+    round_launches = []
+    compared = [0]
+
+    def add(launches):
+        for key, v in launches.items():
+            totals[key] = totals.get(key, 0) + v
+
+    def compare(what: str):
+        a, b = (stream_state(models[n].service) for n in names)
+        if not states_equal(np, a, b):
+            bad = [key for key in a if not np.array_equal(a[key], b[key])]
+            raise RuntimeError(f"dist: differs from stream after {what} in {bad}")
+        compared[0] += 1
+
+    # The main path: dist's fit, rounds, expiries and full re-merge, the
+    # launch counts zeroed just before each and read just after; the
+    # stream twin runs after each, outside the counts.
+    fit_s = {}
+    for b in names:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        models[b].fit(pts)
+        torch.cuda.synchronize()
+        fit_s[b] = time.perf_counter() - t0
+        if b == "dist":
+            fit_launches = ops.launch_counts()
+            add(fit_launches)
+    compare("the fit")
+    svcs = {b: models[b].service for b in names}
+    lanes = svcs["dist"].lanes
+    streams = {lane.stream.cuda_stream for lane in lanes}
+    if len(streams) != LANES or torch.cuda.current_stream(dev).cuda_stream in streams \
+            or svcs["dist"].scfg.capacity != FULL_N // LANES:
+        raise RuntimeError(f"dist: {len(streams)} lane streams for {LANES} lanes, capacity "
+                           f"{svcs['dist'].scfg.capacity}")
+    new = spatial.make_d2(FULL_N, seed=DELTA_SEED)
+    parts = np.array_split(np.arange(FULL_N), LANES)
+    probes = stream_probes(np, pts, eps, STREAM_PROBES, 9)
+    clock = {b: float(svcs[b]._next_seq) for b in names}
+    expiries = []
+
+    def ingest_round(b, r):
+        shard = r % LANES
+        block = new[parts[shard][(r // LANES) * STREAM_ROUND_N:][:STREAM_ROUND_N]]
+        for off in range(0, STREAM_ROUND_N, STREAM_CHUNK):
+            stamps = clock[b] + np.arange(STREAM_CHUNK, dtype=np.float64)
+            models[b].partial_fit(shard, block[off:off + STREAM_CHUNK], t=stamps)
+            clock[b] += STREAM_CHUNK
+
+    def expire(b, advance: float = 0.0):
+        """A TTL expiry and its refresh (every shard dirty); its ms."""
+        evicted = models[b].expire(clock[b] + advance - STREAM_WINDOW)
+        dirty = len(svcs[b]._dirty)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svcs[b].refresh()
+        torch.cuda.synchronize()
+        return evicted, dirty, (time.perf_counter() - t0) * 1e3
+
+    for r in range(STREAM_ROUNDS):
+        answers = {}
+        for b in names:
+            m, svc = models[b], svcs[b]
+            ops.reset_launch_counts()
+            m.backend.meter.reset()
+            t0 = time.perf_counter()
+            ingest_round(b, r)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            svc.refresh()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            answers[b] = m.query(probes).labels
+            t3 = time.perf_counter()
+            if b == "dist":
+                launches = ops.launch_counts()
+                add(launches)
+                round_launches.append({key: v for key, v in launches.items() if v})
+            rec[b]["ingest_ms"].append((t1 - t0) * 1e3)
+            rec[b]["refresh_ms"].append((t2 - t1) * 1e3)
+            rec[b]["query_ms"].append((t3 - t2) * 1e3)
+            rec[b]["bytes"].append(m.backend.meter.snapshot()["bytes_total"])
+        compare(f"round {r}")
+        if not np.array_equal(answers["dist"], answers["stream"]):
+            raise RuntimeError(f"dist: the sync answers differ from stream's in round {r}")
+        if r % STREAM_TTL_EVERY == STREAM_TTL_EVERY - 1:
+            row = {"round": r}
+            for b in names:
+                ops.reset_launch_counts()
+                evicted, dirty, ms = expire(b)
+                if b == "dist":
+                    launches = ops.launch_counts()
+                    add(launches)
+                    row.update(evicted=evicted, dirty_shards=dirty, refresh_ms=ms,
+                               launches={key: v for key, v in launches.items() if v})
+                else:
+                    row["stream_refresh_ms"] = ms
+                rec[b]["expiry_refresh_ms"].append(ms)
+            if row["dirty_shards"] != LANES:
+                raise RuntimeError(f"dist: the expiry at round {r} dirtied {row['dirty_shards']} "
+                                   f"shards, not {LANES}")
+            expiries.append(row)
+            compare(f"the expiry at round {r}")
+    full_ms = {}
+    for b in names:
+        ops.reset_launch_counts()
+        models[b].backend.meter.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svcs[b].refresh(mode="full", force=True)
+        torch.cuda.synchronize()
+        full_ms[b] = (time.perf_counter() - t0) * 1e3
+        if b == "dist":
+            add(ops.launch_counts())
+    compare("the full re-merge")
+    full_bytes = models["dist"].backend.meter.snapshot()["bytes_total"]
+    if any(totals.get(key, 0) < 1 for key in DIST_PATH_KERNELS):
+        raise RuntimeError(f"dist: a kernel of the dist path never launched: {totals}")
+    if any(rl.get("cross_min_d2", 0) != 1 or "contour_min_d2" in rl
+           or rl.get("neighbor_count_sparse", 0) + rl.get("neighbor_count", 0) != 1
+           for rl in round_launches):
+        raise RuntimeError(f"dist: a one-shard round did not run one phase 1 and one "
+                           f"rectangular B5 patch: {round_launches}")
+    if set(rec["dist"]["bytes"]) != {want_delta} or full_bytes != want_full \
+            or set(rec["stream"]["bytes"]) != {want_delta}:
+        raise RuntimeError(f"dist: metered bytes {sorted(set(rec['dist']['bytes']))} / "
+                           f"{full_bytes}, expected {want_delta} / {want_full}")
+    # One more 8-dirty refresh (the TTL window advanced by 8,192 fix
+    # stamps) under the profiler: kernels on distinct lane streams.
+    for b in names:
+        models[b].expire(clock[b] + 8192 - STREAM_WINDOW)
+    dirty_profiled = len(svcs["dist"]._dirty)
+    overlap = stream_overlap(torch, svcs["dist"].refresh,
+                             pct(rec["dist"]["expiry_refresh_ms"], 0.5) / 1e3)
+    svcs["stream"].refresh()
+    compare("the profiled expiry")
+    # state_dict -> from_state across the engines, then one more round on
+    # all four engines.
+    (da, dm), (sa, sm) = svcs["dist"].state_dict(), svcs["stream"].state_dict()
+    if dm != sm or sorted(da) != sorted(sa) or \
+            any(da[key].dtype != sa[key].dtype or not np.array_equal(da[key], sa[key])
+                for key in da):
+        raise RuntimeError("dist: state_dict differs from the stream engine's")
+    from_dist = cs.ClusterService.from_state(svcs["stream"].scfg, da, dm, device=dev)
+    from_stream = ds.DistClusterService.from_state(svcs["dist"].scfg, sa, sm, device=dev)
+    restored_same = states_equal(np, stream_state(from_dist), stream_state(svcs["dist"])) \
+        and states_equal(np, stream_state(from_stream), stream_state(svcs["stream"]))
+    shard = (STREAM_ROUNDS + 1) % LANES
+    more = new[parts[shard][-STREAM_ROUND_N:]]
+    four = (svcs["dist"], svcs["stream"], from_dist, from_stream)
+    for e in four:
+        e.ingest(shard, more)
+        e.refresh()
+    ref_state = stream_state(svcs["dist"])
+    restore_crosses = restored_same and all(states_equal(np, stream_state(e), ref_state)
+                                            for e in four[1:])
+    if not restore_crosses:
+        raise RuntimeError("dist: a state restored across the engines differs")
+    del from_dist, from_stream, four
+    # Shard 3's delta dropped beyond max_retries on both engines:
+    # quarantine, routed queries, recovery.
+    attempts = svcs["dist"].scfg.max_retries + 2
+    more = new[parts[STREAM_FAULT_SHARD][-2 * STREAM_ROUND_N:-STREAM_ROUND_N]]
+    routed = {}
+    for b in names:
+        svc = svcs[b]
+        svc.faults = faults.FaultPlan(events=(faults.FaultEvent(
+            "drop", shard=STREAM_FAULT_SHARD, delivery=None, attempts=attempts),))
+        svc.ingest(STREAM_FAULT_SHARD, more)
+        svc.refresh()
+        near = svc._hpts[STREAM_FAULT_SHARD][svc._live[STREAM_FAULT_SHARD]][:64]
+        routed[b] = (dict(svc.quarantined), models[b].query(near))
+    compare("the dropped delta")
+    (dq, dr), (sq, sr) = routed["dist"], routed["stream"]
+    drill = {"quarantined": list(dq) == [STREAM_FAULT_SHARD] and dq == sq,
+             "routed_around": dr.degraded and STREAM_FAULT_SHARD not in dr.scanned_shards
+             and (dr.degraded, dr.scanned_shards) == (sr.degraded, sr.scanned_shards)
+             and bool(np.array_equal(dr.labels, sr.labels))}
+    for b in names:
+        svcs[b].faults = None
+        drill[f"recovered_{b}"] = svcs[b].recover(STREAM_FAULT_SHARD)
+        svcs[b].refresh()
+    compare("the recovery")
+    drill["answers_equal"] = bool(np.array_equal(models["dist"].query(probes).labels,
+                                                 models["stream"].query(probes).labels))
+    if not all(drill.values()):
+        raise RuntimeError(f"dist: the fault drill differs from stream's: {drill}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_clusters = int(svcs["dist"].global_set.valid.sum())
+    del models, svcs
+    torch.cuda.empty_cache()
+    # The tree of degree DIST_TREE_DEGREE at DIST_TREE_SHARDS lanes against
+    # flat dist at the same lanes (UNCUT, Morton-sorted blocks).
+    k16, per = DIST_TREE_SHARDS, FULL_N // DIST_TREE_SHARDS
+    tpts = spatial.morton_sorted(spatial.make_d2(FULL_N, seed=1))
+    tnew = spatial.morton_sorted(spatial.make_d2(FULL_N, seed=DELTA_SEED))
+    core_u = ddc.DDCConfig(**UNCUT)
+    tree_svcs = {deg: ds.DistClusterService(cs.StreamConfig(
+        shards=k16, capacity=per, max_batch=DIST_TREE_ROUND_N, agg_degree=deg, ddc=core_u),
+        meter=ddc.CommMeter(), device=dev) for deg in (None, DIST_TREE_DEGREE)}
+    biggest, tree_ms = 0, {"flat": [], "tree": []}
+
+    def tree_refresh(what):
+        nonlocal biggest
+        for deg, svc in tree_svcs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.refresh()
+            torch.cuda.synchronize()
+            tree_ms["flat" if deg is None else "tree"].append((time.perf_counter() - t0) * 1e3)
+            biggest = max(biggest, largest_count(svc))
+        flat, tree = tree_svcs[None], tree_svcs[DIST_TREE_DEGREE]
+        if biggest >= core_u.max_verts:
+            raise RuntimeError(f"dist tree: a contour fills max_verts ({biggest})")
+        if not (torch.equal(tree.stacked("_glabels"), flat.stacked("_glabels"))
+                and torch.equal(tree._maps, flat._maps) and tree.pair_d2 is None):
+            raise RuntimeError(f"dist tree: degree {DIST_TREE_DEGREE} differs from flat dist "
+                               f"after {what}")
+
+    for svc in tree_svcs.values():
+        for s_ in range(k16):
+            svc.ingest(s_, tpts[s_ * per:(s_ + 1) * per], t=np.arange(per, dtype=np.float64))
+    tree_refresh("the fit")
+    for r in range(DIST_TREE_ROUNDS):
+        s_ = (r * 5) % k16
+        block = tnew[s_ * per:s_ * per + DIST_TREE_ROUND_N]
+        for svc in tree_svcs.values():
+            svc.ingest(s_, block, t=float(per + r))
+        tree_refresh(f"round {r}")
+    tree_clusters = int(tree_svcs[None].global_set.valid.sum())
+    tree_bytes = {("flat" if deg is None else "tree"): svc.meter.snapshot()["bytes_total"]
+                  for deg, svc in tree_svcs.items()}
+    del tree_svcs
+    torch.cuda.empty_cache()
+    # The reduced run through dist, on the card and on the CPU.
+    eps_small = eps * STREAM_SMALL_EPS
+    t0 = time.perf_counter()
+    small_card = stream_reduced(torch, np, ddc, spatial, dev, eps_small, engine="dist")
+    t1 = time.perf_counter()
+    small_cpu = stream_reduced(torch, np, ddc, spatial, "cpu", eps_small, engine="dist")
+    t2 = time.perf_counter()
+    diffs = reduced_diffs(np, small_card, small_cpu)
+    if diffs:
+        raise RuntimeError(f"dist: the reduced run on the card differs from the CPU's: "
+                           f"{diffs[:20]}")
+    bench = bench_serve(torch, np, ddc, spatial, dev)
+    cli = serve_cli_runs(np, dev)
+
+    def ms(b, key):
+        xs = rec[b][key]
+        return {"p50": pct(xs, 0.5), "p99": pct(xs, 0.99), "max": max(xs)}
+
+    families = [kernel_families(rl) for rl in round_launches]
+    return {
+        "card": card, "n": FULL_N, "shards": LANES, "lane_streams": len(streams),
+        "capacity": FULL_N // LANES, "eps": eps, "min_pts": 4, "max_batch": STREAM_CHUNK,
+        "rounds": STREAM_ROUNDS, "round_points": STREAM_ROUND_N, "probes": STREAM_PROBES,
+        "fit_s": fit_s, "fit_launches": {key: v for key, v in fit_launches.items() if v},
+        **{f"{key}_ms": {b: ms(b, f"{key}_ms") for b in names}
+           for key in ("ingest", "refresh", "query", "expiry_refresh")},
+        "full_remerge_ms": full_ms, "delta_bytes": want_delta, "full_bytes": full_bytes,
+        "buffer_bytes": b_bytes, "launches_per_round": round_launches[0],
+        "b3_b4_b5_per_round": {"b3": sorted({f["b3"] for f in families}),
+                               "b4": [f["b4"] for f in families],
+                               "b5_rect": sorted({f["b5_rect"] for f in families})},
+        "main_path_launches": {key: v for key, v in totals.items() if v},
+        "expiries": expiries, "refreshes_compared": compared[0],
+        "profile_8_dirty": {"dirty_shards": dirty_profiled, **overlap},
+        "peak_bytes": peak, "n_clusters": n_clusters,
+        "tree": {"shards": k16, "degree": DIST_TREE_DEGREE, "rounds": DIST_TREE_ROUNDS,
+                 "clusters": tree_clusters, "largest_contour": biggest,
+                 "refresh_ms_p50": {key: pct(v, 0.5) for key, v in tree_ms.items()},
+                 "bytes": tree_bytes, "equals_flat": True},
+        "reduced": {"shards": STREAM_SMALL[0], "capacity": STREAM_SMALL[1],
+                    "rounds": STREAM_SMALL[2], "round_points": STREAM_SMALL[3],
+                    "clusters": small_card["clusters"], "card_s": t1 - t0, "cpu_s": t2 - t1},
+        "bench_serve": bench, "serve_cli": cli,
+        "checks": {"equals_stream_every_refresh": True, "answers_equal_every_round": True,
+                   "bytes_exact": True, "restore_crosses_engines": restore_crosses,
+                   "fault_drill_equals_stream": True, "tree_equals_flat": True,
+                   "card_equals_cpu": True, "bench_serve_equal": True,
+                   "serve_cli_equal": True},
         "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2117,6 +2660,8 @@ def largest_count(svc) -> int:
     return int(max(int(c) for c in counts))
 
 
+DIST_PATH_KERNELS = ("neighbor_count_sparse", "min_label_sweep_sparse", "contour_min_d2",
+                     "cross_min_d2")
 B5_RECT = ("cross_min_d2",)
 B5_SQUARE = ("contour_min_d2",)
 B4 = ("min_label_sweep_sparse", "min_label_sweep")
@@ -2774,6 +3319,14 @@ def main() -> int:
         torch, np, ddc, ops, spatial, dev, eps, pts, card.splitlines()[0])}), flush=True)
     torch.cuda.empty_cache()
 
+    # The dist engine at full width beside its stream twin, equal after
+    # every refresh; its tree, reduced run, BENCH_serve.json's rows and the
+    # serve entry point.
+    dist_line = dist_full_width(torch, np, ddc, ops, spatial, dev, eps, pts,
+                                card.splitlines()[0])
+    print(json.dumps({"dist_full_width": dist_line}), flush=True)
+    torch.cuda.empty_cache()
+
     # The tree of aggregators at 64 shards (both trees == flat after every
     # refresh, BENCH_hierarchy.json's rows), then cluster tracking at full
     # width (flat == tree == resumed == plain tracker states).
@@ -2790,6 +3343,9 @@ def main() -> int:
     b5["at_tracker_shape"] = shape_timing(torch, ops, ref, track_b5, floor_ms)
     b5["at_node_fold_shape"] = {name: shape_timing(torch, ops, ref, args, floor_ms)
                                 for name, args in node_b5.items()}
+    for entry in kernels:
+        if entry["name"] in DIST_PATH_KERNELS:
+            entry["dist_launches"] = dist_line["main_path_launches"].get(entry["name"], 0)
     print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------

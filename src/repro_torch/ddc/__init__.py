@@ -17,7 +17,7 @@ from repro_torch.core.ddc import (
     same_clustering,
 )
 from repro_torch.ddc.api import DDC, SNAPSHOT_FORMAT, SnapshotError
-from repro_torch.ddc.backends import BACKENDS, UNPORTED, Backend, register_backend
+from repro_torch.ddc.backends import BACKENDS, Backend, register_backend
 from repro_torch.ddc.config import ConfigError, DDCConfig
 from repro_torch.serve.query_tier import (
     QueryResult,
@@ -31,7 +31,7 @@ from repro_torch.serve.query_tier import (
 
 __all__ = [
     "DDC", "DDCConfig", "ConfigError", "SNAPSHOT_FORMAT", "SnapshotError",
-    "BACKENDS", "UNPORTED", "Backend", "register_backend",
+    "BACKENDS", "Backend", "register_backend",
     "ClusterSet", "CommMeter", "ddc_host", "make_ddc_fn",
     "same_clustering",
     "QueryResult", "QueryTier", "QueueFull", "Snapshot",

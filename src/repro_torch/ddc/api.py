@@ -14,9 +14,9 @@ Counterpart of the reference package's ``ddc/api.py``::
     model.comm_stats()                   # exact wire-byte accounting
     model.save("ckpt/"); DDC.load("ckpt/")   # bit-identical resume
 
-The backend (``host`` | ``jit`` | ``stream``) is a config knob; all
-three produce the identical global clustering on the same per-shard
-membership.  Configs
+The backend (``host`` | ``jit`` | ``stream`` | ``dist``) is a config
+knob; all four produce the identical global clustering on the same
+per-shard membership.  Configs
 are validated at construction (``DDCConfig.validate``), so
 schedule/backend mismatches and DESIGN.md §7 sizing violations fail
 loudly before any work runs.  ``device`` is an argument, not a config
@@ -58,7 +58,7 @@ class DDC:
                  faults: "faults_mod.FaultPlan | None" = None, *,
                  device="cuda"):
         self.config = config.validate()
-        cls = backends_mod.backend_class(config.backend)
+        cls = backends_mod.BACKENDS[config.backend]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

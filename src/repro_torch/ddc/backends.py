@@ -18,10 +18,12 @@ rewrite.
   eviction, the failure model and bit-identical snapshot/restore, its
   buffers on the backend's device; ``agg_degree`` swaps in the tree of
   aggregators and ``track=True`` the cluster tracker (``tracks()``).
-
-``dist`` is a known name whose engine has no port yet (``UNPORTED``):
-``DDCConfig.validate`` applies its rules, and constructing a ``DDC`` with
-it raises ``ConfigError``.
+* ``dist`` — wraps ``repro_torch.serve.dist_service.DistClusterService``:
+  the ``stream`` engine's control plane with each shard's buffers and
+  phase 1 on a lane of its own (a CUDA stream on a card), only the delta
+  ClusterSets and slot-map rows crossing to the aggregator, metered from
+  the bytes fetched.  Bit-identical to ``stream``; snapshots move between
+  the two.
 
 Both batch backends consume the same per-shard membership (the block
 ``np.array_split`` partition), so they produce the identical global
@@ -47,12 +49,6 @@ from repro_torch.serve import query_tier as qt
 
 BACKENDS: Dict[str, Type["Backend"]] = {}
 
-# Backend names the reference registers whose engines are not ported yet:
-# the stream engine's device-resident edition.
-UNPORTED = {
-    "dist": "the device-resident dist engine (ROADMAP A8)",
-}
-
 
 def register_backend(name: str):
     """Class decorator: make ``name`` constructible via ``DDCConfig``."""
@@ -61,16 +57,6 @@ def register_backend(name: str):
         BACKENDS[name] = cls
         return cls
     return deco
-
-
-def backend_class(name: str) -> Type["Backend"]:
-    """The registered class of ``name``; ``ConfigError`` for a backend
-    whose engine has no port yet."""
-    if name in UNPORTED:
-        raise ConfigError(
-            f"backend {name!r} has no port yet: {UNPORTED[name]} is still to "
-            f"be ported; use backend='host', 'jit' or 'stream'")
-    return BACKENDS[name]
 
 
 class Backend:
@@ -482,10 +468,13 @@ class StreamBackend(Backend):
             match_min_overlap=cfg.match_min_overlap,
             ddc=cfg.core())
 
+    @classmethod
+    def _svc_cls(cls):
+        return cluster_service.ClusterService
+
     def _build(self, capacity: int) -> cluster_service.ClusterService:
-        return cluster_service.ClusterService(
-            self._stream_config(capacity), meter=self.meter, faults=self.faults,
-            device=self.device)
+        return self._svc_cls()(self._stream_config(capacity), meter=self.meter,
+                               faults=self.faults, device=self.device)
 
     def fit(self, points: np.ndarray, t: float | None = None) -> None:
         pts = np.asarray(points, np.float32).reshape(-1, 2)
@@ -573,6 +562,22 @@ class StreamBackend(Backend):
             match_min_overlap=float(manifest.get("match_min_overlap",
                                                  cfg.match_min_overlap)),
             ddc=cfg.core())
-        self._svc = cluster_service.ClusterService.from_state(
+        self._svc = self._svc_cls().from_state(
             scfg, arrays, manifest, meter=self.meter, faults=self.faults,
             device=self.device)
+
+
+@register_backend("dist")
+class DistBackend(StreamBackend):
+    """The device-resident streaming engine: the ``stream`` control plane
+    over lanes that hold each shard's ring buffers and run its phase 1
+    (one CUDA stream a lane on a card).  Only delta ClusterSets (up) and
+    slot-map rows (down) cross to the aggregator, so ``comm_stats()``
+    reports the bytes fetched.  Bit-identical to ``stream`` (and ``host``)
+    on the same call sequence; snapshots are interchangeable with the
+    ``stream`` backend's.  One card holds any number of lanes."""
+
+    @classmethod
+    def _svc_cls(cls):
+        from repro_torch.serve import dist_service
+        return dist_service.DistClusterService

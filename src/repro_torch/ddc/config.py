@@ -165,11 +165,10 @@ class DDCConfig:
     def _check_deployment(self) -> None:
         from repro_torch.ddc import backends   # late: backends imports this module
 
-        known = set(backends.BACKENDS) | set(backends.UNPORTED)
-        if self.backend not in known:
+        if self.backend not in backends.BACKENDS:
             raise ConfigError(
                 f"unknown backend {self.backend!r}; registered: "
-                f"{sorted(known)}")
+                f"{sorted(backends.BACKENDS)}")
         if self.shards < 1:
             raise ConfigError(f"shards must be >= 1, got {self.shards}")
         if self.backend == "jit" and self.schedule == "async" \
@@ -179,8 +178,11 @@ class DDCConfig:
                 f"count, got shards={self.shards}; use schedule='sync' or "
                 f"'tree', or round shards to a power of two")
         # The reference also checks here that the dist backend's mesh holds
-        # one device per shard.  That rule comes with the dist engine's
-        # port (ROADMAP A8); until then DDC refuses backend="dist".
+        # one device per shard.  The port's lanes are streams on one
+        # device, which holds any number of them, so that rule has no
+        # counterpart (ROADMAP C, a deviation the port accepts); the
+        # engine refuses only a device that does not exist
+        # (``serve.dist_service.require_devices``).
         if self.merge_mode not in MERGE_MODES:
             raise ConfigError(f"unknown merge_mode {self.merge_mode!r}")
         if self.max_batch < 1 or self.max_queries < 1:

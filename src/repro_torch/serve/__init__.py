@@ -1,7 +1,9 @@
 """Serving: the LM stack's prefill/decode engine, the DDC facade's query
 tier and fault-injection plan, and the streaming DDC engine
 (``cluster_service``: host-mirror control plane + data plane on the
-device; ``journal``: its write-ahead recovery log; ``hierarchy``: the
+device; ``dist_service``: the same control plane over one lane a shard,
+each on its own CUDA stream on a card, with measured exchange bytes;
+``journal``: the write-ahead recovery log; ``hierarchy``: the
 tree of aggregators that replaces the flat one when ``agg_degree`` is
 set; ``tracking``: stable track IDs, lifecycle events and motion
 analytics over the refresh generations).
@@ -12,6 +14,7 @@ engine does not pull in the clustering stack.
 from . import engine, faults, query_tier  # noqa: F401
 
 _CLUSTER_EXPORTS = ("ClusterService", "ShardControlPlane", "StreamConfig")
+_DIST_EXPORTS = ("DistClusterService",)
 _JOURNAL_EXPORTS = ("Journal",)
 _HIERARCHY_EXPORTS = ("AggregatorTree",)
 _TRACKING_EXPORTS = ("ClusterTracker", "TrackSnapshot", "TrackView", "TrackEvent")
@@ -21,6 +24,9 @@ def __getattr__(name):
     if name in _CLUSTER_EXPORTS:
         from repro_torch.serve import cluster_service
         return getattr(cluster_service, name)
+    if name in _DIST_EXPORTS:
+        from repro_torch.serve import dist_service
+        return getattr(dist_service, name)
     if name in _JOURNAL_EXPORTS:
         from repro_torch.serve import journal
         return getattr(journal, name)

@@ -464,14 +464,23 @@ class ShardControlPlane:
 
     # -- aggregator (delta merge + metering) --------------------------------
 
-    def _merge_and_meter(self, dirty: list, mode: str) -> None:
+    def _merge_and_meter(self, dirty: list, mode: str, up_bytes: int | None = None) -> None:
         """Fold the aggregator mirror into the global state and account
         the up-leg: a delta refresh ships |dirty| ClusterSets, a full
-        re-merge all K."""
+        re-merge all K.  With ``up_bytes=None`` (the host-driven engine)
+        the counters are that model; the ``dist`` engine passes the bytes
+        it measured on its fetches from the lanes, metered as one
+        collective.  The down-leg is ``_meter_maps_down``'s."""
         cfg = self.cfg
         k, c = self.scfg.shards, cfg.max_clusters
         bbytes = cfg.buffer_bytes()
         exclude = self._exclude_mask()
+
+        def meter_up(links: int) -> None:
+            if self.meter is not None:
+                self.meter.add_collective(*((links, bbytes) if up_bytes is None
+                                            else (1, up_bytes)))
+
         if self._hier is not None:
             # Hierarchical aggregation (DESIGN.md §13): shard payloads go
             # to their leaf aggregators; the tree meters its own internal
@@ -480,29 +489,31 @@ class ShardControlPlane:
             delta = mode == "delta" and self._hier.ready
             self._global, self._maps = self._hier.refresh(
                 self._batch, dirty if delta else None, exclude)
-            if self.meter is not None:
-                self.meter.add_collective(len(dirty) if delta else k, bbytes)
+            meter_up(len(dirty) if delta else k)
             if delta:
                 self.delta_refreshes += 1
             return
         if mode == "delta" and self._pair_d2 is not None:
             self._global, self._maps, self._pair_d2 = core_ddc.merge_delta(
                 self._batch, self._pair_d2, dirty, cfg, exclude)
-            if self.meter is not None:
-                self.meter.add_collective(len(dirty), bbytes)
+            meter_up(len(dirty))
             self.delta_refreshes += 1
         else:
             self._global, self._maps, self._pair_d2 = core_ddc.merge_delta(
                 self._batch, None, None, cfg, exclude)
-            if self.meter is not None:
-                self.meter.add_collective(k, bbytes)
+            meter_up(k)
         if self.meter is not None:
             self.meter.add_merge(k, c)
 
-    def _meter_maps_down(self) -> None:
-        """Account the down-leg: each shard's (C,) slot-map row."""
+    def _meter_maps_down(self, nbytes: int | None = None) -> None:
+        """Account the down-leg: each shard's (C,) slot-map row, K·C·4
+        bytes in the model; the ``dist`` engine passes the measured size
+        of the maps it pushes, metered as one collective."""
         if self.meter is not None:
-            self.meter.add_collective(self.scfg.shards, self.cfg.max_clusters * 4)
+            if nbytes is None:
+                self.meter.add_collective(self.scfg.shards, self.cfg.max_clusters * 4)
+            else:
+                self.meter.add_collective(1, nbytes)
 
     # -- delta exchange: fault seam, validation gate, retries, fencing ------
 

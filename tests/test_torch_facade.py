@@ -176,13 +176,11 @@ def test_sizing_probe_matches_reference(layout, over, match):
 
 
 def test_backend_names_and_unported_engines():
-    assert set(T.BACKENDS) == {"host", "jit", "stream"}
-    assert set(T.UNPORTED) == {"dist"}
-    assert set(T.BACKENDS) | set(T.UNPORTED) == set(J.BACKENDS)
-    for name in T.UNPORTED:
-        cfg = T.DDCConfig(backend=name, capacity=256).validate()
-        with pytest.raises(T.ConfigError, match="no port yet"):
-            T.DDC(cfg, device="cpu")
+    """Every engine the reference registers is ported: no name is refused."""
+    assert set(T.BACKENDS) == set(J.BACKENDS) == {"host", "jit", "stream", "dist"}
+    assert not hasattr(T, "UNPORTED")
+    cfg = T.DDCConfig(backend="dist", capacity=256).validate()
+    assert type(T.DDC(cfg, device="cpu").backend).__name__ == "DistBackend"
 
 
 def test_config_fields_equal_reference():
@@ -483,7 +481,8 @@ def test_quickstart_torch_ends_like_the_reference():
     """examples/quickstart_torch.py on the CPU (host and stream backends,
     a smaller set): exit 0, the MATCH line, a bit-identical restore, and
     the reference's sync-vs-async table, computed here from its modules;
-    ``--backend dist`` is refused."""
+    ``--backend dist`` ends with ``MATCH`` and the same output as
+    ``--backend stream``."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
                            "--backend", "host", "--n", "3000", "--device", "cpu"],
@@ -500,18 +499,19 @@ def test_quickstart_torch_ends_like_the_reference():
         table.append(f"scenario {scen}: sync {s:8.0f} ms | async {a:8.0f} ms "
                      f"({'async wins' if a < s else 'sync wins'})")
     assert lines[-2:] == table
-    refused = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
-                              "--backend", "dist", "--n", "600", "--device", "cpu"],
-                             capture_output=True, text=True, timeout=300, env=env)
-    assert refused.returncode != 0 and "no port yet" in refused.stderr
-    streamed = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
-                               "--backend", "stream", "--n", "3000", "--device", "cpu"],
+    streamed = {}
+    for backend in ("stream", "dist"):
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+                               "--backend", backend, "--n", "3000", "--device", "cpu"],
                               capture_output=True, text=True, timeout=300, env=env)
-    assert streamed.returncode == 0, streamed.stdout + streamed.stderr
-    slines = streamed.stdout.splitlines()
-    assert any(line.endswith("-> MATCH") for line in slines), streamed.stdout
-    assert "snapshot -> restore: labels bit-identical = True" in slines
-    assert slines[-2:] == table
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        slines = proc.stdout.splitlines()
+        assert any(line.endswith("-> MATCH") for line in slines), proc.stdout
+        assert "snapshot -> restore: labels bit-identical = True" in slines
+        assert slines[-2:] == table
+        streamed[backend] = [line.replace(f"backend={backend}", "").replace(f"({backend})", "")
+                             for line in slines]
+    assert streamed["dist"] == streamed["stream"]      # labels, plot, tracks: all equal
     assert math.isfinite(float(lines[-1].split("async")[1].split("ms")[0]))
 
 

@@ -1194,3 +1194,105 @@ def test_tracking_card_equals_cpu(cuda, agg):
         _assert_same(card_arrays[key], cpu_arrays[key])
     assert dataclasses.asdict(card_snap) == dataclasses.asdict(cpu_snap)
     assert card_snap.births == 3 and card_snap.deaths == 0
+
+
+def _dist_run(device, engine):
+    """One call sequence through ``engine`` ("dist" or "stream") on
+    ``device``: 4 lanes of 4,096 points (make_d2, Morton-sorted, block-sparse
+    DBSCAN in tiles of 128), a round-robin fit, 4 one-shard rounds of
+    1,024 points, a TTL expiry (every lane dirty), a forced full re-merge,
+    queries and a restore; the state after every refresh."""
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import dist_service as ds
+
+    k, cap = 4, 4096
+    pts = spatial.morton_sorted(spatial.make_d2(k * cap, seed=1))
+    new = spatial.morton_sorted(spatial.make_d2(4 * 1024, seed=2))
+    cfg = ddc.DDCConfig(eps=0.032, min_pts=4, block_sparse="always", block_tile=128)
+    scfg = cs.StreamConfig(shards=k, capacity=cap, max_batch=256, ddc=cfg)
+    cls = ds.DistClusterService if engine == "dist" else cs.ClusterService
+    svc = cls(scfg, meter=ddc.CommMeter(), device=device)
+    seen = []
+
+    def record():
+        glab = svc.stacked("_glabels") if engine == "dist" else svc._glabels
+        dense = svc.stacked("_dense") if engine == "dist" else svc._dense
+        seen.append([ddc.host_copy(t) for t in (glab, dense, svc._maps, svc.pair_d2)])
+
+    for shard, chunk in spatial.stream_batches(pts, k, 256):
+        svc.ingest(shard, chunk, t=0.0)
+    svc.refresh()
+    record()
+    for r in range(4):
+        svc.ingest(r % k, new[r * 1024:(r + 1) * 1024], t=float(r + 1))
+        svc.refresh()
+        record()
+        seen.append([svc.query(pts[r::37]).labels])
+    svc.evict_older_than(0, 1.0)
+    for s in range(k):
+        svc.evict_oldest(s, 64)
+    svc.refresh()
+    record()
+    svc.refresh(mode="full", force=True)
+    record()
+    arrays, manifest = svc.state_dict()
+    back = cls.from_state(scfg, arrays, manifest, device=device)
+    seen.append([back.query(pts[::5]).labels])
+    return seen, svc.meter.snapshot(), arrays, manifest, svc
+
+
+def test_dist_engine_card_equals_stream_and_cpu(cuda):
+    """The dist engine on the card, its lanes on 4 distinct streams, gives
+    the stream engine's labels, dense labels, maps, pair-d2 and answers
+    after every refresh, and the CPU's, with the same meter counts and
+    state_dict, bit for bit."""
+    ops.reset_launch_counts()
+    dist = _dist_run(cuda, "dist")
+    counts = ops.launch_counts()
+    lanes = dist[4].lanes
+    streams = {lane.stream.cuda_stream for lane in lanes}
+    assert len(streams) == 4 and torch.cuda.current_stream().cuda_stream not in streams
+    assert counts["neighbor_count_sparse"] >= 9 and counts["cross_min_d2"] >= 4
+    assert counts["contour_min_d2"] >= 2
+    stream = _dist_run(cuda, "stream")
+    cpu = _dist_run("cpu", "dist")
+    for other in (stream, cpu):
+        for a, b in zip(dist[0], other[0], strict=True):
+            for x, y in zip(a, b, strict=True):
+                _assert_same(x, y)
+        assert dist[1] == other[1]
+        assert sorted(dist[2]) == sorted(other[2]) and dist[3] == other[3]
+        for key in dist[2]:
+            _assert_same(dist[2][key], other[2][key])
+
+
+def test_dist_engine_fault_recovery_on_card(cuda):
+    """A dist lane killed on the card: quarantine, journal recovery, then
+    the fault-free dist engine's labels, pair-d2 and answers."""
+    from repro_torch.serve import cluster_service as cs
+    from repro_torch.serve import dist_service as ds
+    from repro_torch.serve import faults
+
+    spec = spatial.PHASE2_LAYOUTS["rings"]
+    pts = spec["make"](2048)
+    cfg = ddc.DDCConfig(**{f: spec[f] for f in ("eps", "min_pts", "grid", "max_verts",
+                                                "max_clusters")})
+    scfg = cs.StreamConfig(shards=4, capacity=512, max_batch=128, ddc=cfg)
+    plan = faults.FaultPlan(events=(faults.FaultEvent("kill", shard=2),))
+    hit = ds.DistClusterService(scfg, faults=plan, device=cuda)
+    clean = ds.DistClusterService(scfg, device=cuda)
+    for svc in (hit, clean):
+        for shard, chunk in spatial.stream_batches(pts[:1536], 4, 128):
+            svc.ingest(shard, chunk)
+        svc.refresh()
+    assert 2 in hit.quarantined and not hit._mask[2].any()
+    for svc in (hit, clean):
+        svc.ingest(2, pts[1536:])
+        svc.refresh()
+    assert hit.recover(2)
+    hit.refresh()
+    assert not hit.quarantined
+    np.testing.assert_array_equal(hit.pair_d2.cpu().numpy(), clean.pair_d2.cpu().numpy())
+    np.testing.assert_array_equal(hit.stacked("_glabels").cpu().numpy(),
+                                  clean.stacked("_glabels").cpu().numpy())
+    np.testing.assert_array_equal(hit.query(pts[::3]).labels, clean.query(pts[::3]).labels)

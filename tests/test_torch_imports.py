@@ -52,7 +52,9 @@ def test_every_submodule_listed():
             "repro_torch.ddc.config", "repro_torch.serve.query_tier",
             "repro_torch.serve.faults", "repro_torch.core.simulate",
             "repro_torch.serve.cluster_service", "repro_torch.serve.journal",
-            "repro_torch.serve.hierarchy", "repro_torch.serve.tracking"} <= names
+            "repro_torch.serve.hierarchy", "repro_torch.serve.tracking",
+            "repro_torch.serve.dist_service", "repro_torch.launch", "repro_torch.launch.mesh",
+            "repro_torch.launch.serve", "repro_torch.parallel.compress"} <= names
     for name in names:
         importlib.import_module(name)
 

@@ -377,10 +377,11 @@ def facade_cfg(mod, layout="rings", **kw):
 
 
 def test_backend_is_registered():
-    assert set(T.BACKENDS) == {"host", "jit", "stream"}
-    assert set(T.UNPORTED) == {"dist"}
+    assert set(T.BACKENDS) == set(J.BACKENDS)
     assert type(T.DDC(facade_cfg(T, backend="stream"), device="cpu").backend).__name__ \
         == "StreamBackend"
+    assert type(T.DDC(facade_cfg(T, backend="dist"), device="cpu").backend).__name__ \
+        == "DistBackend"
 
 
 @pytest.mark.parametrize("kw,word", [(dict(agg_degree=2, shards=4), "hierarchy"),

@@ -14,7 +14,7 @@ across save → load → resume.  Here:
   reference's (every array, dtype included, and the manifest);
 - flat ≡ tree ≡ save → load → resume in-process, and the stream half of
   tests/_tracking_script.py's quick sweep (drifting_blobs × {2, 4, 8}
-  shards); the dist lanes have no port yet;
+  shards); the dist engine's tracking is in tests/test_torch_dist.py;
 - ``BENCH_tracking.json``'s layout rows (3 layouts × {2, 4, 8} shards):
   event counts, ``tracks_total`` and ``id_stability`` equal, and the
   port's state equal to the reference's in each.
