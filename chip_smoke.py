@@ -207,6 +207,34 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    slots.  B5's rectangular entry in the kernels line adds its time at the
    tracker's shape and at a node fold's shape (a leaf's first child's 32
    rows against the leaf's D·32 slots), each beside the launch floor.
+   Then DDC across processes (``ranks_full_width`` line): 8 rank
+   processes (``launch/ranks.py``: ``spawn``, one gloo group on a
+   ``file://`` store, ``src`` on their path, every rank on this card) run
+   ``ddc_shard`` on the full-width set in 8 shards of 32,768 at the
+   searched eps, under sync, async and tree and with K-Means ranks fed
+   their initial centres (each run once as a warm-up, once counted, once
+   under each rank's profiler); each must equal the one-process
+   ``make_ddc_fn`` run of the same config in this call bit for bit
+   (global labels, maps, every rank's global ClusterSet), the meter must
+   equal the one-process meter and the ranks' gloo bytes must sum to it,
+   every rank must launch B3 and B4 in every DBSCAN run and B5 once a
+   fold (so every rank in sync and async).  Printed: the spawn and CUDA
+   start-up apart, phase 1 (first start to last end) and phase 2 (wire
+   included) beside the one-process times, each rank's device time and
+   the busy share; the kernels line's B3, B4, B5 and B6 entries carry the
+   ranks' launches (``ranks_launches``).  Then curation (``curation``
+   line): the example's corpus (examples/data_curation_torch.py) on 8
+   lanes equal to the same call on the CPU and the host path's
+   clustering, and ``curate`` at 262,144 documents on 8 lanes equal to
+   the same run under ``ops.FORCE = "ref"`` (halved until no cluster
+   budget overflows).  Then the dry run (``dryrun_ddc`` line):
+   ``repro_torch.launch.dryrun_ddc`` at 65,536 points, 256 and 512 lanes ×
+   sync, tree and async, each meter equal to its closed form, the
+   512-lane sync / async wire ratio 511/9, launches, peak memory and
+   phase times; B5 at the 512-lane sync fold (32,768 slots, whose lists
+   take the staged entry: a compaction launch, counted apart, then the
+   main kernel; in that cell only) held to its plain version and timed,
+   also in the kernels line (``at_512_lane_fold``).
 3. ``BENCH_phase1.json``'s 9 scenarios on the card: the active tile-pair
    counts must equal the committed ones, and at 4,096 and 16,384 points
    block-sparse DBSCAN (its sparse kernels forced on) must equal dense
@@ -360,6 +388,8 @@ TRACK_V_TOL = 5e-3   # tests/test_tracking.py::test_velocity_and_heading_match_g
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
 # The LM phase: three full-width models, each with the LM kernel whose
 # first-layer inputs its run captures for the per-kernel check.
+CURATION_N = 262_144  # documents of the full-width curation run
+DRYRUN_POINTS = 65_536  # the port's dry run (the reference's default is 1 << 20)
 LM_ARCHS = {"qwen3-8b": "flash_attention", "mamba2-1.3b": "ssd_scan",
             "llama4-scout-17b-a16e": "dispatch_gather"}
 # Depth cut by one card's 80 GB: llama4-scout's 48 layers are 2.202 B
@@ -2987,6 +3017,241 @@ def tracking_full_width(torch, np, ddc, ops, spatial, dev, card: str):
     return out, b5_in
 
 
+RANKS_SCHEDULES = ("sync", "async", "tree")
+RANKS_INIT_SEED = 5
+RANKS_KERNELS = ("neighbor_count_sparse", "min_label_sweep_sparse", "contour_min_d2",
+                 "pairwise_dist_sq")
+
+
+def outputs_equal(np, ddc, res, one) -> list[str]:
+    """Names of what differs between a ranks run (``RanksResult``) and the
+    one-process run's (glabels, gcs, maps): labels, maps, and every leaf of
+    every rank's global ClusterSet."""
+    glabels, gcs, maps = (ddc.host_copy(one[0]), [ddc.host_copy(t) for t in one[1]],
+                          ddc.host_copy(one[2]))
+    bad = [n for n, a, b in (("glabels", res.glabels, glabels), ("maps", res.maps, maps))
+           if a.dtype != b.dtype or not np.array_equal(a, b)]
+    bad += [f"rank{r}.gcs.{f}" for r, rec in enumerate(res.ranks)
+            for f, a, b in zip(ddc.ClusterSet._fields, rec["gcs"], gcs)
+            if a.dtype != b.dtype or not np.array_equal(a, b)]
+    return bad
+
+
+def ranks_full_width(torch, np, ddc, ops, dev, eps, pts, card: str) -> tuple[dict, dict]:
+    """DDC across 8 rank processes on the one card (``launch/ranks.py``,
+    gloo, ``ddc_shard``) on phase 2's full-width set, under sync, async
+    and tree and with K-Means ranks fed their initial centres: each equal
+    to the one-process ``make_ddc_fn`` run bit for bit, meters and the
+    ranks' gloo bytes equal, every rank launching B3, B4 and B5.  Returns
+    (its line, the ranks' launches by kernel and run)."""
+    from repro_torch.launch import ranks
+
+    t_phase = time.perf_counter()
+    mask = np.ones(FULL_N, bool)
+    base = ddc.DDCConfig(eps=eps, min_pts=4)
+    cfg_km = dataclasses.replace(base, local_algo="kmeans", schedule="async")
+    per = FULL_N // LANES
+    rng = np.random.default_rng(RANKS_INIT_SEED)
+    k_cent = min(cfg_km.kmeans_k, cfg_km.max_clusters)
+    init = np.stack([pts[i * per + rng.choice(per, k_cent, replace=False)]
+                     for i in range(LANES)]).astype(np.float32)
+    jobs = {s: dict(cfg=dataclasses.replace(base, schedule=s)) for s in RANKS_SCHEDULES}
+    jobs["kmeans"] = dict(cfg=cfg_km, init=init)
+    timing: dict = {}
+    t0 = time.perf_counter()
+    results = ranks.run_ddc_cases(
+        [dict(points=pts, mask=mask, k=LANES, warmup=1, profile=True, **job)
+         for job in jobs.values()], LANES, device=dev.type, timing=timing, timeout=600)
+    spawn_call_s = time.perf_counter() - t0
+    out = {"card": card, "n": FULL_N, "ranks": LANES, "backend": "gloo", "eps": eps,
+           "start_up": timing, "spawn_call_s": spawn_call_s, "runs": {}}
+    launches: dict = {}
+    for (name, job), res in zip(jobs.items(), results):
+        cfg = job["cfg"]
+        meter = ddc.CommMeter()
+        run = ddc.make_ddc_fn(cfg, LANES, device=dev, meter=meter, init=job.get("init"))
+        run(pts, mask)                                    # warm-up
+        torch.cuda.synchronize()
+        meter.reset()
+        trace: dict = {}
+        one = run(pts, mask, trace)
+        torch.cuda.synchronize()
+        bad = outputs_equal(np, ddc, res, one)
+        if bad:
+            raise RuntimeError(f"ranks {name}: differs from the one-process run in {bad}")
+        if res.meter != meter.snapshot() or res.sent_bytes != meter.bytes_total:
+            raise RuntimeError(f"ranks {name}: meter {res.meter}, gloo bytes {res.sent_bytes}, "
+                               f"one process {meter.snapshot()}")
+        per_rank = [rec["launches"] for rec in res.ranks]
+        want = ("pairwise_dist_sq",) if name == "kmeans" else RANKS_KERNELS[:2]
+        for r, (got, rec) in enumerate(zip(per_rank, res.ranks)):
+            if any(got.get(k, 0) < 1 for k in want) \
+                    or got.get("contour_min_d2", 0) != rec["merge_calls"]:
+                raise RuntimeError(f"ranks {name}: rank {r} launched {got} in "
+                                   f"{rec['merge_calls']} merges")
+        for k in RANKS_KERNELS:
+            launches.setdefault(k, {})[name] = [got.get(k, 0) for got in per_rank]
+        device_ms = [rec.get("device_ms") for rec in res.ranks]
+        wall = res.phase1_s + res.phase2_s
+        out["runs"][name] = {
+            "phase1_s": res.phase1_s, "phase2_s": res.phase2_s,
+            "rank_phase1_s": [rec["phase1_s"] for rec in res.ranks],
+            "rank_phase2_s": [rec["phase2_s"] for rec in res.ranks],
+            "one_process_phase1_s": trace["phase1_s"],
+            "one_process_phase2_s": trace["phase2_s"],
+            "rank_device_ms": device_ms,
+            "busy_share": (sum(device_ms) / 1e3 / wall
+                           if all(isinstance(d, float) for d in device_ms) else "not measured"),
+            "merge_calls": [rec["merge_calls"] for rec in res.ranks],
+            "sent_bytes": [rec["sent_bytes"] for rec in res.ranks], "meter": res.meter,
+            "launches": per_rank, "n_clusters": int(res.gcs.valid.sum()),
+            "bit_identical_to_one_process": True}
+    if not all(sum(launches["contour_min_d2"][s][r] for s in RANKS_SCHEDULES) >= 1
+               for r in range(LANES)):
+        raise RuntimeError(f"ranks: a rank never launched B5: {launches['contour_min_d2']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def curation_phase(torch, np, ddc, ops, dev, card: str) -> dict:
+    """``repro_torch.data.curation`` on the card: the example's corpus on 8
+    lanes equal to the same call on the CPU and to the host path's
+    clustering; then CURATION_N documents on 8 lanes equal to the same
+    run under ``ops.FORCE = "ref"`` (halved until no cluster budget
+    overflows)."""
+    from repro_torch.data import curation, pipeline
+    from repro_torch.launch import mesh as mesh_mod
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import data_curation_torch as example
+
+    t_phase = time.perf_counter()
+    fields = ("labels", "n_clusters", "cluster_sizes", "sample_weights", "exchanged_fraction")
+
+    def differ(a, b) -> list[str]:
+        return [f for f in fields if not np.array_equal(np.asarray(getattr(a, f)),
+                                                        np.asarray(getattr(b, f)))]
+
+    _, emb, _ = example.corpus()
+    t0 = time.perf_counter()
+    card_res = curation.curate(emb, mesh=mesh_mod.make_lane_mesh(LANES, dev))
+    card_s = time.perf_counter() - t0
+    cpu_res = curation.curate(emb, mesh=mesh_mod.make_lane_mesh(LANES, "cpu"))
+    host_res = curation.curate(emb)
+    if differ(card_res, cpu_res):
+        raise RuntimeError(f"curation: card differs from the CPU in {differ(card_res, cpu_res)}")
+    if not ddc.same_clustering(host_res.labels, card_res.labels) \
+            or sorted(host_res.cluster_sizes) != sorted(card_res.cluster_sizes):
+        raise RuntimeError("curation: the host path's clustering differs from the lanes'")
+    n = CURATION_N
+    dcfg = pipeline.DataConfig(vocab=4096, seq_len=64, global_batch=64, n_latent_clusters=8,
+                               seed=0)
+    cfg = curation.DEFAULT_CONFIG
+    while True:
+        docs, _ = pipeline.doc_embeddings(dcfg, n)
+        _, gcs, _ = ddc.make_ddc_fn(cfg, LANES, device=dev)(docs, np.ones(n, bool))
+        if not bool(gcs.overflow) or n <= 2048:
+            break
+        n //= 2
+    lanes = mesh_mod.make_lane_mesh(LANES, dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    big = curation.curate(docs, mesh=lanes)
+    big_s = time.perf_counter() - t0
+    big_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    ops.FORCE = "ref"
+    try:
+        t0 = time.perf_counter()
+        plain = curation.curate(docs, mesh=lanes,
+                                cfg=dataclasses.replace(cfg, block_sparse="always"))
+        plain_s = time.perf_counter() - t0
+    finally:
+        ops.FORCE = None
+    if differ(big, plain):
+        raise RuntimeError(f"curation at {n} documents: kernels differ from the plain run in "
+                           f"{differ(big, plain)}")
+    for k in RANKS_KERNELS[:3]:
+        if big_launches.get(k, 0) < 1:
+            raise RuntimeError(f"curation at {n} documents launched {big_launches}")
+    return {"card": card, "example": {
+                "docs": len(emb), "lanes": LANES, "n_clusters": card_res.n_clusters,
+                "cluster_sizes": card_res.cluster_sizes.astype(int).tolist(),
+                "exchanged_fraction": card_res.exchanged_fraction, "card_s": card_s,
+                "card_equals_cpu": True, "host_path_same_clustering": True,
+                "host_exchanged_fraction": host_res.exchanged_fraction},
+            "full": {"docs": n, "cut_from": CURATION_N, "overflow": bool(gcs.overflow),
+                     "n_clusters": big.n_clusters, "exchanged_fraction": big.exchanged_fraction,
+                     "s": big_s, "plain_s": plain_s, "launches": big_launches,
+                     "bit_identical_to_plain": True},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def dryrun_phase(torch, ops, ref, dev, card: str) -> tuple[dict, dict]:
+    """``repro_torch.launch.dryrun_ddc`` at DRYRUN_POINTS points: 256 and
+    512 lanes × sync, tree and async on the card, each meter equal to its
+    closed form (``run_cell`` raises otherwise), the 512-lane sync / async
+    wire ratio 511/9.  Returns (its line, B5 at the 512-lane sync fold's
+    shape, whose slot lists take the staged entries, against its plain
+    version)."""
+    from repro_torch.data import spatial
+    from repro_torch.kernels import contour_dist
+    from repro_torch.launch import dryrun_ddc
+
+    t_phase = time.perf_counter()
+    pts = spatial.make_d2(DRYRUN_POINTS)
+    cells, batch = [], None
+    for k in dryrun_ddc.LANES:
+        for s in dryrun_ddc.SCHEDULES:
+            trace: dict = {}
+            cells.append(dryrun_ddc.run_cell(k, s, pts, device=dev, trace=trace))
+            if k == 512 and s == "sync":
+                batch = trace["batch"]
+            del trace
+            torch.cuda.empty_cache()
+    # B5's staged entry (a compaction launch, then the main kernel) runs in
+    # the 512-lane sync fold and nowhere else.
+    for cell in cells:
+        staged_cell = cell["cell"] == "ddc_spatial_512lanes_sync"
+        if cell["compact_launches"] != int(staged_cell) or (
+                staged_cell and cell["launches"].get("contour_min_d2") != 1):
+            raise RuntimeError(f"dryrun_ddc: {cell['cell']}: B5 launches {cell['launches']}, "
+                               f"compactions {cell['compact_launches']}")
+    ratio = dryrun_ddc.sync_async_ratio(cells, 512)
+    if abs(ratio["sync_async_wire_ratio"] - 511 / 9) > 5e-5:
+        raise RuntimeError(f"dryrun_ddc: sync/async wire ratio {ratio}")
+    line = {"card": card, "points": DRYRUN_POINTS, "cells": cells, "ratio": ratio,
+            "meters_closed_form": True}
+    # B5 at the 512-lane fold: 32,768 slots, past a block's shared memory.
+    m, v = batch.valid.numel(), batch.contours.shape[-2]
+    conts = batch.contours.reshape(m, v, 2).contiguous()
+    cnts = batch.counts.reshape(m).contiguous()
+    valids = batch.valid.reshape(m).contiguous()
+    if contour_dist._staged(v, m, conts.device) is None:
+        raise RuntimeError(f"dryrun_ddc: {m} slots fit shared memory; no staged launch")
+    kern = lambda: ops.contour_min_d2(conts, cnts, valids)  # noqa: E731
+    plain = lambda: ref.contour_min_d2(conts, cnts, valids)  # noqa: E731
+    before = (ops.launch_counts()["contour_min_d2"],
+              contour_dist.compact_launches["contour_min_d2"])
+    if not same(torch, kern(), plain()):
+        raise RuntimeError("dryrun_ddc: B5's staged launch differs from its plain version")
+    a_call = {"main": ops.launch_counts()["contour_min_d2"] - before[0],
+              "compact": contour_dist.compact_launches["contour_min_d2"] - before[1]}
+    if a_call != {"main": 1, "compact": 1}:
+        raise RuntimeError(f"dryrun_ddc: B5's staged call launched {a_call}")
+    extra = contour_extra(torch, "contour_min_d2", cnts, valids, v, kern)
+    b_ms, b_by = bound(extra["bound_tests"] * CMD2_OPS_PER_PAIR,
+                       extra["valid_vertices"] * 8 + m * (4 + 1) + m * m * 4)
+    staged = {"shape": [m, v], "staged_lists": True, "exact": True,
+              "launches_a_call": a_call, **extra,
+              "ms": median_ms(torch, kern, 5, per=4), "plain_ms": median_ms(torch, plain, 2),
+              "bound_ms": b_ms, "bound_by": b_by}
+    line["b5_at_512_lane_fold"] = staged
+    del batch, conts
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    return line, staged
+
+
 def shape_timing(torch, ops, ref, args, floor_ms: float) -> dict:
     """B5's rectangular form on ``args`` against its plain version (bit for
     bit), its device time and the plain one's, beside the launch floor."""
@@ -3338,14 +3603,29 @@ def main() -> int:
                                                card.splitlines()[0])
     print(json.dumps({"tracking_full_width": track_line}), flush=True)
     torch.cuda.empty_cache()
+    # DDC across 8 rank processes on this card, curation and the dry run.
+    ranks_line, ranks_launches = ranks_full_width(torch, np, ddc, ops, dev, eps, pts,
+                                                  card.splitlines()[0])
+    print(json.dumps({"ranks_full_width": ranks_line}), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"curation": curation_phase(torch, np, ddc, ops, dev,
+                                                 card.splitlines()[0])}), flush=True)
+    torch.cuda.empty_cache()
+    dry_line, b5_dryrun = dryrun_phase(torch, ops, ref, dev, card.splitlines()[0])
+    print(json.dumps({"dryrun_ddc": dry_line}), flush=True)
+    torch.cuda.empty_cache()
     # B5's rectangular form at the shapes these two paths give it.
     b5 = next(e for e in kernels if e["name"] == "cross_min_d2")
     b5["at_tracker_shape"] = shape_timing(torch, ops, ref, track_b5, floor_ms)
     b5["at_node_fold_shape"] = {name: shape_timing(torch, ops, ref, args, floor_ms)
                                 for name, args in node_b5.items()}
+    b5_square = next(e for e in kernels if e["name"] == "contour_min_d2")
+    b5_square["at_512_lane_fold"] = b5_dryrun
     for entry in kernels:
         if entry["name"] in DIST_PATH_KERNELS:
             entry["dist_launches"] = dist_line["main_path_launches"].get(entry["name"], 0)
+        if entry["name"] in ranks_launches:
+            entry["ranks_launches"] = ranks_launches[entry["name"]]
     print(json.dumps({"kernels": kernels + lm_kernels}), flush=True)
 
     # -- 3. BENCH_phase1.json's scenarios ----------------------------------

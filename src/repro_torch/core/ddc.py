@@ -21,6 +21,13 @@ fold the lanes' ClusterSets exactly as the reference's collectives would
 deliver them, giving every lane the map its reference lane computes.  A
 ``CommMeter`` counts what the reference's collectives would move.
 
+``ddc_shard`` is the reference's distributed form: one shard on each rank
+of a ``torch.distributed`` group (``launch/ranks.py`` starts the ranks),
+phase 1 on the rank's device and phase 2 as real collectives over the
+group (``merge_sync_shard``, ``merge_async_shard``, ``merge_tree_shard``),
+only ClusterSets crossing between ranks (``Wire``).  Both forms give the
+same bits.
+
 Host path: ``ddc_host`` (NumPy, exact polygon-overlap merge) is the
 paper-faithful oracle.
 """
@@ -32,6 +39,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dbscan as dbscan_mod
 from repro_torch.core import geometry
@@ -489,6 +497,17 @@ def _lane_bytes(batch: ClusterSet) -> int:
     return compress.pytree_wire_bytes(lane_set(batch, 0))
 
 
+def _slot_ids(valid: torch.Tensor) -> torch.Tensor:
+    """The identity map on the valid slots (last axis), -1 elsewhere."""
+    return torch.where(valid, torch.arange(valid.shape[-1], dtype=torch.int32,
+                                           device=valid.device), -1)
+
+
+def _compose(my_map: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """Follow a slot map by one merge's map; -1 stays -1."""
+    return torch.where(my_map >= 0, step[my_map.clamp(min=0).long()], -1)
+
+
 def merge_sync(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None,
                stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
     """Barrier schedule: every lane all-gathers the K ClusterSets of the
@@ -515,25 +534,50 @@ def merge_async(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = Non
     k = batch.valid.shape[0]
     if k < 1 or k & (k - 1):
         raise ValueError(f"the async schedule needs a power-of-two lane count, got {k}")
-    c = cfg.max_clusters
-    maps = torch.where(batch.valid, torch.arange(c, dtype=torch.int32,
-                                                 device=batch.valid.device), -1)
+    maps = _slot_ids(batch.valid)
     acc = [lane_set(batch, i) for i in range(k)]
     stride = 1
     while stride < k:
         if meter is not None:
             meter.add_collective(k, _lane_bytes(batch))
-            meter.add_merge(2, c)
+            meter.add_merge(2, cfg.max_clusters)
         for base in range(0, k, 2 * stride):
             pair = stack_clustersets([acc[base], acc[base + stride]])
             merged, pair_maps = _merge(pair, cfg, stats)
             for me in range(base, base + 2 * stride):
-                mine = pair_maps[0 if me < base + stride else 1]
-                old = maps[me]
-                maps[me] = torch.where(old >= 0, mine[old.clamp(min=0).long()], -1)
+                maps[me] = _compose(maps[me], pair_maps[0 if me < base + stride else 1])
                 acc[me] = merged
         stride *= 2
     return acc[0], maps
+
+
+def _tree_strides(k: int, d: int) -> list:
+    """The tree's level strides 1, D, D², … below K."""
+    strides, stride = [], 1
+    while stride < k:
+        strides.append(stride)
+        stride *= d
+    return strides
+
+
+def _tree_up_perm(k: int, d: int, stride: int, j: int) -> list:
+    """(member, leader) pairs of the level at ``stride`` for the j-th
+    member of each group: the reference's ppermute list."""
+    off = j * stride
+    return [(i, i - off) for i in range(k) if i - off >= 0 and (i // stride) % d == j
+            and (i - off) // (stride * d) == i // (stride * d)]
+
+
+def _tree_down_perm(k: int, d: int, stride: int, j: int) -> list:
+    """(leader, j-th member) pairs of the broadcast down the level at
+    ``stride``."""
+    return [(b, b + j * stride) for b in range(0, k, stride * d) if b + j * stride < k]
+
+
+def _tree_members(k: int, d: int, stride: int) -> list:
+    """Member offsets j of a level's groups that lie below K in the first
+    group (a later group may lack some; its leader folds the empty set)."""
+    return [j for j in range(1, d) if j * stride < k]
 
 
 def merge_tree(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None,
@@ -547,11 +591,10 @@ def merge_tree(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None
     tree, lane 0 keeps the map it composed and every other lane matches
     its local slots to the global set (``match_to_global``).
 
-    Only the chain of leaders whose index is a multiple of every stride so
-    far reaches the root, so only their folds run here: the other lanes'
-    folds in the reference change nothing that any lane returns.  The
-    meter counts every ppermute the reference issues, with its full
-    permutation list."""
+    Only the leaders fold here: in the reference every lane folds its
+    batch and a non-leader drops the result, which changes nothing that
+    any lane returns.  The meter counts every ppermute the reference
+    issues, with its full permutation list."""
     k = batch.valid.shape[0]
     d = cfg.tree_degree
     if d < 2:
@@ -560,37 +603,25 @@ def merge_tree(batch: ClusterSet, cfg: DDCConfig, meter: CommMeter | None = None
     nbytes = _lane_bytes(batch)
     acc = [lane_set(batch, i) for i in range(k)]
     empty = empty_clusterset(cfg, batch.valid.device)
-    root_map = torch.where(batch.valid[0], torch.arange(c, dtype=torch.int32,
-                                                        device=batch.valid.device), -1)
-    strides = []
-    stride = 1
-    while stride < k:
-        strides.append(stride)
-        members = [j for j in range(1, d) if j * stride < k]
+    root_map = _slot_ids(batch.valid[0])
+    strides = _tree_strides(k, d)
+    for stride in strides:
+        members = _tree_members(k, d, stride)
         if meter is not None:
             for j in members:
-                off = j * stride
-                perm = [(i, i - off) for i in range(k) if i - off >= 0
-                        and (i // stride) % d == j
-                        and (i - off) // (stride * d) == i // (stride * d)]
-                meter.add_collective(len(perm), nbytes)
+                meter.add_collective(len(_tree_up_perm(k, d, stride, j)), nbytes)
             meter.add_merge(1 + len(members), c)
         for base in range(0, k, stride * d):
             group = [acc[base]] + [acc[base + j * stride] if base + j * stride < k else empty
                                    for j in members]
             acc[base], group_maps = _merge(stack_clustersets(group), cfg, stats)
             if base == 0:
-                root_map = torch.where(root_map >= 0,
-                                       group_maps[0][root_map.clamp(min=0).long()], root_map)
-        stride *= d
+                root_map = _compose(root_map, group_maps[0])
     gcs = acc[0]
     if meter is not None:
         for stride in reversed(strides):
-            for j in range(1, d):
-                if j * stride < k:
-                    perm = [(b, b + j * stride) for b in range(0, k, stride * d)
-                            if b + j * stride < k]
-                    meter.add_collective(len(perm), nbytes)
+            for j in _tree_members(k, d, stride):
+                meter.add_collective(len(_tree_down_perm(k, d, stride, j)), nbytes)
     maps = [root_map] + [match_to_global(lane_set(batch, i), gcs, cfg) for i in range(1, k)]
     return gcs, torch.stack(maps)
 
@@ -628,6 +659,210 @@ def match_to_global(cs: ClusterSet, gcs: ClusterSet, cfg: DDCConfig) -> torch.Te
 
 
 SCHEDULE_FNS = {"sync": merge_sync, "async": merge_async, "tree": merge_tree}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 across processes: the schedules as collectives over a
+# torch.distributed group, one shard a rank
+# ---------------------------------------------------------------------------
+
+
+class Wire:
+    """A ClusterSet's trip between the ranks of a ``torch.distributed``
+    group: the five leaves packed into one uint8 message of
+    ``pytree_wire_bytes`` bytes, copied to the host (the group's backend,
+    gloo, moves host memory), sent, and copied back to the rank's device.
+    This is the inter-node message of the paper's phase 2.  ``sent``
+    counts the bytes of this rank's messages over every link: an
+    all-gather's buffer once for each other rank, a send once."""
+
+    def __init__(self, group, cfg: DDCConfig, device):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.device = torch.device(device)
+        c, v = cfg.max_clusters, cfg.max_verts
+        self.shapes = ((c, v, 2), (c,), (c,), (c,), ())
+        self.nbytes = cfg.buffer_bytes()
+        self.sent = 0
+
+    def _peer(self, r: int) -> int:
+        return r if self.group is None else dist.get_global_rank(self.group, r)
+
+    def pack(self, cs: ClusterSet) -> torch.Tensor:
+        return torch.cat([t.reshape(-1).view(torch.uint8) for t in cs]).cpu()
+
+    def unpack(self, buf: torch.Tensor) -> ClusterSet:
+        buf = buf.to(self.device)
+        leaves, o = [], 0
+        for shape, dt in zip(self.shapes, _CS_DTYPES):
+            nb = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            leaves.append(buf[o:o + nb].view(dt).reshape(shape))
+            o += nb
+        return ClusterSet(*leaves)
+
+    def all_gather(self, cs: ClusterSet) -> list:
+        """Every rank's ClusterSet, in rank order."""
+        out = [torch.empty(self.nbytes, dtype=torch.uint8) for _ in range(self.size)]
+        dist.all_gather(out, self.pack(cs), group=self.group)
+        self.sent += (self.size - 1) * self.nbytes
+        return [self.unpack(b) for b in out]
+
+    def exchange(self, sends: dict, srcs: list) -> list:
+        """Send ``sends[dst]`` to each dst and receive one ClusterSet from
+        each of ``srcs`` (group ranks), as one batch of point-to-point
+        operations — the counterpart of a ppermute hop.  Returns the
+        received sets in ``srcs``' order."""
+        packed: dict = {}
+        ops = []
+        for dst, cs in sends.items():
+            buf = packed.setdefault(id(cs), self.pack(cs))
+            ops.append(dist.P2POp(dist.isend, buf, self._peer(dst), self.group))
+            self.sent += self.nbytes
+        got = [torch.empty(self.nbytes, dtype=torch.uint8) for _ in srcs]
+        ops += [dist.P2POp(dist.irecv, buf, self._peer(src), self.group)
+                for buf, src in zip(got, srcs)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [self.unpack(b) for b in got]
+
+
+def merge_sync_shard(cs: ClusterSet, cfg: DDCConfig, wire: Wire,
+                     meter: CommMeter | None = None,
+                     stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """``merge_sync`` across ranks: all-gather every rank's ClusterSet and
+    fold the K·C slots in ONE ``merge_many``; each rank takes its row of
+    the maps.  Returns (global ClusterSet, this rank's local → global slot
+    map (C,))."""
+    k, me = wire.size, wire.rank
+    if meter is not None:
+        meter.add_collective(k * (k - 1), wire.nbytes)
+        meter.add_merge(k, cfg.max_clusters)
+    gcs, maps = _merge(stack_clustersets(wire.all_gather(cs)), cfg, stats)
+    return gcs, torch.where(cs.valid, maps[me], -1)
+
+
+def merge_async_shard(cs: ClusterSet, cfg: DDCConfig, wire: Wire,
+                      meter: CommMeter | None = None,
+                      stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """``merge_async`` across ranks: log2(K) rounds in which rank ``me``
+    swaps its accumulated ClusterSet with rank ``me ^ stride`` and folds
+    the pair, lower rank first, in a batch-2 merge — every rank its own
+    pair, as the reference's lanes do.  K must be a power of two."""
+    k, me = wire.size, wire.rank
+    if k & (k - 1):
+        raise ValueError(f"the async schedule needs a power-of-two lane count, got {k}")
+    my_map, acc = _slot_ids(cs.valid), cs
+    stride = 1
+    while stride < k:
+        if meter is not None:
+            meter.add_collective(k, wire.nbytes)
+            meter.add_merge(2, cfg.max_clusters)
+        partner = wire.exchange({me ^ stride: acc}, [me ^ stride])[0]
+        low = not me & stride
+        acc, pair_maps = _merge(stack_clustersets([acc, partner] if low else [partner, acc]),
+                                cfg, stats)
+        my_map = _compose(my_map, pair_maps[0 if low else 1])
+        stride *= 2
+    return acc, my_map
+
+
+def merge_tree_shard(cs: ClusterSet, cfg: DDCConfig, wire: Wire,
+                     meter: CommMeter | None = None,
+                     stats: dict | None = None) -> Tuple[ClusterSet, torch.Tensor]:
+    """``merge_tree`` across ranks: at each level the members send their
+    accumulated set to their leader, one point-to-point hop per (level,
+    member) on the reference's permutation lists, and the leader folds
+    its group in one batch-D ``merge_many`` (the empty set for a member
+    past the last rank); non-leaders do not fold.  The root then sends
+    the global set down the same tree, hop by hop; rank 0 keeps the map
+    it composed and every other rank matches its local slots to the
+    global set (``match_to_global``)."""
+    k, me, d = wire.size, wire.rank, cfg.tree_degree
+    if d < 2:
+        raise ValueError(f"tree_degree must be >= 2, got {d}")
+    c = cfg.max_clusters
+    my_map, acc = _slot_ids(cs.valid), cs
+    strides = _tree_strides(k, d)
+    for stride in strides:
+        members = _tree_members(k, d, stride)
+        perms = [_tree_up_perm(k, d, stride, j) for j in members]
+        if meter is not None:
+            for perm in perms:
+                meter.add_collective(len(perm), wire.nbytes)
+            meter.add_merge(1 + len(members), c)
+        srcs = [src for perm in perms for src, dst in perm if dst == me]
+        got = dict(zip(srcs, wire.exchange(
+            {dst: acc for perm in perms for src, dst in perm if src == me}, srcs)))
+        if me % (stride * d) == 0:
+            empty = empty_clusterset(cfg, wire.device)
+            group = [acc] + [got.get(me + j * stride, empty) for j in members]
+            acc, group_maps = _merge(stack_clustersets(group), cfg, stats)
+            if me == 0:
+                my_map = _compose(my_map, group_maps[0])
+    gcs = acc
+    for stride in reversed(strides):
+        perms = [_tree_down_perm(k, d, stride, j) for j in _tree_members(k, d, stride)]
+        if meter is not None:
+            for perm in perms:
+                meter.add_collective(len(perm), wire.nbytes)
+        srcs = [src for perm in perms for src, dst in perm if dst == me]
+        got = wire.exchange({dst: gcs for perm in perms for src, dst in perm if src == me},
+                            srcs)
+        if got:
+            gcs = got[0]
+    if me != 0:
+        my_map = match_to_global(cs, gcs, cfg)
+    return gcs, my_map
+
+
+SHARD_SCHEDULE_FNS = {"sync": merge_sync_shard, "async": merge_async_shard,
+                      "tree": merge_tree_shard}
+
+
+def ddc_shard(points: torch.Tensor, mask: torch.Tensor, cfg: DDCConfig, group=None, *,
+              seed: int = 0, init=None, meter: CommMeter | None = None,
+              trace: dict | None = None):
+    """Full DDC on one rank of a ``torch.distributed`` group (the default
+    group when ``group`` is None): phase 1 on this rank's shard, on the
+    device its tensors lie on, then phase 2 across the group's ranks with
+    ``cfg.schedule`` (``merge_sync_shard``, ``merge_async_shard``,
+    ``merge_tree_shard``); only ClusterSets cross between ranks.  Returns
+    (global labels of the local points (n,) i32, global ClusterSet, local
+    → global slot map (C,) i32) — the reference's ``ddc_shard``.
+
+    ``seed`` / ``init`` ((k, 2) initial centres) seed a K-Means shard as
+    in ``local_phase``.  ``meter`` counts what the schedule moves in the
+    whole group, as the reference's trace-time meter does (every rank's
+    meter gets the same counts).  A ``trace`` dict is filled with the
+    shard's DBSCANResult or KMeansResult (``result``), dense labels, path,
+    ClusterSet, the schedule, ``merge_calls``, ``sent_bytes`` (this rank's
+    share of the meter's bytes, ``Wire.sent``) and the wall times
+    ``phase1_s`` and ``phase2_s`` (the wire included)."""
+    _check_cfg(cfg)
+    k = dist.get_world_size(group)
+    if cfg.schedule == "async" and k & (k - 1):
+        raise ValueError(f"the async schedule needs a power-of-two lane count, got {k}")
+    dev = points.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    res, dense, cs, path = _local_phase(points, mask, cfg, seed,
+                                        None if init is None else torch.as_tensor(init,
+                                                                                  device=dev))
+    _sync(dev)
+    t1 = time.perf_counter()
+    wire = Wire(group, cfg, dev)
+    stats = {"merge_calls": 0}
+    gcs, my_map = SHARD_SCHEDULE_FNS[cfg.schedule](cs, cfg, wire, meter, stats)
+    glabels = torch.where(dense >= 0, my_map[dense.clamp(min=0).long()], -1).to(torch.int32)
+    _sync(dev)
+    t2 = time.perf_counter()
+    if trace is not None:
+        trace.update(result=res, dense=dense, path=path, cs=cs, schedule=cfg.schedule,
+                     merge_calls=stats["merge_calls"], sent_bytes=wire.sent,
+                     phase1_s=t1 - t0, phase2_s=t2 - t1)
+    return glabels, gcs, my_map
 
 
 # ---------------------------------------------------------------------------

@@ -250,11 +250,78 @@ def extract_contour(points: torch.Tensor, mask: torch.Tensor, bounds: Bounds,
     return cells_to_points(grid_boundary(occ), bounds, max_verts)
 
 
+def convex_hull_torch(points: torch.Tensor, mask: torch.Tensor,
+                      max_verts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Jarvis-march (gift wrapping) convex hull with static shapes, the
+    counterpart of the reference's ``convex_hull_jax``, on the device the
+    tensors lie on.
+
+    Returns (hull (max_verts, 2) from the lowest point, count () i32);
+    masked-out points are ignored, rows past ``count`` are 0.  Each step
+    scans the candidates in index order: candidate i replaces the current
+    one if it is more clockwise (cross < 0), or collinear (|cross| < 1e-12)
+    and farther, or if the current one is masked out or the step's origin.
+    That fold is sequential (the threshold makes the relation intransitive,
+    so the winner depends on the order), so each step builds, for every
+    candidate i, the map "current candidate → next" as an index vector,
+    and composes the n maps pairwise in ceil(log2 n) gathers.  The cross
+    product is fma(ax, by, −(ay·bx)), as the compiled reference computes
+    ``ax·by − ay·bx``; the squared distance fma(dy, dy, dx·dx).  No value
+    is read back to the host.
+    """
+    n = points.shape[0]
+    dev = points.device
+    pts = torch.where(mask[:, None], points.to(torch.float32), BIG)
+    key = pts[:, 1] * (2 * BIG) + pts[:, 0]
+    start = key.argmin()                      # the first index on ties
+    idx = torch.arange(n, device=dev)
+    cur = start
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    hull = []
+    for _ in range(max_verts):
+        o = pts[cur]
+        a = pts - o                                              # candidate − origin
+        # cross[s, i] = a[s]_x · a[i]_y − a[s]_y · a[i]_x
+        cross = fma_f32(a[:, None, 0], a[None, :, 1], -(a[:, None, 1] * a[None, :, 0]))
+        dist = fma_f32(a[:, 1], a[:, 1], a[:, 0] * a[:, 0])
+        valid = mask & (idx != cur)
+        take = valid[None, :] & ((cross < 0) | ((cross.abs() < 1e-12)
+                                                & (dist[None, :] > dist[:, None])))
+        stale = ~mask | (idx == cur)
+        beats = take | (stale[:, None] & valid[None, :])          # [current s, candidate i]
+        maps = torch.where(beats.T, idx[:, None], idx[None, :])  # row i: s → next
+        while maps.shape[0] > 1:
+            if maps.shape[0] % 2:
+                maps = torch.cat([maps, idx[None, :]])
+            maps = torch.gather(maps[1::2], 1, maps[0::2])       # later ∘ earlier
+        nxt = maps[0, cur]
+        hull.append(torch.where(done, BIG, o))
+        count = count + (~done).to(torch.int32)
+        done = done | (nxt == start)
+        cur = nxt
+    hull = torch.stack(hull)
+    return torch.where(hull >= BIG, 0.0, hull), count
+
+
 def vert_validity(counts: torch.Tensor, valid: torch.Tensor, max_verts: int) -> torch.Tensor:
     """(m, max_verts) per-vertex validity of padded contour buffers: the
     first ``counts[i]`` vertices of each valid slot are real."""
     ar = torch.arange(max_verts, device=counts.device)
     return (ar[None, :] < counts[:, None]) & valid[:, None]
+
+
+def min_cross_distance_sq(a: torch.Tensor, a_count: torch.Tensor, b: torch.Tensor,
+                          b_count: torch.Tensor) -> torch.Tensor:
+    """Minimum squared distance between the first ``a_count`` rows of a
+    (m, 2) and the first ``b_count`` rows of b (k, 2), 1e30 when either is
+    empty; fma(dy, dy, dx·dx), as the compiled reference computes
+    ``sum((a − b) ** 2, -1)``."""
+    va = torch.arange(a.shape[0], device=a.device) < a_count
+    vb = torch.arange(b.shape[0], device=b.device) < b_count
+    d = a[:, None, :] - b[None, :, :]
+    d2 = fma_f32(d[..., 1], d[..., 1], d[..., 0] * d[..., 0])
+    return torch.where(va[:, None] & vb[None, :], d2, BIG).amin()
 
 
 def _d2_rows(pts: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

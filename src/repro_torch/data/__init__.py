@@ -1,2 +1,3 @@
-"""Synthetic spatial datasets (NumPy)."""
+"""Data substrate: synthetic spatial benchmarks, token pipeline, DDC-driven
+curation."""
 from . import spatial  # noqa: F401

@@ -35,6 +35,15 @@
 // output is written exactly once.  The TPU path centres coordinates for its
 // MXU expansion; the difference form needs no centring.
 //
+// Large square batches (contour_min_d2_staged_launch): when the slot
+// lists do not fit a block's shared memory (2 ints a slot: about 28,000
+// slots at v 128, fewer than a 512-lane fold's 32,768), one block first
+// compacts them into a global scratch buffer (compact_kernel: the same
+// ordered scan, a launch of its own), and the main kernel reads the
+// counts, the list and its length from there instead of compacting in
+// every block.  Items, fill and arithmetic are the same.  No path gives
+// the rectangular form that many slots; it has no staged entry.
+//
 // Exactness: d2 = fma(dy, dy, dx*dx), dx = __fsub_rn(r.x, c.x),
 // dx*dx = __fmul_rn, the sum __fmaf_rn: the float32 expression XLA:CPU
 // compiles from the jitted reference's sum((p - q) ** 2, -1) and the plain
@@ -89,6 +98,16 @@ __device__ int compact(const int* __restrict__ counts, const uint8_t* __restrict
   return total;
 }
 
+// The staged entry's first launch: one block compacts the slots into global
+// memory, cnt (m,) and list (m,), and stores the list's length in *n.
+__global__ void __launch_bounds__(kThreads)
+compact_kernel(const int* __restrict__ counts, const uint8_t* __restrict__ valid, int m,
+               int v, int* cnt, int* list, int* n) {
+  __shared__ int warp_tot[kWarps];
+  const int total = compact(counts, valid, m, v, cnt, list, warp_tot);
+  if (threadIdx.x == 0) *n = total;
+}
+
 // Item t of the n(n - 1)/2 pairs p < q, row-major: the upper triangle
 // with its diagonal of n - 1 slots, shifted one column right.
 __device__ __forceinline__ void upper_pair(int t, int n, int& p, int& q) {
@@ -101,24 +120,32 @@ __device__ __forceinline__ void upper_pair(int t, int n, int& p, int& q) {
   q = n1 - (int)(r - k * (k + 1) / 2);
 }
 
-template <bool kSym>
+// kStaged (square form only): the counts, the list and its length are in
+// the global buffer ``staged``, from compact_kernel.
+template <bool kSym, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 contour_min_kernel(const float2* __restrict__ pa, const int* __restrict__ cnt_a,
                    const uint8_t* __restrict__ valid_a, int a,
                    const float2* __restrict__ pb, const int* __restrict__ cnt_b,
                    const uint8_t* __restrict__ valid_b, int b, int v,
-                   float* __restrict__ out) {
+                   float* __restrict__ out, int* __restrict__ staged) {
+  static_assert(kSym || !kStaged, "only the square form is staged");
   extern __shared__ float2 smem[];
   float2* rowv = smem;                                  // v row vertices
   float* red = reinterpret_cast<float*>(rowv + v);      // kWarps
   int* warp_tot = reinterpret_cast<int*>(red + kWarps); // kWarps
-  int* ca = warp_tot + kWarps;                          // a
+  int* ca = kStaged ? staged : warp_tot + kWarps;       // a
   int* la = ca + a;                                     // a
   int* cb = kSym ? ca : la + a;                         // b
   int* lb = kSym ? la : cb + b;                         // b
 
-  const int na = compact(cnt_a, valid_a, a, v, ca, la, warp_tot);
-  const int nb = kSym ? na : compact(cnt_b, valid_b, b, v, cb, lb, warp_tot);
+  int na, nb;
+  if (kStaged) {
+    na = nb = la[a];
+  } else {
+    na = compact(cnt_a, valid_a, a, v, ca, la, warp_tot);
+    nb = kSym ? na : compact(cnt_b, valid_b, b, v, cb, lb, warp_tot);
+  }
   // The square form's items skip the diagonal: a valid slot's min over its
   // own vertex pairs is d2(p, p) = 0, which the fill writes.
   const int items = kSym ? na * (na - 1) / 2 : na * nb;
@@ -219,17 +246,27 @@ int sm_count() {
   return count;
 }
 
-template <bool kSym>
+// kStaged: staged is an int buffer of 2 * a + 1 for the slot lists that do
+// not fit shared memory (square form only).
+template <bool kSym, bool kStaged>
 int launch(const void* pa, const void* cnta, const void* va, int a, const void* pb,
-           const void* cntb, const void* vb, int b, int v, void* out, void* stream) {
+           const void* cntb, const void* vb, int b, int v, void* out, int* staged,
+           void* stream) {
   if (a <= 0 || b <= 0) return (int)cudaGetLastError();
   if ((long long)a * b >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)v * sizeof(float2) + 2 * kWarps * sizeof(int) +
-                       (size_t)(kSym ? 2 * a : 2 * (a + b)) * sizeof(int);
+  const size_t lists = kStaged ? 0 : (size_t)(kSym ? 2 * a : 2 * (a + b)) * sizeof(int);
+  const size_t shmem = (size_t)v * sizeof(float2) + 2 * kWarps * sizeof(int) + lists;
+  auto kernel = contour_min_kernel<kSym, kStaged>;
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(contour_min_kernel<kSym>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (kStaged) {
+    // Layout: cnt (a), list (a), n.
+    compact_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)cnta, (const uint8_t*)va, a, v, staged, staged + a, staged + 2 * a);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   // At most one block per item (each unordered pair of slots in the
@@ -239,9 +276,9 @@ int launch(const void* pa, const void* cnta, const void* va, int a, const void* 
   long long grid = items + fill;
   const long long cap = (long long)sm_count() * kBlocksPerSm;
   if (grid > cap) grid = cap;
-  contour_min_kernel<kSym><<<(int)grid, kThreads, shmem, (cudaStream_t)stream>>>(
+  kernel<<<(int)grid, kThreads, shmem, (cudaStream_t)stream>>>(
       (const float2*)pa, (const int*)cnta, (const uint8_t*)va, a, (const float2*)pb,
-      (const int*)cntb, (const uint8_t*)vb, b, v, (float*)out);
+      (const int*)cntb, (const uint8_t*)vb, b, v, (float*)out, staged);
   return (int)cudaGetLastError();
 }
 
@@ -252,14 +289,24 @@ extern "C" {
 // pts: (m, v, 2) f32; counts: (m,) i32; valid: (m,) bool; out: (m, m) f32.
 int contour_min_d2_launch(const void* pts, const void* counts, const void* valid, int m,
                           int v, void* out, void* stream) {
-  return launch<true>(pts, counts, valid, m, pts, counts, valid, m, v, out, stream);
+  return launch<true, false>(pts, counts, valid, m, pts, counts, valid, m, v, out, nullptr,
+                             stream);
 }
 
 // pa: (a, v, 2), pb: (b, v, 2) f32; cnt*: i32; valid*: bool; out: (a, b) f32.
 int cross_min_d2_launch(const void* pa, const void* cnta, const void* va, int a,
                         const void* pb, const void* cntb, const void* vb, int b, int v,
                         void* out, void* stream) {
-  return launch<false>(pa, cnta, va, a, pb, cntb, vb, b, v, out, stream);
+  return launch<false, false>(pa, cnta, va, a, pb, cntb, vb, b, v, out, nullptr, stream);
+}
+
+// The square form with the slot lists staged in global memory: two launches
+// (compact_kernel, then the main kernel); staged is an i32 buffer of
+// 2 * m + 1 elements.
+int contour_min_d2_staged_launch(const void* pts, const void* counts, const void* valid,
+                                 int m, int v, void* out, void* staged, void* stream) {
+  return launch<true, true>(pts, counts, valid, m, pts, counts, valid, m, v, out,
+                            (int*)staged, stream);
 }
 
 const char* contour_dist_error_string(int code) {

@@ -236,9 +236,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count, and flash_attention's and
-    ssd_scan's per-route counts (``route_launches``)."""
-    for d in (_pd.launches, _cd.launches, _fa.launches, _fa.route_launches, _ssd.launches,
-              _ssd.route_launches, _mg.launches):
+    """Zero every kernel's launch count, flash_attention's and ssd_scan's
+    per-route counts (``route_launches``) and contour_dist's compaction
+    launches (``compact_launches``)."""
+    for d in (_pd.launches, _cd.launches, _cd.compact_launches, _fa.launches,
+              _fa.route_launches, _ssd.launches, _ssd.route_launches, _mg.launches):
         for k in d:
             d[k] = 0

@@ -137,3 +137,96 @@ def test_numpy_oracle_copies(seed):
         jG._segments_intersect_np(a[0], a[1], a[2], a[3])
     np.testing.assert_array_equal(tG.grid_contour_np(a, BOUNDS, 16),
                                   jG.grid_contour_np(a, BOUNDS, 16))
+
+
+def _hull_inputs():
+    """The reference test's quantised inputs (tests/test_geometry.py:45),
+    raw uniform ones, near-collinear ones (points on a line nudged by
+    1e-7, where the FMA in the cross product decides), 4 to 24 points
+    unmasked of 24 (one shape, so the eager reference compiles once), and
+    nothing unmasked."""
+    rng = np.random.default_rng(11)
+    out = []
+    for n in (4, 9, 16, 24):
+        line = rng.uniform(0, 1, 24)
+        for pts in (np.round(rng.uniform(0, 1, (24, 2)), 2), rng.uniform(0, 1, (24, 2)),
+                    np.stack([line, 0.3 + 0.7 * line], -1) + rng.normal(0, 1e-7, (24, 2))):
+            out.append((pts, (np.arange(24) < n) & (rng.random(24) > 0.1)))
+    out.append((np.zeros((24, 2)), np.zeros(24, bool)))
+    return [(p.astype(np.float32), m) for p, m in out]
+
+
+@pytest.mark.parametrize("case", range(13))
+def test_convex_hull_torch_equals_reference(case):
+    """convex_hull_torch against convex_hull_jax called as the reference's
+    own test calls it (eagerly, max_verts 70): hull rows and count bit for
+    bit.  The cross product matched only as fma(ax, by, −(ay·bx)) (the
+    FMA-free form and fma(−ay, bx, ax·by) lose near-collinear cases); the
+    squared distance decides only among collinear candidates, where every
+    form gives the same bits."""
+    pts, mask = _hull_inputs()[case]
+    want, want_n = jG.convex_hull_jax(jnp.asarray(pts), jnp.asarray(mask), max_verts=70)
+    got, got_n = tG.convex_hull_torch(torch.from_numpy(pts), torch.from_numpy(mask), 70)
+    assert got.dtype == torch.float32 and got_n.dtype == torch.int32
+    assert int(got_n) == int(want_n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _within_or_inside(pts, poly, tol):
+    """Every point inside ``poly`` or within ``tol`` of one of its edges."""
+    a, b = poly, np.roll(poly, -1, axis=0)
+    ab = b - a
+    t = np.clip(((pts[:, None, :] - a) * ab).sum(-1) / np.maximum((ab * ab).sum(-1), 1e-300),
+                0, 1)
+    near = np.linalg.norm(a + t[..., None] * ab - pts[:, None, :], axis=-1).min(1) <= tol
+    return near | tG.point_in_polygon_np(pts, poly)
+
+
+def test_pinned_thin_triangle_hull():
+    """The input on which tests/test_geometry.py's hull property test
+    fails now and then: a thin triangle with a duplicate point.  Both
+    packages' hulls are the three distinct points, bit for bit; the
+    reference test's inflated-polygon check puts the two outer vertices
+    outside (its boundary rule is at fault, not the hull), and a
+    boundary-aware check holds."""
+    pts = np.array([[0.0, 0.23828125], [0.375, 0.1328125], [0.1875, 0.1875],
+                    [0.1875, 0.1875]])
+    hull = tG.convex_hull_np(pts)
+    np.testing.assert_array_equal(hull, jG.convex_hull_np(pts))
+    assert {tuple(p) for p in hull} == {tuple(p) for p in pts}
+    centroid = hull.mean(0)
+    big = centroid + (hull - centroid) * (1 + 1e-6) + 1e-9
+    np.testing.assert_array_equal(tG.point_in_polygon_np(pts, big),
+                                  [False, False, True, True])
+    assert _within_or_inside(pts, hull, 1e-9).all()
+    p32 = pts.astype(np.float32)
+    want, want_n = jG.convex_hull_jax(jnp.asarray(p32), jnp.ones(4, bool), max_verts=70)
+    got, got_n = tG.convex_hull_torch(torch.from_numpy(p32), torch.ones(4, dtype=torch.bool), 70)
+    assert int(got_n) == int(want_n) == 3
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_min_cross_distance_sq_equals_reference(seed):
+    """Against the jitted reference, counts from none to all rows, on 100
+    small draws: XLA:CPU contracts ``sum((a − b) ** 2, -1)`` under jit
+    into fma(dy, dy, dx·dx), and the port computes that.  The eager
+    reference (one op at a time) is FMA-free and differs on some draws,
+    as the FMA-free form does from the jitted one."""
+    rng = np.random.default_rng(seed)
+    f = jax.jit(jG.min_cross_distance_sq)
+    fma_free_differs = 0
+    for draw in range(100):
+        a = rng.uniform(0, 1, (6, 2)).astype(np.float32)
+        b = rng.uniform(0, 1, (5, 2)).astype(np.float32)
+        na, nb = ((6, 5), (2, 3), (0, 5), (1, 1))[draw % 4]
+        want = f(jnp.asarray(a), jnp.int32(na), jnp.asarray(b), jnp.int32(nb))
+        got = tG.min_cross_distance_sq(torch.from_numpy(a), torch.tensor(na, dtype=torch.int32),
+                                       torch.from_numpy(b), torch.tensor(nb, dtype=torch.int32))
+        assert got.dtype == torch.float32
+        assert got.item() == float(want), (draw, na, nb)
+        d = a[:na, None] - b[None, :nb]
+        if na and nb:
+            fma_free_differs += float((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]).min()) \
+                != float(want)
+    assert fma_free_differs > 0

@@ -18,6 +18,7 @@ ds) = (64, 128), the CUDA cores otherwise), also to one bf16 ulp
 IEEE division and rounding per element) equals its plain version bit for
 bit.
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -202,6 +203,32 @@ def test_contour_min_d2_valid_slots(cuda, m, v, kind):
     assert torch.equal(rect, got[rows])
     if kind == "invalid":
         assert bool((got == 1e30).all())
+
+
+@pytest.mark.parametrize("m,valid_slots", [(29_000, 300), (29_000, 0)])
+def test_contour_min_d2_staged_lists(cuda, m, valid_slots):
+    """Slot lists past a block's shared memory (29,000 slots at v 128; a
+    512-lane fold has 32,768) take the square form's staged entry: bit for
+    bit the plain version, one main launch and one compaction launch
+    counted.  The rectangular form has no staged entry and raises."""
+    rng = np.random.default_rng(m + valid_slots)
+    v = 128
+    c, n, val = _contour_side(rng, m, v, "invalid", cuda)
+    idx = torch.as_tensor(rng.choice(m, valid_slots, replace=False), device=cuda)
+    val[idx] = True
+    n[idx] = torch.as_tensor(rng.integers(1, 40, valid_slots).astype(np.int32), device=cuda)
+    assert contour_dist._staged(v, m, cuda) is not None
+    before = dict(contour_dist.launches)
+    compacted = contour_dist.compact_launches["contour_min_d2"]
+    got = contour_dist.contour_min_d2(c, n, val)
+    assert contour_dist.launches["contour_min_d2"] == before["contour_min_d2"] + 1
+    assert contour_dist.compact_launches["contour_min_d2"] == compacted + 1
+    assert torch.equal(got, ref.contour_min_d2(c, n, val))
+    del got
+    rows = torch.cat([idx[:64], torch.arange(32, device=cuda)])
+    with pytest.raises(ValueError, match="shared memory"):
+        contour_dist.cross_min_d2(c[rows], n[rows], val[rows], c, n, val)
+    assert contour_dist.launches["cross_min_d2"] == before["cross_min_d2"]
 
 
 @pytest.mark.parametrize("a,b,v,kind_a,kind_b", [(96, 256, 128, "mixed", "mixed"),
@@ -1296,3 +1323,81 @@ def test_dist_engine_fault_recovery_on_card(cuda):
     np.testing.assert_array_equal(hit.stacked("_glabels").cpu().numpy(),
                                   clean.stacked("_glabels").cpu().numpy())
     np.testing.assert_array_equal(hit.query(pts[::3]).labels, clean.query(pts[::3]).labels)
+
+
+def test_ranks_on_card_equal_one_process(cuda):
+    """ddc_shard on 4 rank processes sharing the card (gloo) under sync,
+    async and tree: labels, maps, every rank's global ClusterSet, the meter
+    and the ranks' gloo bytes equal the one-process run on the card; each
+    rank's B5 launches equal its folds, and every rank launches a count
+    and a sweep kernel (B3 and B4, or B1 and B2 where a lane's tile pairs
+    fall back to the dense path)."""
+    from repro_torch.launch import ranks
+
+    spec = spatial.PHASE2_LAYOUTS["rings"]
+    pts = spec["make"](8192)
+    base = ddc.DDCConfig(**{f: spec[f] for f in ("eps", "min_pts", "grid", "max_verts",
+                                                 "max_clusters")}, block_tile=256)
+    cfgs = [dataclasses.replace(base, schedule=s) for s in ("sync", "async", "tree")]
+    mask = np.ones(len(pts), bool)
+    results = ranks.run_ddc_cases([dict(points=pts, mask=mask, cfg=c, k=4) for c in cfgs],
+                                  4, device="cuda", timeout=300)
+    for cfg, res in zip(cfgs, results):
+        meter = ddc.CommMeter()
+        glabels, gcs, maps = ddc.make_ddc_fn(cfg, 4, device=cuda, meter=meter)(pts, mask)
+        np.testing.assert_array_equal(res.glabels, glabels.cpu().numpy())
+        np.testing.assert_array_equal(res.maps, maps.cpu().numpy())
+        for rec in res.ranks:
+            for got, want in zip(rec["gcs"], gcs):
+                np.testing.assert_array_equal(got, want.cpu().numpy())
+            got = rec["launches"]
+            assert got.get("neighbor_count_sparse", 0) + got.get("neighbor_count", 0) >= 1
+            assert got.get("min_label_sweep_sparse", 0) + got.get("min_label_sweep", 0) >= 1
+            assert got.get("contour_min_d2", 0) == rec["merge_calls"]
+        assert res.meter == meter.snapshot() and res.sent_bytes == meter.bytes_total
+
+
+def test_curation_on_card_equals_cpu(cuda):
+    from repro_torch.data import curation, pipeline
+    from repro_torch.launch import mesh
+
+    dcfg = pipeline.DataConfig(vocab=512, seq_len=32, global_batch=4, n_latent_clusters=8)
+    emb, _ = pipeline.doc_embeddings(dcfg, 4000)
+    got = curation.curate(emb, mesh=mesh.make_lane_mesh(8, cuda))
+    want = curation.curate(emb, mesh=mesh.make_lane_mesh(8, "cpu"))
+    for f in ("labels", "cluster_sizes", "sample_weights"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert got.exchanged_fraction == want.exchanged_fraction and got.n_clusters == 8
+
+
+@pytest.mark.parametrize("sched", ["sync", "tree", "async"])
+def test_dryrun_cell_on_card_equals_cpu(cuda, sched):
+    from repro_torch.launch import dryrun_ddc
+
+    pts = spatial.make_d2(2048, seed=1)
+    got = dryrun_ddc.run_cell(16, sched, pts, device=cuda)
+    want = dryrun_ddc.run_cell(16, sched, pts, device="cpu")
+    keys = ("cell", "wire_budget_bytes", "bytes_total", "collectives", "merge_steps",
+            "merge_slots", "merge_calls", "n_clusters", "overflow")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["peak_memory_bytes"] > 0
+
+
+def test_hull_and_min_distance_on_card_equal_cpu(cuda):
+    from repro_torch.core import geometry
+
+    rng = np.random.default_rng(3)
+    for n in (4, 24, 300):
+        t = rng.uniform(0, 1, n)
+        pts = np.concatenate([rng.uniform(0, 1, (n, 2)),
+                              np.stack([t, 0.3 + 0.7 * t], -1) + rng.normal(0, 1e-7, (n, 2))])
+        pts = torch.as_tensor(pts.astype(np.float32))
+        mask = torch.as_tensor(rng.random(2 * n) > 0.1)
+        got = geometry.convex_hull_torch(pts.to(cuda), mask.to(cuda), 70)
+        want = geometry.convex_hull_torch(pts, mask, 70)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        cnt = torch.tensor(n, dtype=torch.int32)
+        d_got = geometry.min_cross_distance_sq(pts[:n].to(cuda), cnt.to(cuda), pts[n:].to(cuda),
+                                               cnt.to(cuda))
+        assert torch.equal(d_got.cpu(), geometry.min_cross_distance_sq(pts[:n], cnt, pts[n:], cnt))

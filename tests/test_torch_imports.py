@@ -54,14 +54,18 @@ def test_every_submodule_listed():
             "repro_torch.serve.cluster_service", "repro_torch.serve.journal",
             "repro_torch.serve.hierarchy", "repro_torch.serve.tracking",
             "repro_torch.serve.dist_service", "repro_torch.launch", "repro_torch.launch.mesh",
-            "repro_torch.launch.serve", "repro_torch.parallel.compress"} <= names
+            "repro_torch.launch.serve", "repro_torch.parallel.compress",
+            "repro_torch.launch.ranks", "repro_torch.launch.dryrun_ddc",
+            "repro_torch.data.pipeline", "repro_torch.data.curation"} <= names
     for name in names:
         importlib.import_module(name)
 
 
 def test_no_jax_or_reference_import_lines():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "examples" / "quickstart_torch.py"]
+                                          ROOT / "examples" / "quickstart_torch.py",
+                                          ROOT / "examples" / "data_curation_torch.py",
+                                          ROOT / "tests" / "_torch_ranks_probe.py"]
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
            for f in files

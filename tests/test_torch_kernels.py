@@ -222,3 +222,21 @@ class TestDispatch:
                 torch.zeros(2, dtype=torch.bool, device="meta"))
         with pytest.raises(ValueError):
             contour_dist.cross_min_d2(*side, *side)
+
+
+@pytest.mark.parametrize("v,slots,staged", [(128, 256, False), (128, 28_000, False),
+                                            (128, 29_000, True), (128, 32_768, True),
+                                            (2048, 27_500, True), (2048, 26_000, False),
+                                            (16, 1, False)])
+def test_contour_dist_stages_lists_past_shared_memory(v, slots, staged):
+    """B5's square wrapper keeps the slot lists in shared memory while v
+    row vertices, the block min and 2 ints a slot fit 227 KB, and otherwise
+    hands the kernel a scratch buffer of 2 ints a slot and the list's
+    length (the staged entry: a 512-lane fold has 32,768 slots); a row of
+    vertices past shared memory raises."""
+    buf = contour_dist._staged(v, slots, torch.device("cpu"))
+    assert (buf is not None) == staged
+    if staged:
+        assert buf.dtype == torch.int32 and buf.shape == (2 * slots + 1,)
+    with pytest.raises(ValueError, match="shared memory"):
+        contour_dist._staged(29_100, 1, torch.device("cpu"))

@@ -5,9 +5,9 @@ it needs one device per lane: this module doubles as the script that runs
 it on an 8-device host mesh (the device count must be set before JAX
 starts, so it runs in a subprocess):
 
-    PYTHONPATH=src python tests/test_torch_schedules.py OUT.npz
+    PYTHONPATH=src python tests/test_torch_schedules.py OUT.npz [NAME,NAME,...]
 
-writes, for every case of ``CASES``, the reference's global labels, maps,
+writes, for every case of ``CASES`` (or the named ones), the reference's global labels, maps,
 global ClusterSet and ``CommMeter`` counts (and, for K-Means, each lane's
 initial centres).  The tests hold the port's one-device ``make_ddc_fn``
 to them bit for bit, the port's ``CommMeter`` to the committed
@@ -88,14 +88,15 @@ def case_points(layout: str, k: int) -> np.ndarray:
     return pts[:len(pts) // k * k]
 
 
-def reference_outputs(path: str) -> None:
-    """Run every case through the reference's make_ddc_fn on a host mesh
-    and save its outputs to ``path``."""
+def reference_outputs(path: str, names=None) -> None:
+    """Run every case (or the named ones) through the reference's
+    make_ddc_fn on a host mesh and save its outputs to ``path``."""
     from repro.core import kmeans as jkm
     from repro.launch import mesh as mesh_mod
 
     out = {}
-    for name, (layout, fields, k) in CASES.items():
+    for name in names or CASES:
+        layout, fields, k = CASES[name]
         cfg = jddc.DDCConfig(**fields)
         pts = case_points(layout, k)
         meter = jddc.CommMeter()
@@ -336,4 +337,4 @@ def test_pytree_wire_bytes_equals_reference():
 
 
 if __name__ == "__main__":
-    reference_outputs(sys.argv[1])
+    reference_outputs(sys.argv[1], sys.argv[2].split(",") if len(sys.argv) > 2 else None)
