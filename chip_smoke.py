@@ -10,39 +10,52 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (non-zero exit):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build.
-LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
-   GQA 32/8, the flash_attention kernel) and mamba2-1.3b (48 layers,
-   d_model 2048, the ssd_scan kernel) at full depth, and llama4-scout
-   (d_model 5120, GQA 40/8, 16 experts of 8,192 top-1 plus a shared
-   expert, vocab 202,048: flash_attention and the MoE dispatch_gather)
-   cut to 4 of its 48 layers (``LM_LAYERS``), bf16 weights drawn from a
-   seeded ``torch.Generator`` with the reference's scales, 4 requests of
-   2,048 prompt tokens each (seeded), ``greedy_generate`` for 16 tokens
-   (max_len 2,064).  Per model: attention and SSD launch once per layer in
-   prefill and nowhere else, the MoE gather once per MoE layer in prefill
-   and in each decode step (launch counts zeroed just before the run and
-   read just after), and in bf16 every attention launch takes the
-   tensor-core route (``flash_attention_tc.cu``: 36 for qwen3-8b, 4 for
-   llama4-scout) and every SSD launch too (``ssd_scan_tc.cu``: 48 for
-   mamba2-1.3b) while the float32 run below takes the CUDA-core ones
-   (``flash_attention.cu``, ``ssd_scan.cu``), by the route counts; a
-   second kernel run gives bit-identical tokens and logits; the same path under ``ops.FORCE = "ref"`` (the plain versions,
-   routed as the reference routes off the TPU), teacher-forced on the
-   kernel run's tokens, is held to the kernel run on the prefill's
-   last-token logits and on every decode step's logits, in bf16 and with
-   the weights cast to float32 (tolerances at ``LM_F32_TOL`` and
-   ``LM_BF16_NOISE``); in bf16 the plain run routes every MoE token by
-   the kernel run's decisions (replayed from its route log, the gates
-   from its own probabilities), so that a routing flip between two bf16
-   runs is not what the gate measures; how many greedy tokens the plain
-   run would pick alike is reported, not gated.  For llama4-scout the
-   token-copies dropped at capacity are printed per layer, and the
-   routing decisions that differ between the kernel and plain runs in
-   float32, where there must be none, and in bf16 without the replay
-   (reported; with it they are 0 by construction, and checked).  Prefill time, decode time per token,
-   tokens/s and peak memory are printed beside the card.  Each LM kernel
-   is held against its plain version on the inputs the main path gave its
-   first layer, in bf16 and cast up to float32, and on ``FLASH_SWEEP`` and
+LM. The serving path at full width (``LM_ARCHS``): qwen3-8b (36 layers,
+   d_model 4096, GQA 32/8), mamba2-1.3b (48 layers, d_model 2048, the SSD
+   scan), minicpm3-4b (62 layers, MLA: q/kv low-rank 768/256, qk dim 96 =
+   nope 64 + rope 32, v 64 padded to 96) and whisper-small (12 encoder + 12
+   decoder layers, d_model 768, seeded frames of 4 x 1,500 x 768) at full
+   depth; llama4-scout (d_model 5120, 16 experts top-1 + shared) cut to 4 of
+   48 layers, internvl2-26b (d_model 6144, GQA 48/8, a seeded 4 x 256 x
+   6,144 prefix) to 24 of 48, kimi-k2 (d_model 7168, 384 experts of 2,048
+   top-8 + shared, vocab 163,840) to 1 of 61 and jamba-1.5-large (d_model
+   8192, 7 Mamba-2 + MLP layers and one attention + 16-expert MoE layer) to
+   one 8-layer group of 72 (``LM_LAYERS``, with the memory reckoning).  bf16
+   weights from a seeded ``torch.Generator`` with the reference's scales, 4
+   requests of 2,048 prompt tokens each (seeded), ``greedy_generate`` for 16
+   tokens (max_len 2,064 plus the prefix).  Per model: the launches equal
+   ``lm_launch_plan`` (attention once per attention layer in prefill,
+   whisper's 12 encoder layers and 12 cross-attentions in prefill and 12
+   more in each decode step; SSD once per Mamba layer in prefill; the MoE
+   gather once per MoE layer in prefill and in each decode step; counts
+   zeroed just before the run and read just after), and in bf16 every
+   attention launch takes the route of the head dim it gets (the tensor
+   cores at 64 and 128, ``flash_attention_tc.cu``; MLA's 96 the CUDA cores,
+   ``flash_attention.cu``) and every SSD launch the tensor cores
+   (``ssd_scan_tc.cu``), while the float32 runs below take the CUDA-core
+   ones, by the route counts; a second kernel run gives bit-identical
+   tokens and logits; the same path under ``ops.FORCE = "ref"`` (the plain
+   versions, routed as the reference routes off the TPU), teacher-forced on
+   the kernel run's tokens, is held to the kernel run on the prefill's
+   last-token logits and on every decode step's logits, in bf16 and with the
+   weights cast to float32 in place after the bf16 runs (``cast_in_place``;
+   tolerances at ``LM_F32_TOL`` and ``LM_BF16_NOISE``); in bf16 the plain
+   run routes every MoE token by the kernel run's decisions (replayed from
+   its route log, the gates from its own probabilities), so that a routing
+   flip between two bf16 runs is not what the gate measures; how many
+   greedy tokens the plain run would pick alike is reported, not gated.
+   For the MoE models the token-copies dropped at capacity are printed per
+   layer, and the routing decisions that differ between the kernel and
+   plain runs in float32, where there must be none, and in bf16 without the
+   replay (reported; with it they are 0 by construction, and checked).
+   Prefill time, decode time per token, tokens/s and peak memory are
+   printed beside the card.  Each LM kernel is held against its plain
+   version on the inputs the main path gave its first layer (qwen3-8b,
+   mamba2-1.3b, llama4-scout), in bf16 and cast up to float32, and at the
+   other models' shapes (``at_model_shapes``: MLA's d 96, whisper's encoder,
+   cross-attention in prefill (2,048 queries against 1,500 keys) and in
+   decode (one query), internvl2's 2,304 positions, jamba's SSD, kimi-k2's
+   and jamba's gathers in prefill and decode), and on ``FLASH_SWEEP`` and
    ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
    bf16, each case on the route its dtype and shape pick), at
    ``LM_KERNEL_F32_TOL`` and ``bf16_tol``, the CUDA-core kernels also timed
@@ -50,6 +63,9 @@ LM. The serving path at full width: qwen3-8b (36 layers, d_model 4096,
    both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is also
    timed at prefill_32k's length (one sequence, one layer's q/k/v) beside
    the CUDA-core kernel and ``scaled_dot_product_attention``, not gated.
+   Then ``python -m repro_torch.launch.serve --mode lm`` (``lm_cli`` line):
+   every architecture's tiny configuration in this process, its launches
+   equal to its plan, and whisper-small at full width as its own process.
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
    ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
@@ -256,6 +272,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -386,16 +403,53 @@ TRACK_CFG = dict(eps=0.015, min_pts=3, grid=96, max_verts=96, max_clusters=32,
 TRACK_RESUME_AT = 12
 TRACK_V_TOL = 5e-3   # tests/test_tracking.py::test_velocity_and_heading_match_ground_truth
 SPIN_CYCLES = 20_000_000  # ≈ 11 ms at 1.75 GHz: longer than the host takes to enqueue
-# The LM phase: three full-width models, each with the LM kernel whose
-# first-layer inputs its run captures for the per-kernel check.
 CURATION_N = 262_144  # documents of the full-width curation run
 DRYRUN_POINTS = 65_536  # the port's dry run (the reference's default is 1 << 20)
-LM_ARCHS = {"qwen3-8b": "flash_attention", "mamba2-1.3b": "ssd_scan",
-            "llama4-scout-17b-a16e": "dispatch_gather"}
-# Depth cut by one card's 80 GB: llama4-scout's 48 layers are 2.202 B
-# parameters each (216 GB in bf16); 4 layers and the embedding and head are
-# 21.8 GB, beside which the float32 anchor copy (43.5 GB) still fits.
-LM_LAYERS = {"llama4-scout-17b-a16e": 4}
+# The LM phase: every architecture of repro_torch.configs but granite-20b and
+# deepseek-coder-33b (dense GQA/MQA as qwen3-8b), served at full width in
+# this order.  For each, the kernel calls of its second run whose inputs the
+# per-kernel checks take: {kernel: {call number within the run: label}}
+# (whisper's calls: 12 encoder layers, then each decoder layer's self- and
+# cross-attention, so 13 is layer 0's cross-attention in prefill and 36 its
+# cross-attention in the first decode step; a one-MoE-layer model's gather
+# call 1 is its first decode step).
+LM_ARCHS = {
+    "qwen3-8b": {"flash_attention": {0: "qwen3-8b prefill"}},
+    "mamba2-1.3b": {"ssd_scan": {0: "mamba2-1.3b prefill"}},
+    "llama4-scout-17b-a16e": {"dispatch_gather": {0: "llama4-scout prefill"}},
+    "minicpm3-4b": {"flash_attention": {0: "minicpm3-4b prefill (MLA, d 96)"}},
+    "whisper-small": {"flash_attention": {0: "whisper-small encoder",
+                                          13: "whisper-small cross-attention, prefill",
+                                          36: "whisper-small cross-attention, decode"}},
+    "internvl2-26b": {"flash_attention": {0: "internvl2-26b prefill (prefix 256)"}},
+    "kimi-k2-1t-a32b": {"dispatch_gather": {0: "kimi-k2 prefill", 1: "kimi-k2 decode"}},
+    "jamba-1.5-large-398b": {"ssd_scan": {0: "jamba prefill"},
+                             "dispatch_gather": {0: "jamba prefill", 1: "jamba decode"}},
+}
+# The first-layer inputs the main kernels-line entries are held on.
+LM_MAIN_CAPTURE = {"flash_attention": "qwen3-8b prefill", "ssd_scan": "mamba2-1.3b prefill",
+                   "dispatch_gather": "llama4-scout prefill"}
+# Depth cuts by one card's 80 GB (ModelConfig.param_counts(), 1e9 bytes; the
+# card holds about 85).  Each model's bf16 runs come first; then its weights
+# are cast to float32 in place, a parameter at a time through the host
+# (``cast_in_place``), for the float32 runs, so the two copies never sit on
+# the card together:
+# - llama4-scout: 48 layers are 216 GB in bf16; 4 layers and the embedding
+#   and head 21.8 GB, 43.5 in float32.
+# - internvl2-26b: 48 layers are 39.72 GB in bf16 and 79.45 in float32, which
+#   leaves no room for the 4 x 2,304-token prefill's activations; 24 layers
+#   are 21.00 / 42.00.
+# - kimi-k2: one of its 61 layers (384 experts of 7,168 x 2,048, top-8, and a
+#   shared expert) with the 163,840-entry embedding and head is 38.88 GB in
+#   bf16 and 77.76 in float32; the float32 prefill's activations (its expert
+#   buffer alone 82,176 x 7,168 x 4 bytes = 2.36 GB) fit in what is left only
+#   because the MoE layer keeps few buffers alive at once (layers._moe_local).
+# - jamba: one pattern group of 8 of its 72 layers (7 Mamba-2 + MLP layers,
+#   one attention + 16-expert MoE layer) is 27.47 GB in bf16, 54.95 in float32.
+# minicpm3-4b (62 layers, 8.52 GB in bf16) and whisper-small (12 + 12 layers,
+# 0.50 GB) run at full depth.
+LM_LAYERS = {"llama4-scout-17b-a16e": 4, "internvl2-26b": 24, "kimi-k2-1t-a32b": 1,
+             "jamba-1.5-large-398b": 8}
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
 LONG_PREFILL = 32_768  # prefill_32k's sequence length
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
@@ -886,8 +940,88 @@ def _flash_pairs(sq: int, skv: int, causal: bool) -> int:
     return sum(min(skv, max(0, off + r + 1)) for r in range(sq))
 
 
-def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
-                      routes: dict) -> list[dict]:
+# Each LM kernel's source by the route it takes, and the TPU kernel it replaces.
+LM_KERNEL_SOURCES = {("flash_attention", "tc"): "flash_attention_tc.cu",
+                     ("flash_attention", "simt"): "flash_attention.cu",
+                     ("ssd_scan", "tc"): "ssd_scan_tc.cu", ("ssd_scan", "simt"): "ssd_scan.cu",
+                     ("dispatch_gather", "cuda"): "moe_gather.cu"}
+LM_KERNEL_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:99",
+                      "ssd_scan": "src/repro/kernels/ssd_scan.py:78",
+                      "dispatch_gather": "src/repro/kernels/moe_gather.py:48"}
+
+
+def model_shape_entry(torch, ops, route_mod, kernel: str, label: str, args, kw,
+                      model_launches: int) -> dict:
+    """One LM kernel at a shape a model's main path gave it (``args``,
+    ``kw`` as captured), through ``kernel_entry``: against the plain
+    version ``ops`` runs under FORCE="ref" (the reference's routing off the
+    TPU), bit for bit for the gather and within ``bf16_tol`` otherwise, two
+    launches identical, on the route the kernel picks, timed beside the
+    plain version and the library call (SDPA for attention,
+    ``index_select`` for the gather, none for the SSD), with its bound:
+    operations at the bf16 rate or bytes, each input read once and the
+    output written once."""
+    def kern():
+        return getattr(ops, kernel)(*args, **kw)
+
+    def plain():
+        ops.FORCE = "ref"
+        try:
+            return getattr(ops, kernel)(*args, **kw)
+        finally:
+            ops.FORCE = None
+
+    tol = bf16_tol
+    if kernel == "flash_attention":
+        q, k, v = args
+        causal = kw.get("causal", True)
+        b, h, sq, d = q.shape
+        ops_n = b * h * _flash_pairs(sq, k.shape[2], causal) * 4 * d
+        nbytes = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)
+        route = route_mod.route(q.dtype, d)
+        shape = [b, h, k.shape[1], sq, k.shape[2], d, str(q.dtype), "causal" if causal
+                 else "non-causal"]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=kw.get("scale"), enable_gqa=True)
+    elif kernel == "ssd_scan":
+        x, a, bb, c = args
+        bsz, l, hs, dh = x.shape
+        ds = bb.shape[-1]
+        route = route_mod.route(x.dtype, dh, ds)
+        lc = route_mod.CHUNK[route]
+        ops_n = bsz * l * hs * ((lc + 1) * (ds + dh) + 4 * ds * dh)
+        nbytes = tensor_bytes(x) * 2 + tensor_bytes(a) + tensor_bytes(bb) + tensor_bytes(c)
+        shape = [bsz, l, hs, dh, ds, str(x.dtype)]
+        library = None
+    else:
+        x, idx = args
+        kept = int((idx >= 0).sum())
+        ops_n = 0
+        nbytes = kept * x.shape[1] * x.element_size() + idx.shape[0] * (
+            4 + 4 + x.shape[1] * x.element_size())
+        route, shape, tol = "cuda", [x.shape[0], x.shape[1], idx.shape[0], str(x.dtype)], None
+
+        def library():
+            return x.index_select(0, idx.clamp_min(0))
+
+        def kern(_k=kern):
+            return _k()[0]
+
+        def plain(_p=plain):
+            return _p()[0]
+    b_ms, b_by = bound(ops_n, nbytes, PEAK_BF16)
+    return kernel_entry(
+        torch, kernel, LM_KERNEL_SOURCES[(kernel, route)], LM_KERNEL_REPLACES[kernel], shape,
+        kern, plain, b_ms, b_by, model_launches, label, library=library, tol=tol,
+        extra={"label": label, "kernel_route": route, "model_launches": model_launches,
+               **two_launches(torch, f"{kernel} at {label}", kern),
+               "operations": ops_n, "bytes": nbytes})
+
+
+def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, by_model: dict,
+                      lm_routes: dict, at_shapes: dict) -> list[dict]:
     """The two LM kernels against their plain versions (the routes
     ``ops`` takes under FORCE="ref") on the inputs the main path gave its
     first layer, in bf16 as served and cast up to float32 (the float32
@@ -900,15 +1034,21 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     bits), as it did on the main path (``routes``: its launches there by
     route), and the CUDA-core route on the float32 ones; the CUDA-core
     kernel is also timed and held on the bf16 inputs (``simt``), the design
-    the tensor-core route replaced there."""
-    q, k, v = captured["flash_attention"]
+    the tensor-core route replaced there.  ``launches`` sums every LM
+    model's main-path launches (``by_model``: {kernel: {model: launches}});
+    ``at_model_shapes`` holds each kernel at the other shapes LM_ARCHS
+    captured (``at_shapes``: ``model_shape_entry``'s, by kernel)."""
+    launches = {k: sum(v.values()) for k, v in by_model.items()}
+    routes = {"flash_attention": lm_routes["qwen3-8b"]["flash_attention"],
+              "ssd_scan": lm_routes["mamba2-1.3b"]["ssd_scan"]}
+    qwen_launches = by_model["flash_attention"]["qwen3-8b"]
+    (q, k, v), _ = captured[("flash_attention", LM_MAIN_CAPTURE["flash_attention"])]
     b, h, s, d = q.shape
     hkv = k.shape[1]
     ops_fa = b * h * _flash_pairs(s, s, True) * 4 * d      # q·k and p·v, 2d each
     bytes_fa = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)   # q, k, v, out
     kind = fa.route(q.dtype, d)
-    if kind != "tc" or routes["flash_attention"] != {"tc": launches["flash_attention"],
-                                                    "simt": 0}:
+    if kind != "tc" or routes["flash_attention"] != {"tc": qwen_launches, "simt": 0}:
         raise RuntimeError(f"qwen3-8b's bf16 attention took route {kind}, main-path launches "
                            f"by route {routes['flash_attention']}: expected the tensor cores")
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -937,12 +1077,15 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     b_ms, b_by = bound(ops_fa, bytes_fa, PEAK_BF16)
     entries = [kernel_entry(
         torch, "flash_attention", "flash_attention_tc.cu",
-        "src/repro/kernels/flash_attention.py:99", [b, h, hkv, s, d, str(q.dtype)],
-        kern, plain, b_ms, b_by, launches["flash_attention"], "qwen3-8b prefill",
+        LM_KERNEL_REPLACES["flash_attention"], [b, h, hkv, s, d, str(q.dtype)],
+        kern, plain, b_ms, b_by, launches["flash_attention"], "LM prefill (all models), "
+        "whisper's and every cross-attention decode step; held on qwen3-8b's prefill",
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True),
         tol=bf16_tol,
         extra={"kernel_route": kind, "route_launches": routes["flash_attention"],
+               "launches_by_model": by_model["flash_attention"],
+               "at_model_shapes": at_shapes["flash_attention"],
                "two_launches_identical": True,
                "bound_fp32_ms": bound(ops_fa, bytes_fa)[0], "operations": ops_fa,
                # p_hi and p_lo each multiply v: 1.5x the function's operations
@@ -951,11 +1094,12 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
                         "ms": median_ms(torch, simt, 5, per=2),
                         "max_abs_err": simt_out["max_abs_err"]},
                **f32_fa})]
-    x, a, bb, c = captured["ssd_scan"]
+    (x, a, bb, c), _ = captured[("ssd_scan", LM_MAIN_CAPTURE["ssd_scan"])]
     bsz, l, hs, dh = x.shape
     ds = bb.shape[-1]
     kind = ssd.route(x.dtype, dh, ds)
-    if kind != "tc" or routes["ssd_scan"] != {"tc": launches["ssd_scan"], "simt": 0}:
+    if kind != "tc" or routes["ssd_scan"] != {"tc": by_model["ssd_scan"]["mamba2-1.3b"],
+                                              "simt": 0}:
         raise RuntimeError(f"mamba2-1.3b's bf16 SSD took route {kind}, main-path launches by "
                            f"route {routes['ssd_scan']}: expected the tensor cores")
     lc = ssd.CHUNK[kind]
@@ -997,10 +1141,13 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     del want
     b_ms, b_by = bound(ops_ssd, bytes_ssd, PEAK_BF16)
     entries.append(kernel_entry(
-        torch, "ssd_scan", "ssd_scan_tc.cu", "src/repro/kernels/ssd_scan.py:78",
+        torch, "ssd_scan", "ssd_scan_tc.cu", LM_KERNEL_REPLACES["ssd_scan"],
         [bsz, l, hs, dh, ds, str(x.dtype)], kern, plain, b_ms, b_by,
-        launches["ssd_scan"], "mamba2-1.3b prefill", tol=bf16_tol,
+        launches["ssd_scan"], "mamba2-1.3b and jamba prefill; held on mamba2-1.3b's",
+        tol=bf16_tol,
         extra={"kernel_route": kind, "route_launches": routes["ssd_scan"],
+               "launches_by_model": by_model["ssd_scan"],
+               "at_model_shapes": at_shapes["ssd_scan"],
                "two_launches_identical": True,
                "bound_fp32_ms": bound(ops_ssd, bytes_ssd)[0], "operations": ops_ssd,
                "tensor_core_operations": tc_ops, "bytes": bytes_ssd,
@@ -1012,7 +1159,8 @@ def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, launches: dict,
     return entries
 
 
-def moe_gather_entry(torch, ops, ref, captured: dict, launches: dict) -> dict:
+def moe_gather_entry(torch, ops, ref, captured: dict, by_model: dict,
+                     at_shapes: dict) -> dict:
     """The MoE dispatch gather against its plain version on the inputs
     llama4-scout's prefill gave its first MoE layer: buf and scales bit
     for bit without quantisation in bf16 (as served) and cast up to
@@ -1022,7 +1170,8 @@ def moe_gather_entry(torch, ops, ref, captured: dict, launches: dict) -> dict:
     the ids read and buf and the scales written once."""
     from repro_torch import configs
 
-    x, idx = captured["dispatch_gather"]
+    (x, idx), _ = captured[("dispatch_gather", LM_MAIN_CAPTURE["dispatch_gather"])]
+    launches = {k: sum(v.values()) for k, v in by_model.items()}
     t, d = x.shape
     s = idx.shape[0]
     kept = int((idx >= 0).sum())
@@ -1045,15 +1194,17 @@ def moe_gather_entry(torch, ops, ref, captured: dict, launches: dict) -> dict:
 
     shape = [t, d, s, str(x.dtype)]
     entry = kernel_entry(
-        torch, "dispatch_gather", "moe_gather.cu", "src/repro/kernels/moe_gather.py:48", shape,
+        torch, "dispatch_gather", "moe_gather.cu", LM_KERNEL_REPLACES["dispatch_gather"], shape,
         lambda: ops.dispatch_gather(x, idx, quant=False)[0],
         lambda: ref.dispatch_gather(x, idx, quant=False)[0], *bound(0, copy_bytes),
-        launches["dispatch_gather"], "llama4-scout-17b-a16e prefill and decode",
-        library=library,
+        launches["dispatch_gather"], "llama4-scout, kimi-k2 and jamba prefill and decode; "
+        "held on llama4-scout's prefill", library=library,
         extra={"bytes": copy_bytes, "kept_rows": kept, "bit_identical": checks,
+               "launches_by_model": by_model["dispatch_gather"],
+               "at_model_shapes": at_shapes["dispatch_gather"],
                "library": "index_select (no mask, no quantisation)"})
     q = kernel_entry(
-        torch, "dispatch_gather_int8", "moe_gather.cu", "src/repro/kernels/moe_gather.py:48",
+        torch, "dispatch_gather_int8", "moe_gather.cu", LM_KERNEL_REPLACES["dispatch_gather"],
         shape, lambda: ops.dispatch_gather(x, idx, quant=True)[0],
         lambda: ref.dispatch_gather(x, idx, quant=True)[0], *bound(quant_ops, quant_bytes),
         0, "none: the int8 mode is the a2a wire format (several cards)", library=library,
@@ -1244,26 +1395,58 @@ def profile_fn(torch, fn, wall_s: float, top: int = 6, require=()) -> dict:
             "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in ranked]}
 
 
-def cast_model(torch, T, cfg, model, dtype):
-    """A copy of ``model`` with every parameter cast to ``dtype``."""
-    out = T.LM(cfg, None, device=model.embed.device, dtype=dtype)
-    for (name, dst), (name_src, src) in zip(out.named_parameters(), model.named_parameters()):
-        assert name == name_src
-        dst.copy_(src)
+def cast_in_place(torch, model, dtype) -> None:
+    """Cast every parameter of ``model`` to ``dtype`` in place, one at a
+    time: a parameter too large to have both copies on the card beside
+    the rest goes to the host first and comes back in chunks of about
+    1 GB, each cast on the card, so the card holds no more than the model
+    in ``dtype`` at its end."""
+    for p in model.parameters():
+        src, dev = p.data, p.device
+        out_bytes = src.numel() * torch.empty((), dtype=dtype).element_size()
+        if torch.cuda.mem_get_info(dev)[0] > out_bytes + (2 << 30):
+            p.data = src.to(dtype)
+            del src
+        else:
+            host = src.cpu()
+            del src
+            p.data = torch.empty((), device=dev)   # its old storage is freed here
+            torch.cuda.empty_cache()
+            p.data = torch.empty_like(host, dtype=dtype, device=dev)
+            rows = max(1, (1 << 30) // max(1, host[:1].numel() * 4))
+            for i in range(0, host.shape[0], rows):
+                p.data[i:i + rows].copy_(host[i:i + rows].to(dev))
+            del host
+        torch.cuda.empty_cache()
+
+
+def lm_extras(torch, cfg, dev) -> dict:
+    """The inputs beside the prompt a configuration serves with, seeded, in
+    bf16 as the weights: an encoder-decoder's frames (LM_BATCH,
+    frontend_seq, d) and a VLM's prefix (LM_BATCH, prefix_len, d), normal ·
+    0.1 as the reference's ``launch/serve.py`` draws them."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    if cfg.frontend == "audio_stub":
+        out["frames"] = (torch.randn((LM_BATCH, cfg.frontend_seq, cfg.d_model), generator=g,
+                                     device=dev) * 0.1).bfloat16()
+    if cfg.prefix_len:
+        out["prefix"] = (torch.randn((LM_BATCH, cfg.prefix_len, cfg.d_model), generator=g,
+                                     device=dev) * 0.1).bfloat16()
     return out
 
 
-def forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, *, plain: bool):
-    """Prefill ``prompt``, then decode teacher-forced on ``toks``: each
-    step's logits (prefill's first), with the kernels or (``plain``) the
-    plain versions, which must launch no kernel; and the prefill's wall
-    time."""
+def forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, extras, *, plain: bool):
+    """Prefill ``prompt`` (with ``extras``: frames or prefix), then decode
+    teacher-forced on ``toks``: each step's logits (prefill's first), with
+    the kernels or (``plain``) the plain versions, which must launch no
+    kernel; and the prefill's wall time."""
     before = ops.launch_counts()
     ops.FORCE = "ref" if plain else None
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache, pos = engine.build_prefill(cfg, scfg)(model, prompt)
+        lg, cache, pos = engine.build_prefill(cfg, scfg)(model, prompt, **extras)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         out = [lg]
@@ -1279,19 +1462,93 @@ def forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, *, plain: boo
     return out, prefill_s
 
 
-def lm_launch_plan(cfg) -> dict[str, int]:
-    """The launches one greedy_generate of LM_STEPS tokens makes, by kernel:
-    flash_attention once per attention layer and ssd_scan once per Mamba
-    layer, in prefill only; dispatch_gather once per MoE layer in prefill
-    and in each of the LM_STEPS − 1 decode steps."""
+def lm_cli_runs(torch, ops) -> dict:
+    """``repro_torch.launch.serve --mode lm`` on the card: every
+    architecture's tiny configuration in this process (its float32 path's
+    kernel launches, zeroed before each run and read after, must follow
+    ``lm_launch_plan``), then whisper-small at full width as its own
+    process (``python -m``, the default mode).  Each line must carry the
+    reference's keys and the device, and tokens in the vocabulary."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    keys = {"requests", "generated_tokens", "wall_s", "tok_per_s", "sample_output", "device"}
+    gen = 8
+    out = {}
+    for arch in configs.all_archs():
+        cfg = configs.get_config(arch)
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            toks = serve.main(["--mode", "lm", "--arch", arch, "--tiny", "--gen", str(gen)])
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        plan = {k: n for k, n in lm_launch_plan(cfg.tiny(), gen).items() if n}
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if launches != plan or set(line) != keys or line["device"] != "cuda" \
+                or toks.shape != (4, gen) or int(toks.max()) >= cfg.vocab:
+            raise RuntimeError(f"serve --mode lm --arch {arch} --tiny: launches {launches} "
+                               f"(plan {plan}), line {line}")
+        out[arch] = {"launches": launches, "tok_per_s": line["tok_per_s"]}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           "whisper-small"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve --mode lm --arch whisper-small: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    vocab = configs.get_config("whisper-small").vocab
+    if set(line) != keys or line["device"] != "cuda" or max(line["sample_output"]) >= vocab:
+        raise RuntimeError(f"serve --mode lm --arch whisper-small: {line}")
+    out["whisper-small full width"] = line
+    return out
+
+
+def lm_launch_plan(cfg, steps: int = LM_STEPS) -> dict[str, int]:
+    """The launches one greedy_generate of ``steps`` tokens makes, by kernel:
+    flash_attention once per attention layer in prefill, and for an
+    encoder-decoder once per encoder layer and per decoder layer's
+    cross-attention in prefill and in each of the ``steps`` − 1 decode steps;
+    ssd_scan once per Mamba layer, in prefill only; dispatch_gather once
+    per MoE layer in prefill and in each decode step."""
     kinds = cfg.layer_kinds()
 
     def layers(pred) -> int:
         return cfg.n_groups * sum(1 for kind, is_moe in kinds if pred(kind, is_moe))
 
-    return {"flash_attention": layers(lambda kind, _: kind == "attn"),
+    cross = cfg.n_layers if cfg.encoder_layers else 0
+    return {"flash_attention": layers(lambda kind, _: kind == "attn") + cfg.encoder_layers
+            + cross * steps,
             "ssd_scan": layers(lambda kind, _: kind == "mamba"),
-            "dispatch_gather": layers(lambda _, is_moe: is_moe) * LM_STEPS}
+            "dispatch_gather": layers(lambda _, is_moe: is_moe) * steps}
+
+
+def attention_head_dim(cfg) -> int:
+    """The head dim flash_attention gets: nope + rope under MLA (v padded to
+    it), the head dim otherwise."""
+    return cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_kind == "mla" else cfg.head_dim
+
+
+@contextlib.contextmanager
+def capture_calls(ops, wanted: dict, captured: dict):
+    """While active, the calls of ``ops``' kernels numbered in ``wanted``
+    ({kernel: {call number: label}}) store their arguments in
+    ``captured[(kernel, label)]`` = (args, kwargs)."""
+    origs = {name: getattr(ops, name) for name in wanted}
+    for name, calls in wanted.items():
+        seen = [0]
+
+        def wrap(*args, _orig=origs[name], _name=name, _calls=calls, _seen=seen, **kw):
+            if _seen[0] in _calls:
+                captured[(_name, _calls[_seen[0]])] = (args, kw)
+            _seen[0] += 1
+            return _orig(*args, **kw)
+
+        setattr(ops, name, wrap)
+    try:
+        yield
+    finally:
+        for name, orig in origs.items():
+            setattr(ops, name, orig)
 
 
 @contextlib.contextmanager
@@ -1363,12 +1620,16 @@ def route_counts(fa, ssd) -> dict:
     return {"flash_attention": dict(fa.route_launches), "ssd_scan": dict(ssd.route_launches)}
 
 
-def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
+def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict, dict]:
     """Serve each LM_ARCHS model at full width, at full depth or cut to
     LM_LAYERS (see the module docstring), and print its numbers.  Returns
-    ({kernel: main-path launches}, {kernel: first-layer inputs}, {model:
-    {kernel: main-path launches by route}} for flash_attention and
-    ssd_scan)."""
+    ({kernel: {model: main-path launches}}, {(kernel, label): (args,
+    kwargs) of the LM_MAIN_CAPTURE calls}, {model: {kernel: main-path
+    launches by route}} for flash_attention and ssd_scan, {kernel:
+    [``model_shape_entry`` of each other call LM_ARCHS names]}).  The
+    other calls are held and timed right after their model's kernel runs,
+    and their inputs dropped, so that they take no room from the later
+    models."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1380,7 +1641,9 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("float32 matmuls must run in IEEE float32 (TF32 off)")
     launches_by_kernel, captured, lm_routes = {}, {}, {}
-    for arch, kname in LM_ARCHS.items():
+    at_shapes = {"flash_attention": [], "ssd_scan": [], "dispatch_gather": []}
+    route_mods = {"flash_attention": fa, "ssd_scan": ssd, "dispatch_gather": None}
+    for arch, wanted in LM_ARCHS.items():
         published = configs.get_config(arch)
         cfg = dataclasses.replace(published, n_layers=LM_LAYERS.get(arch, published.n_layers))
         torch.cuda.synchronize()
@@ -1389,32 +1652,26 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
                               dtype=torch.bfloat16)
         prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(1))
+        extras = lm_extras(torch, cfg, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        scfg = engine.ServeConfig(max_len=LM_PROMPT + LM_STEPS)
+        scfg = engine.ServeConfig(max_len=LM_PROMPT + LM_STEPS + cfg.prefix_len)
         n_params = sum(p.numel() for p in model.parameters())
 
         # Two kernel runs: the first counted, the second (warm, so its times
-        # are the ones reported) captures the first layer's kernel inputs
+        # are the ones reported) captures the kernel inputs LM_ARCHS names
         # and logs the MoE routing; both must agree bit for bit.
         runs = []
         for i in range(2):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            orig = getattr(ops, kname)
-            if i == 1:
-                def capture(*args, _orig=orig, _name=kname, **kw):
-                    captured.setdefault(_name, args)
-                    return _orig(*args, **kw)
-                setattr(ops, kname, capture)
             ops.reset_launch_counts()
-            try:
-                tr: dict = {}
-                with record_routes(L) as routes_k:
-                    toks = engine.greedy_generate(cfg, model, prompt, LM_STEPS, scfg, trace=tr)
-                torch.cuda.synchronize()
-            finally:
-                setattr(ops, kname, orig)
+            tr: dict = {}
+            with capture_calls(ops, wanted if i == 1 else {}, captured), \
+                    record_routes(L) as routes_k:
+                toks = engine.greedy_generate(cfg, model, prompt, LM_STEPS, scfg, trace=tr,
+                                              **extras)
+            torch.cuda.synchronize()
             runs.append((toks, tr, ops.launch_counts(), route_counts(fa, ssd),
                          torch.cuda.max_memory_allocated(dev)))
         (toks, tr, launches, routes, peak), (toks2, tr2, _, _, _) = runs
@@ -1424,13 +1681,17 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             f"{tr['prefill_s']:.4f}s, decode {tr['decode_s']:.4f}s")
         if launches != want:
             raise RuntimeError(f"{arch}: launches {launches}, expected {want} (attention and "
-                               "SSD once per layer in prefill, the MoE gather once per MoE "
-                               "layer in prefill and in every decode step)")
+                               "SSD once per layer in prefill, cross-attention and the MoE "
+                               "gather also in every decode step)")
+        missing = [(k, lbl) for k, calls in wanted.items() for lbl in calls.values()
+                   if (k, lbl) not in captured]
+        if missing:
+            raise RuntimeError(f"{arch}: the kernel calls {missing} were not made")
         # bf16 weights: every attention and SSD launch takes the route its
         # shape gets in bf16 (the tensor cores at attention's d 64 and 128 and
-        # at the SSD's (dh, ds) = (64, 128)).
+        # at the SSD's (dh, ds) = (64, 128); MLA's qk dim of 96 the CUDA cores).
         want_routes = {k: {"tc": 0, "simt": 0} for k in routes}
-        want_routes["flash_attention"][fa.route(torch.bfloat16, cfg.head_dim)] += \
+        want_routes["flash_attention"][fa.route(torch.bfloat16, attention_head_dim(cfg))] += \
             plan["flash_attention"]
         want_routes["ssd_scan"][ssd.route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state)] += \
             plan["ssd_scan"]
@@ -1443,12 +1704,20 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
                 or int(toks.max()) >= cfg.vocab or not all(
                     bool(torch.isfinite(lg).all()) for lg in tr["logits"]):
             raise RuntimeError(f"{arch}: tokens or logits out of range")
+        for kernel, calls in wanted.items():
+            for label in calls.values():
+                if label != LM_MAIN_CAPTURE[kernel]:
+                    args, kw = captured.pop((kernel, label))
+                    at_shapes[kernel].append(model_shape_entry(
+                        torch, ops, route_mods[kernel], kernel, label, args, kw,
+                        launches[kernel]))
+                    del args, kw
 
         # One more prefill and one decode step under the profiler: device
         # time by kernel.
         prof = {"prefill": profile_fn(torch, lambda: engine.build_prefill(cfg, scfg)(
-            model, prompt), tr2["prefill_s"])}
-        _, cache_p, pos_p = engine.build_prefill(cfg, scfg)(model, prompt)
+            model, prompt, **extras), tr2["prefill_s"])}
+        _, cache_p, pos_p = engine.build_prefill(cfg, scfg)(model, prompt, **extras)
         prof["decode_step"] = profile_fn(torch, lambda: engine.build_decode(cfg, scfg)(
             model, toks[:, :1], cache_p, pos_p), tr2["decode_s"] / (LM_STEPS - 1))
         del cache_p
@@ -1459,12 +1728,12 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         # probabilities): where the two bf16 runs would route a token
         # differently, the bf16 gate would measure that flip, not the
         # kernel.  For a MoE model the plain run is also made unreplayed,
-        # to report how often it routes otherwise.  Then both runs again
-        # with the weights in float32, each logging its own routing, call
-        # for call beside the kernel run's.
+        # to report how often it routes otherwise.  Then the weights are
+        # cast to float32 in place and both runs made again, each logging its
+        # own routing, call for call beside the kernel run's.
         with replay_routes(L, routes_k) as routes_p:
             plain, plain_prefill_s = forced_run(torch, ops, engine, cfg, scfg, model, prompt,
-                                                toks, plain=True)
+                                                toks, extras, plain=True)
         if len(routes_p) != len(routes_k):
             raise RuntimeError(f"{arch}: the replayed plain run made {len(routes_p)} MoE calls, "
                                f"the kernel run {len(routes_k)}")
@@ -1472,11 +1741,15 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         if routes_k:
             with record_routes(L) as routes_u:
                 plain_u, _ = forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks,
-                                        plain=True)
-        model32 = cast_model(torch, T, cfg, model, torch.float32)
+                                        extras, plain=True)
+        torch.cuda.synchronize()
+        t_cast = time.perf_counter()
+        cast_in_place(torch, model, torch.float32)
+        cast_s = time.perf_counter() - t_cast
         before32 = route_counts(fa, ssd)
+        torch.cuda.reset_peak_memory_stats(dev)
         with record_routes(L) as routes_k32:
-            kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
+            kern32, _ = forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, extras,
                                    plain=False)
         routes32 = {k: {r: n - before32[k][r] for r, n in v.items()}
                     for k, v in route_counts(fa, ssd).items()}
@@ -1484,9 +1757,10 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             raise RuntimeError(f"{arch}: the float32 run's launches by route {routes32}: "
                                "float32 must stay on the CUDA cores")
         with record_routes(L) as routes_p32:
-            plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model32, prompt, toks,
+            plain32, _ = forced_run(torch, ops, engine, cfg, scfg, model, prompt, toks, extras,
                                     plain=True)
-        del model32
+        peak32 = torch.cuda.max_memory_allocated(dev)
+        del model
         torch.cuda.empty_cache()
         moe = {}
         if routes_k:
@@ -1530,12 +1804,16 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
         if not all(kp <= LM_BF16_NOISE * p32 for kp, p32 in zip(rms_kp, rms_p32)):
             raise RuntimeError(f"{arch}: bf16 kernel run differs from the plain run by more "
                                f"than {LM_BF16_NOISE} x bf16's own error: {rms_kp} vs {rms_p32}")
-        launches_by_kernel[kname] = launches[kname]
+        for k, n in launches.items():
+            if n:
+                launches_by_kernel.setdefault(k, {})[arch] = n
         lm_routes[arch] = routes
         decode_tokens = LM_BATCH * (LM_STEPS - 1)
         numbers = {
             "card": card, "layers": cfg.n_layers, "published_layers": published.n_layers,
-            "d_model": cfg.d_model,
+            "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+            "attention_head_dim": attention_head_dim(cfg),
+            "extras": {k: list(v.shape) for k, v in extras.items()},
             "params": n_params, "param_dtype": "bfloat16", "batch": LM_BATCH,
             "prompt": LM_PROMPT, "steps": LM_STEPS, "max_len": scfg.max_len,
             "init_s": init_s, "prefill_s": tr2["prefill_s"],
@@ -1545,7 +1823,9 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             "decode_tokens_per_s": decode_tokens / tr2["decode_s"],
             "first_run_prefill_s": tr["prefill_s"], "first_run_decode_s": tr["decode_s"],
             "plain_prefill_s": plain_prefill_s, "peak_mem_gb": peak / 1e9,
-            "launches": launches, "flash_attention_routes": routes["flash_attention"],
+            "f32_cast_s": cast_s, "f32_peak_mem_gb": peak32 / 1e9,
+            "launches": launches, "launch_plan": plan,
+            "flash_attention_routes": routes["flash_attention"],
             "flash_attention_routes_f32": routes32["flash_attention"],
             "ssd_scan_routes": routes["ssd_scan"], "ssd_scan_routes_f32": routes32["ssd_scan"],
             "two_runs_identical": True, "profile": prof,
@@ -1559,9 +1839,9 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict]:
             "greedy_agreement": [agree, toks.numel()], "first_tokens": toks[0, :8].tolist(),
             **moe}
         print(json.dumps({"lm_serve": {arch: numbers}}), flush=True)
-        del model, tr, tr2, runs, toks, toks2, plain, plain_u, kern32, plain32
+        del tr, tr2, runs, toks, toks2, plain, plain_u, kern32, plain32, extras, prompt
         torch.cuda.empty_cache()
-    return launches_by_kernel, captured, lm_routes
+    return launches_by_kernel, captured, lm_routes, at_shapes
 
 
 class FrozenSource:
@@ -3266,6 +3546,9 @@ def shape_timing(torch, ops, ref, args, floor_ms: float) -> dict:
 
 
 def main() -> int:
+    # Before torch touches the card: kimi-k2's float32 run fills it to within
+    # a few GB, where the caching allocator's split blocks would not fit.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3298,12 +3581,13 @@ def main() -> int:
 
     # -- LM: the serving path at full width and depth ----------------------
     t_lm = time.perf_counter()
-    lm_launches, captured, lm_routes = lm_phase(torch, dev, card.splitlines()[0])
-    lm_kernels = lm_kernel_entries(torch, ops, ref, fa, ssd, captured, lm_launches,
-                                   {"flash_attention": lm_routes["qwen3-8b"]["flash_attention"],
-                                    "ssd_scan": lm_routes["mamba2-1.3b"]["ssd_scan"]})
-    lm_kernels.append(moe_gather_entry(torch, ops, ref, captured, lm_launches))
+    lm_launches, captured, lm_routes, at_shapes = lm_phase(torch, dev, card.splitlines()[0])
+    lm_kernels = lm_kernel_entries(torch, ops, ref, fa, ssd, captured, lm_launches, lm_routes,
+                                   at_shapes)
+    lm_kernels.append(moe_gather_entry(torch, ops, ref, captured, lm_launches, at_shapes))
     del captured
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm_cli": lm_cli_runs(torch, ops)}), flush=True)
     print(json.dumps({"lm_kernel_sweep": lm_kernel_sweep(torch, ops, ref, fa, ssd, dev)}),
           flush=True)
     print(json.dumps({"moe_gather_sweep": moe_gather_sweep(torch, ops, ref, dev)}), flush=True)

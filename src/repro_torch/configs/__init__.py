@@ -1,7 +1,6 @@
 """Architecture registry: the port's copy of the reference's 10 model
-configurations (``repro/configs``), as data.  Only the dense GQA and
-Mamba-2 paths run in the port so far (``models/transformer.py`` raises
-for the others).
+configurations (``repro/configs``), as data; ``models/transformer.py``
+serves every one of them.
 """
 from __future__ import annotations
 

@@ -407,7 +407,7 @@ def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
     t, d = x.shape
     valid = (idx >= 0) & (idx < t)
     rows = x[idx.clamp(0, t - 1).long()]
-    rows = torch.where(valid[:, None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
+    rows.masked_fill_(~valid[:, None], 0)   # in place: one (S, d) buffer at a time
     if not quant:
         return rows, valid.to(torch.float32)
     v = rows.to(torch.float32)

@@ -1,6 +1,19 @@
-"""The port's serving entry point: the DDC modes of the reference package's
-``launch/serve.py``, on a CUDA card (``--device cpu`` for the CPU).
+"""The port's serving entry point: the three modes of the reference
+package's ``launch/serve.py``, on a CUDA card (``--device cpu`` for the
+CPU).
 
+* ``--mode lm`` (default) — the batched LM request loop: ``--requests``
+  prompts of ``--prompt-len`` tokens (and an encoder-decoder's frames or a
+  VLM's prefix), prefill and ``--gen`` decode steps through
+  ``serve/engine.py::greedy_generate``, any ``repro_torch.configs``
+  architecture (``--tiny`` for its small configuration).  Parameters,
+  prompts, frames and prefix are drawn from one ``torch.Generator`` on the
+  device seeded with ``--seed`` (the reference's ``jax.random`` draws
+  cannot be reproduced; ``params_from_jax`` carries them across), the
+  parameters in float32 as the reference's.  Greedy unless
+  ``--temperature`` > 0, which samples with the same generator.  One card:
+  ``--mesh-devices`` above 1 raises.  Prints one JSON line with the
+  reference's keys and the device.
 * ``--mode ddc`` — the streaming spatial-clustering service: ingest a
   synthetic layout shard by shard with an incremental delta-merge refresh
   after every batch, then serve point -> cluster queries.  Prints one JSON
@@ -21,9 +34,10 @@ request loop (DESIGN.md §12): N requests through the bounded
 republishing under them.  ``--fault-seed`` arms a seeded ``FaultPlan``
 (the chaos drill, DESIGN.md §11).
 
-``--mode lm`` (the LM request loop) is not ported yet (ROADMAP A10).
-
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --tiny \\
+      --requests 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode ddc --layout rings \\
       --shards 8 --queries 512
   PYTHONPATH=src python -m repro_torch.launch.serve --mode ddc --backend dist \\
@@ -35,19 +49,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 import time
 
 import numpy as np
 
-LM_NOT_PORTED = ("repro_torch.launch.serve: --mode lm is not ported yet: it needs "
-                 "parallel/api.ParallelCtx and seeded parameters (ROADMAP A10)")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "ddc", "track"), default="lm")
-    # LM mode (the reference's flags; not ported yet)
+    # LM mode
     ap.add_argument("--arch")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
@@ -95,7 +104,62 @@ def main(argv=None):
         return serve_ddc(args)
     if args.mode == "track":
         return serve_track(args)
-    sys.exit(LM_NOT_PORTED)
+    if not args.arch:
+        ap.error("--arch is required for --mode lm")
+    return serve_lm(args)
+
+
+def serve_lm(args, *, model=None, prompts=None, frames=None, prefix=None):
+    """The LM request loop (the reference's ``serve_lm``): one greedy
+    generation of ``args.gen`` tokens for ``args.requests`` prompts, timed,
+    printed as one JSON line; returns the tokens (requests, gen).  A
+    caller may hand over the model, prompts, frames or prefix (a parity
+    check with the reference's draws); what it leaves out is drawn from
+    the seeded generator, in the reference's order."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+
+    if args.mesh_devices > 1:
+        raise NotImplementedError(
+            f"--mesh-devices {args.mesh_devices}: serving across several cards is not "
+            "ported yet (ROADMAP A10 item 6); the port serves on one card")
+    cfg = configs.get_config(args.arch)
+    if args.tiny:
+        cfg = cfg.tiny()
+    dev = T._device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if model is None:
+        model = T.init_params(cfg, gen, device=dev)
+    scfg = engine.ServeConfig(max_len=args.prompt_len + args.gen + cfg.prefix_len)
+    if prompts is None:
+        prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len), generator=gen,
+                                device=dev)
+    kw = {}
+    if cfg.frontend == "audio_stub":
+        kw["frames"] = frames if frames is not None else torch.randn(
+            (args.requests, cfg.frontend_seq, cfg.d_model), generator=gen, device=dev) * 0.1
+    if cfg.prefix_len:
+        kw["prefix"] = prefix if prefix is not None else torch.randn(
+            (args.requests, cfg.prefix_len, cfg.d_model), generator=gen, device=dev) * 0.1
+
+    t0 = time.time()
+    out = engine.greedy_generate(
+        cfg, model, prompts, args.gen, scfg, temperature=args.temperature,
+        generator=gen if args.temperature > 0 else None, **kw)
+    dt = time.time() - t0
+    toks = args.requests * args.gen
+    print(json.dumps({
+        "requests": args.requests,
+        "generated_tokens": toks,
+        "wall_s": round(dt, 3),
+        "tok_per_s": round(toks / dt, 2),
+        "sample_output": out[0][:8].tolist(),
+        "device": str(dev),
+    }))
+    return out
 
 
 def serve_ddc(args):

@@ -4,9 +4,8 @@ port's copy of ``repro/models/config.py`` (plain Python, unchanged).
 One frozen dataclass parameterises the unified transformer stack
 (models/transformer.py): dense / GQA / MQA / MLA attention, qk-norm,
 MoE (+ shared experts), Mamba-2 SSD blocks and hybrid interleaves,
-encoder-decoder (whisper) and prefix-embedding VLM stubs.  The port runs
-the dense GQA/MQA and Mamba-2 kinds; the others are data until their
-slices land.
+encoder-decoder (whisper) and prefix-embedding VLM stubs; the port
+serves every kind.
 """
 from __future__ import annotations
 

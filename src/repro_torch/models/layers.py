@@ -1,6 +1,7 @@
 """Layers of the LM stack's serving path: the port of
 ``repro/models/layers.py`` for dense GQA/MQA attention (qk-norm, rope,
-windows), the MLP, the one-card MoE layer and the Mamba-2 (SSD) block.
+windows), multi-head latent attention (MLA), cross-attention, the MLP,
+the one-card MoE layer and the Mamba-2 (SSD) block.
 
 Parameters live in ``nn.Module``s whose leaves keep the reference's names
 (``wq``, ``k_norm``, ``w_in``, ``a_log``, ...); the math lives in plain
@@ -12,11 +13,13 @@ On the card, float32 matmuls must run in IEEE float32 (the callers keep
 TF32 off).  Prefill reaches the CUDA kernels through
 ``kernels.ops.flash_attention`` and ``kernels.ops.ssd_scan``; the MoE
 layer builds its expert buffer through ``kernels.ops.dispatch_gather``
-in prefill and decode alike.  Decode runs no other kernel (float32
-einsums and an elementwise recurrence, as in the reference).
+in prefill and decode alike, and cross-attention reaches the flash
+kernel in decode too (one query row against the encoder's keys).
+Decode runs no other kernel (float32 einsums and an elementwise
+recurrence, as in the reference; MLA's absorbed decode likewise).
 
-Not here yet: MLA, cross-attention, and the MoE layer's expert-parallel
-(``epsum``, ``a2a``) forms across cards (ROADMAP A10).
+Not here yet: the MoE layer's expert-parallel (``epsum``, ``a2a``) forms
+across cards (ROADMAP A10 item 6).
 """
 from __future__ import annotations
 
@@ -41,8 +44,10 @@ def _init(gen: torch.Generator | None, shape, scale=None, *, device=None,
         t = torch.empty(shape, device=device, dtype=dtype)
     else:
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-        t = (torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-             * scale).to(dtype)
+        # Scaled in place: one float32 draw at a time on the card (kimi-k2's
+        # stacked experts are 22.5 GB in float32).
+        t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        t = t.mul_(scale).to(dtype)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -236,6 +241,137 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     return o @ p.wo, cache
 
 
+def attn_init(cfg, gen=None, *, cross: bool = False, device=None, dtype=torch.float32):
+    """The attention module of a layer, as the reference's ``attn_init``:
+    ``MLA`` for an MLA configuration's self-attention, ``Attention``
+    otherwise (cross-attention included)."""
+    if cfg.attn_kind == "mla" and not cross:
+        return MLA(cfg, gen, device=device, dtype=dtype)
+    return Attention(cfg, gen, device=device, dtype=dtype)
+
+
+# --- Cross-attention (enc-dec: whisper) -------------------------------------
+
+
+def cross_kv(cfg, p: Attention, enc_out: torch.Tensor):
+    """Cross-attention K/V of the encoder output (once per sequence; the
+    cache keeps them for decode): (B, kv, Fs, hd) views of the products."""
+    k = _split_heads(enc_out @ p.wk, cfg.n_kv_heads)
+    v = _split_heads(enc_out @ p.wv, cfg.n_kv_heads)
+    return k, v
+
+
+def cross_apply(cfg, p: Attention, x: torch.Tensor, kv) -> torch.Tensor:
+    """Decoder cross-attention through the flash kernel: no mask, no rope.
+    In decode x holds one token, a query row against every encoder key."""
+    k, v = kv
+    q = _split_heads(x @ p.wq, cfg.n_heads)
+    o = ops.flash_attention(q, k, v, causal=False)
+    return _merge_heads(o) @ p.wo
+
+
+# --- MLA (multi-head latent attention, DeepSeek / MiniCPM3 style) ------------
+
+
+class MLA(nn.Module):
+    """The reference's ``mla_init`` leaves: ``w_dq`` (d, q_lora) and
+    ``q_norm`` when the query is low-rank, ``w_uq`` (q_lora or d, h·(nope +
+    rope)), ``w_dkv`` (d, kv_lora + rope), ``kv_norm``, ``w_uk`` (kv_lora,
+    h·nope), ``w_uv`` (kv_lora, h·v) and ``wo`` (h·v, d), scaled as
+    ``Attention``'s."""
+
+    def __init__(self, cfg, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        nope, rope_d, vd, qr = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head,
+                                cfg.q_lora_rank)
+        kw = dict(device=device, dtype=dtype)
+        if qr:
+            self.w_dq = _init(gen, (d, qr), **kw)
+            self.q_norm = _const((qr,), 1.0, **kw)
+        self.w_uq = _init(gen, (qr or d, h * (nope + rope_d)), **kw)
+        self.w_dkv = _init(gen, (d, cfg.kv_lora_rank + rope_d), **kw)
+        self.kv_norm = _const((cfg.kv_lora_rank,), 1.0, **kw)
+        self.w_uk = _init(gen, (cfg.kv_lora_rank, h * nope), **kw)
+        self.w_uv = _init(gen, (cfg.kv_lora_rank, h * vd), **kw)
+        self.wo = _init(gen, (h * vd, d), 1.0 / math.sqrt(h * vd), **kw)
+
+
+def _mla_q(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+    nope = cfg.qk_nope_dim
+    cq = x
+    if cfg.q_lora_rank:
+        cq = rmsnorm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
+    q = _split_heads(cq @ p.w_uq, cfg.n_heads)                   # (B,H,S,nope+rope)
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_ckv(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+    r = cfg.kv_lora_rank
+    dkv = x @ p.w_dkv                                            # (B,S,kv_lora+rope)
+    c_kv = rmsnorm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = rope(dkv[..., r:][:, None], positions, cfg.rope_theta)  # (B,1,S,rope)
+    return c_kv, k_rope
+
+
+def mla_apply(cfg, p: MLA, x: torch.Tensor, *, causal: bool = True, window=None,
+              positions: torch.Tensor | None = None, pad_v: bool = True):
+    """Full-sequence MLA through the flash kernel at the qk head dim
+    (nope + rope), scale 1/√(nope + rope).  With ``pad_v`` (the default,
+    as the reference) v is padded with zeros to the qk dim and the output
+    cut back to v's, so the kernel sees equal dims; without it the dims
+    differ, which only the plain route takes.  Returns (out, (c_kv,
+    k_rope)) so prefill can seed the latent cache."""
+    b, s, _ = x.shape
+    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
+    k_nope = _split_heads(c_kv @ p.w_uk, h)                      # (B,H,S,nope)
+    v = _split_heads(c_kv @ p.w_uv, h)                           # (B,H,S,vd)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(b, h, s, rope_d)], -1)
+    dq = nope + rope_d
+    scale = 1.0 / math.sqrt(dq)
+    if pad_v and vd < dq:
+        v = F.pad(v, (0, dq - vd))
+        o = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)[..., :vd]
+    else:
+        o = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    return _merge_heads(o) @ p.wo, (c_kv, k_rope)
+
+
+def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, pos: int):
+    """Absorbed MLA decode against the latent cache {"ckv": (B, S, kv_lora),
+    "kr": (B, S, rope)}, updated IN PLACE at slot ``pos`` (clamped to [0,
+    S − 1], as ``dynamic_update_slice_in_dim`` clamps it).  W_uk is
+    absorbed into the query and W_uv applied after the weighted sum, all
+    in float32 einsums, as the reference computes it."""
+    b = x.shape[0]
+    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
+    r = cfg.kv_lora_rank
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)                # (B,H,1,·)
+    c_new, kr_new = _mla_ckv(cfg, p, x, positions)               # (B,1,r) / (B,1,1,rope)
+    ckv, krope = cache["ckv"], cache["kr"]
+    s_max = ckv.shape[1]
+    slot = min(max(pos, 0), s_max - 1)
+    ckv[:, slot] = c_new[:, 0]
+    krope[:, slot] = kr_new[:, 0, 0]
+    q_lat = torch.einsum("bhqn,rhn->bhqr", q_nope.float(),
+                         p.w_uk.reshape(r, h, nope).float())     # (B,H,1,r)
+    logits = (torch.einsum("bhqr,bsr->bhqs", q_lat, ckv.float())
+              + torch.einsum("bhqd,bsd->bhqs", q_rope.float(), krope.float())) \
+        / math.sqrt(nope + rope_d)
+    mask = torch.arange(s_max, device=x.device) <= pos
+    wts = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bhqr", wts, ckv.float())    # (B,H,1,r)
+    o = torch.einsum("bhqr,rhv->bhqv", o_lat, p.w_uv.reshape(r, h, vd).float())
+    o = o.transpose(1, 2).reshape(b, 1, h * vd).to(x.dtype)
+    return o @ p.wo, cache
+
+
 # ---------------------------------------------------------------------------
 # MoE — one card (the reference's ``c.mesh is None`` route)
 # ---------------------------------------------------------------------------
@@ -329,20 +465,27 @@ def _moe_local(cfg, p: MoE, x_flat: torch.Tensor, capacity: int):
     probs = ex / ex.sum(dim=-1, keepdim=True)                   # jax.nn.softmax
     r = _route(probs, k, capacity)
 
+    # The same products as silu(xe·w1) * (xe·w3), then ·w2, with fewer
+    # buffers alive at once: the activation in place, xe released before
+    # the down projection, and ye written beside its empty last row.
     xe = ops.dispatch_gather(x_flat, r.idx, quant=False)[0].reshape(e, capacity, d)
-    h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
-    ye = torch.bmm(h, p.w2).reshape(e * capacity, d)
-    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    h = F.silu(torch.bmm(xe, p.w1), inplace=True)
+    h.mul_(torch.bmm(xe, p.w3))
+    del xe
+    ye = x_flat.new_empty((e * capacity + 1, d))
+    torch.bmm(h, p.w2, out=ye[:-1].view(e, capacity, d))
+    ye[-1] = 0
+    del h
 
-    gate_s = r.gates.reshape(-1)[r.order]
-    contrib = ye[r.slot] * (gate_s * r.keep).to(ye.dtype)[:, None]
+    gate_s = (r.gates.reshape(-1)[r.order] * r.keep).to(ye.dtype)
     # pos[j, i]: where token j's i-th contribution sits in the sorted list.
     inv = torch.empty_like(r.order).scatter_(
         0, r.order, torch.arange(t * k, device=x_flat.device))
     pos = inv.reshape(t, k).sort(dim=1).values
     y = torch.zeros((t, d), dtype=x_flat.dtype, device=x_flat.device)
     for i in range(k):
-        y = y + contrib[pos[:, i]]
+        c = pos[:, i]                   # one contribution a token at a time
+        y = y + ye[r.slot[c]] * gate_s[c][:, None]
 
     counts = torch.bincount(r.topi[:, 0], minlength=e).to(torch.float32)
     aux_parts = (counts, probs.sum(dim=0),

@@ -1,20 +1,23 @@
 """The LM stack's serving path: the port of ``repro/models/transformer.py``
-for decoder-only dense (GQA/MQA), MoE and Mamba-2 models, on one card.
+for every configuration kind of ``repro.configs`` on one card: decoder-only
+dense (GQA/MQA, MLA), MoE, Mamba-2 and hybrid models, the encoder-decoder
+(whisper: an encoder over stub frame embeddings, cross-attention in every
+decoder layer) and the VLM prefix (patch embeddings before the tokens).
 
 Layers are organised in *pattern groups* as in the reference:
 ``cfg.block_pattern`` repeats ``cfg.n_groups`` times.  The model is an
 ``nn.Module`` (``LM``) whose tree mirrors the reference's parameter
-pytree: ``embed``, ``final_norm``, ``lm_head`` (untied models), and
-``blocks[g]["l{i}"]`` for pattern position i of group g (the reference
-stacks each leaf over a leading group axis instead; ``params_from_jax``
-converts).  The cache keeps the reference's layout: ``cache["l{i}"]``
-holds each leaf stacked over groups.
+pytree: ``embed``, ``final_norm``, ``lm_head`` (untied models),
+``blocks[g]["l{i}"]`` for pattern position i of group g, and for an
+encoder-decoder ``encoder[e]`` and ``enc_final_norm`` (the reference
+stacks each leaf over a leading group or encoder-layer axis instead;
+``params_from_jax`` converts).  The cache keeps the reference's layout:
+``cache["l{i}"]`` holds each leaf stacked over groups.
 
 Entry points: ``init_params`` (seeded random weights, on the card unless
-``device="cpu"``), ``forward`` (the teacher-forced oracle), ``init_cache``,
-``prefill`` and ``decode_step``.  ``decode_step`` updates the cache in
-place.  MLA, encoder-decoder and prefix (VLM) configurations raise
-``NotImplementedError``: they are later slices of the port (ROADMAP A10).
+``device="cpu"``), ``forward`` (the teacher-forced oracle), ``encode``,
+``init_cache``, ``prefill`` and ``decode_step``.  ``decode_step`` updates
+the cache in place.
 """
 from __future__ import annotations
 
@@ -25,23 +28,6 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-# What each configuration kind this slice does not run waits for (ROADMAP A10).
-_NOT_YET = (
-    (lambda c: c.attn_kind == "mla", "MLA (mla_apply/mla_decode)", "A10 left item 2"),
-    (lambda c: c.encoder_layers > 0, "the encoder and cross-attention (whisper)",
-     "A10 left item 3"),
-    (lambda c: c.prefix_len > 0, "the VLM prefix", "A10 left item 4"),
-)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port's serving
-    path does not run yet, naming the ROADMAP item that will port it."""
-    for test, what, item in _NOT_YET:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP {item})")
-
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -49,37 +35,59 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 + mixer (Attention or Mamba), then norm2 + ffn when d_ff > 0
-    or the layer is MoE: an MoE layer's ffn is ``MoE``, another's ``MLP``."""
+    """norm1 + mixer (``layers.attn_init``'s module, or Mamba); with
+    ``cross`` (an encoder-decoder) norm_x + cross (an ``Attention``); then
+    norm2 + ffn when d_ff > 0 or the layer is MoE: an MoE layer's ffn is
+    ``MoE``, another's ``MLP``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, gen=None, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, cross: bool, gen=None, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = L.Norm(cfg, cfg.d_model, **kw)
-        self.mixer = L.Attention(cfg, gen, **kw) if kind == "attn" else L.Mamba(cfg, gen, **kw)
+        self.mixer = L.attn_init(cfg, gen, **kw) if kind == "attn" else L.Mamba(cfg, gen, **kw)
+        if cross:
+            self.norm_x = L.Norm(cfg, cfg.d_model, **kw)
+            self.cross = L.attn_init(cfg, gen, cross=True, **kw)
         if cfg.d_ff > 0 or is_moe:
             self.norm2 = L.Norm(cfg, cfg.d_model, **kw)
             self.ffn = (L.MoE(cfg, gen, **kw) if is_moe
                         else L.MLP(cfg, cfg.d_model, cfg.d_ff, gen, **kw))
 
 
+class EncoderBlock(nn.Module):
+    """An encoder layer: norm1 + mixer (non-causal attention), norm2 + ffn
+    (an MLP of d_ff)."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = L.Norm(cfg, cfg.d_model, **kw)
+        self.mixer = L.attn_init(cfg, gen, **kw)
+        self.norm2 = L.Norm(cfg, cfg.d_model, **kw)
+        self.ffn = L.MLP(cfg, cfg.d_model, cfg.d_ff, gen, **kw)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None, dtype=torch.float32):
         super().__init__()
-        check_supported(cfg)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         v, d = cfg.padded_vocab, cfg.d_model
+        cross = cfg.encoder_layers > 0
         self.embed = L._init(gen, (v, d), 0.02, **kw)
         self.final_norm = L.Norm(cfg, d, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = L._init(gen, (v, d), 0.02, **kw)
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({f"l{i}": Block(cfg, kind, is_moe, gen, **kw)
+            nn.ModuleDict({f"l{i}": Block(cfg, kind, is_moe, cross, gen, **kw)
                            for i, (kind, is_moe) in enumerate(cfg.layer_kinds())})
             for _ in range(cfg.n_groups))
+        if cross:
+            self.encoder = nn.ModuleList(EncoderBlock(cfg, gen, **kw)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = L.Norm(cfg, d, **kw)
 
     @property
     def head(self) -> torch.Tensor:
@@ -114,7 +122,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cud
 def params_from_jax(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     """The port's model holding the reference's parameter pytree ``tree``
     (numpy arrays: ``blocks`` stacked over groups on a leading axis, keyed
-    ``l{i}``), on ``device``, in the arrays' dtype (one numpy has)."""
+    ``l{i}``; ``encoder`` stacked over encoder layers), on ``device``, in
+    the arrays' dtype (one numpy has)."""
     dev = _device(device)
     dtype = torch.from_numpy(np.empty(0, np.asarray(tree["embed"]).dtype)).dtype
     model = LM(cfg, None, device=dev, dtype=dtype)
@@ -137,9 +146,9 @@ def params_from_jax(cfg: ModelConfig, tree, *, device="cuda") -> LM:
             put(prefix, arr[group] if group is not None else arr)
 
     for key, sub in tree.items():
-        if key == "blocks":
-            for g in range(cfg.n_groups):
-                walk(f"blocks.{g}", sub, g)
+        if key in ("blocks", "encoder"):
+            for g in range(cfg.n_groups if key == "blocks" else cfg.encoder_layers):
+                walk(f"{key}.{g}", sub, g)
         else:
             walk(key, sub, None)
     if loaded != expected:
@@ -174,37 +183,86 @@ def _ffn_apply(cfg, bp: Block, x):
     return x + y, aux
 
 
-def _block_apply(cfg, kind: str, bp: Block, x, positions, window):
+def _mixer_apply(cfg, kind: str, bp: Block, h, positions, window, return_state: bool = False):
+    """The block's mixer over the full sequence: (out, what prefill caches:
+    (k, v), (c_kv, k_rope) for MLA, or the Mamba cache, which is None
+    unless ``return_state``)."""
+    if kind != "attn":
+        return L.mamba_apply(cfg, bp.mixer, h, return_state=return_state)
+    if cfg.attn_kind == "mla":
+        return L.mla_apply(cfg, bp.mixer, h, positions=positions, window=window)
+    return L.attn_apply(cfg, bp.mixer, h, positions=positions, window=window)
+
+
+def _cross(cfg, bp: Block, x, enc_out):
+    """x + the block's cross-attention of norm_x(x) over ``enc_out``, and
+    the (k, v) it attended to."""
+    kv = L.cross_kv(cfg, bp.cross, enc_out)
+    return x + L.cross_apply(cfg, bp.cross, L.norm_apply(cfg, bp.norm_x, x), kv), kv
+
+
+def _block_apply(cfg, kind: str, bp: Block, x, positions, window, enc_out=None):
     """One block, full-sequence.  Returns (x, aux or None)."""
-    h = L.norm_apply(cfg, bp.norm1, x)
-    if kind == "attn":
-        o, _ = L.attn_apply(cfg, bp.mixer, h, positions=positions, window=window)
-    else:
-        o, _ = L.mamba_apply(cfg, bp.mixer, h)
+    o, _ = _mixer_apply(cfg, kind, bp, L.norm_apply(cfg, bp.norm1, x), positions, window)
     x = x + o
+    if enc_out is not None and hasattr(bp, "cross"):
+        x, _ = _cross(cfg, bp, x, enc_out)
     if hasattr(bp, "ffn"):
         return _ffn_apply(cfg, bp, x)
     return x, None
 
 
-def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, window="cfg"):
-    """Teacher-forced forward.  tokens: (B, S) int.  Returns (logits (B, S,
-    padded_vocab), aux): aux is the MoE layers' load-balance losses summed
-    over the layers in order (float32; 0 without MoE)."""
-    win = cfg.window if window == "cfg" else window
+def encode(cfg: ModelConfig, model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, Fs, d): sinusoid
+    positions, then each layer's non-causal attention and MLP, then
+    ``enc_final_norm``.  The frames are cast to the parameters' dtype (the
+    reference promotes a mix of dtypes instead; alike when they agree)."""
+    if not hasattr(model, "encoder"):
+        raise ValueError(f"{cfg.name} has no encoder: frames are for an encoder-decoder")
+    frames = frames.to(model.embed.dtype)
+    x = frames + L.sinusoid_pos(frames.shape[1], cfg.d_model,
+                                device=frames.device).to(frames.dtype)
+    for bp in model.encoder:
+        o, _ = L.attn_apply(cfg, bp.mixer, L.norm_apply(cfg, bp.norm1, x), causal=False)
+        x = x + o
+        x = x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+    return L.norm_apply(cfg, model.enc_final_norm, x)
+
+
+def _embed_inputs(cfg, model: LM, tokens, prefix):
+    """The token embeddings after the VLM ``prefix`` (B, P, d), if any (cast
+    to the embeddings' dtype), with sinusoid positions where the config has
+    them; and the prefix length P (0 without)."""
     x = embed_tokens(model.embed, tokens)
-    s = x.shape[1]
+    offset = 0
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        offset = prefix.shape[1]
     if cfg.pos_embed == "sinusoid":
-        x = x + L.sinusoid_pos(s, cfg.d_model, device=x.device).to(x.dtype)
-    positions = torch.arange(s, device=x.device)
+        x = x + L.sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+    return x, offset
+
+
+def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, frames=None,
+            window="cfg"):
+    """Teacher-forced forward.  tokens: (B, S) int; prefix: (B, P, d) VLM
+    patch embeddings before the tokens; frames: (B, Fs, d) the encoder's
+    stub input (encoder-decoder only).  Returns (logits (B, S,
+    padded_vocab), aux): the prefix's positions are cut off before the
+    head; aux is the MoE layers' load-balance losses summed over the
+    layers in order (float32; 0 without MoE)."""
+    win = cfg.window if window == "cfg" else window
+    x, offset = _embed_inputs(cfg, model, tokens, prefix)
+    positions = torch.arange(x.shape[1], device=x.device)
+    enc_out = encode(cfg, model, frames) if frames is not None else None
     kinds = cfg.layer_kinds()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in model.blocks:
         for i, (kind, _) in enumerate(kinds):
-            x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win)
+            x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win, enc_out)
             if a is not None:
                 aux = aux + a
-    x = L.norm_apply(cfg, model.final_norm, x)
+    x = L.norm_apply(cfg, model.final_norm, x)[:, offset:]
     logits = x @ model.head.T
     return logits, aux
 
@@ -220,27 +278,37 @@ def _cache_len(cfg, max_len: int, window) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
-               window="cfg", *, device="cuda") -> dict:
+               window="cfg", *, device="cuda", frontend_seq: int | None = None) -> dict:
     """Zeroed cache: ``cache["l{i}"]`` holds, stacked over groups, {"k",
-    "v"} (g, batch, kv, S, hd) for attention, {"conv"} (g, batch, K−1, C)
-    and {"ssm"} (g, batch, h, st, hd) for Mamba.  The SSM state is float32
-    whatever ``dtype``."""
-    check_supported(cfg)
+    "v"} (g, batch, kv, S, hd) for attention, {"ckv"} (g, batch, S,
+    kv_lora) and {"kr"} (g, batch, S, rope) for MLA, {"conv"} (g, batch,
+    K−1, C) and {"ssm"} (g, batch, h, st, hd) for Mamba, and for an
+    encoder-decoder {"xk", "xv"} (g, batch, kv, Fs, hd), the
+    cross-attention's keys and values over ``frontend_seq`` frames (the
+    config's by default).  The SSM state is float32 whatever ``dtype``."""
     dev = _device(device)
     g = cfg.n_groups
     s = _cache_len(cfg, max_len, window)
+    fs = frontend_seq or cfg.frontend_seq
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     cache: dict = {}
     for i, (kind, _) in enumerate(cfg.layer_kinds()):
-        if kind == "attn":
-            shape = (g, batch, cfg.n_kv_heads, s, cfg.head_dim)
-            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if kind == "attn" and cfg.attn_kind == "mla":
+            c = {"ckv": zeros(g, batch, s, cfg.kv_lora_rank),
+                 "kr": zeros(g, batch, s, cfg.qk_rope_dim)}
+        elif kind == "attn":
+            c = {"k": zeros(g, batch, cfg.n_kv_heads, s, cfg.head_dim),
+                 "v": zeros(g, batch, cfg.n_kv_heads, s, cfg.head_dim)}
         else:
-            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
-            c = {"conv": torch.zeros((g, batch, cfg.conv_kernel - 1, conv_dim), dtype=dtype,
-                                     device=dev),
-                 "ssm": torch.zeros((g, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                                    dtype=torch.float32, device=dev)}
+            c = {"conv": zeros(g, batch, cfg.conv_kernel - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                 "ssm": zeros(g, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                              dt=torch.float32)}
+        if cfg.encoder_layers:
+            c["xk"] = zeros(g, batch, cfg.n_kv_heads, fs, cfg.head_dim)
+            c["xv"] = zeros(g, batch, cfg.n_kv_heads, fs, cfg.head_dim)
         cache[f"l{i}"] = c
     return cache
 
@@ -260,11 +328,16 @@ def _fit(x: torch.Tensor, target_len: int, axis: int) -> torch.Tensor:
 def _block_decode(cfg, kind: str, bp: Block, x, cache_slice: dict, pos: int, window=None,
                   ring: bool = False):
     h = L.norm_apply(cfg, bp.norm1, x)
-    if kind == "attn":
+    if kind == "attn" and cfg.attn_kind == "mla":
+        o, _ = L.mla_decode(cfg, bp.mixer, h, cache_slice, pos)
+    elif kind == "attn":
         o, _ = L.attn_decode(cfg, bp.mixer, h, cache_slice, pos, window=window, ring=ring)
     else:
         o, _ = L.mamba_decode(cfg, bp.mixer, h, cache_slice, pos)
     x = x + o
+    if hasattr(bp, "cross"):
+        hx = L.norm_apply(cfg, bp.norm_x, x)
+        x = x + L.cross_apply(cfg, bp.cross, hx, (cache_slice["xk"], cache_slice["xv"]))
     if hasattr(bp, "ffn"):
         x, _ = _ffn_apply(cfg, bp, x)
     return x
@@ -273,15 +346,16 @@ def _block_decode(cfg, kind: str, bp: Block, x, cache_slice: dict, pos: int, win
 def decode_step(cfg: ModelConfig, model: LM, token: torch.Tensor, cache: dict, pos,
                 window="cfg"):
     """One decode step.  token: (B, 1) int; pos: the absolute position being
-    written (int or 0-d tensor).  Returns (logits (B, V), cache); the cache
-    is updated in place and returned."""
+    written (int or 0-d tensor; after a VLM prefix it counts the prefix).
+    Returns (logits (B, V), cache); the cache is updated in place and
+    returned."""
     pos = int(pos)
     kinds = cfg.layer_kinds()
     win = cfg.window if window == "cfg" else window
     # Ring-buffer mode: a windowed cache shorter than the position range.
     s_cache = None
     for i, (kind, _) in enumerate(kinds):
-        if kind == "attn":
+        if kind == "attn" and cfg.attn_kind != "mla":
             s_cache = cache[f"l{i}"]["k"].shape[3]
             break
     ring = win is not None and s_cache is not None and s_cache == win
@@ -301,41 +375,55 @@ def decode_step(cfg: ModelConfig, model: LM, token: torch.Tensor, cache: dict, p
     return logits, cache
 
 
-def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, max_len: int | None = None,
-            window="cfg"):
-    """Process the prompt, returning (last-token logits, cache, next_pos).
+def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, frames=None,
+            max_len: int | None = None, window="cfg"):
+    """Process the prompt (after the VLM ``prefix``, if any), returning
+    (last-token logits, cache, next_pos); next_pos counts the prefix.
 
-    Runs the full-sequence forward (the flash, SSD and MoE gather kernels on the card)
-    and writes K/V (or the conv tail and SSM state) into a fresh cache of
-    length ``max_len`` (defaults to the prompt length), each leaf cast to
-    the cache's dtype: the parameters' for K/V and conv, float32 for the
-    SSM state."""
+    Runs the full-sequence forward (the flash, SSD and MoE gather kernels
+    on the card; an encoder-decoder first encodes ``frames``, which it
+    needs) and writes K/V (the latent c_kv and k_rope for MLA, the conv
+    tail and SSM state for Mamba, and each layer's cross-attention K/V)
+    into a fresh cache of length ``max_len`` (defaults to the prompt's
+    token count, as in the reference), each leaf cast to the cache's
+    dtype: the parameters' for all but the float32 SSM state.  The cross
+    K/V leaves take the frames' length."""
     b, s = tokens.shape
     win = cfg.window if window == "cfg" else window
     max_len = max_len or s
+    if cfg.encoder_layers and frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's prefill needs frames")
     kinds = cfg.layer_kinds()
+    enc_out = encode(cfg, model, frames) if frames is not None else None
     cache = init_cache(cfg, b, max_len, dtype=model.embed.dtype, window=window,
-                       device=model.embed.device)
+                       device=model.embed.device,
+                       frontend_seq=enc_out.shape[1] if enc_out is not None else None)
     s_cache = _cache_len(cfg, max_len, window)
-    x = embed_tokens(model.embed, tokens)
-    if cfg.pos_embed == "sinusoid":
-        x = x + L.sinusoid_pos(s, cfg.d_model, device=x.device).to(x.dtype)
-    positions = torch.arange(s, device=x.device)
+    x, _ = _embed_inputs(cfg, model, tokens, prefix)
+    s_total = x.shape[1]
+    positions = torch.arange(s_total, device=x.device)
     for g, group in enumerate(model.blocks):
         for i, (kind, _) in enumerate(kinds):
             bp, c = group[f"l{i}"], cache[f"l{i}"]
-            h = L.norm_apply(cfg, bp.norm1, x)
-            if kind == "attn":
-                o, (k, v) = L.attn_apply(cfg, bp.mixer, h, positions=positions, window=win)
-                c["k"][g].copy_(_fit(k, s_cache, axis=2))
-                c["v"][g].copy_(_fit(v, s_cache, axis=2))
+            o, out = _mixer_apply(cfg, kind, bp, L.norm_apply(cfg, bp.norm1, x), positions,
+                                  win, return_state=True)
+            if kind != "attn":
+                c["conv"][g].copy_(out["conv"])
+                c["ssm"][g].copy_(out["ssm"])
+            elif cfg.attn_kind == "mla":
+                c["ckv"][g].copy_(_fit(out[0], s_cache, axis=1))
+                c["kr"][g].copy_(_fit(out[1][:, 0], s_cache, axis=1))
             else:
-                o, mc = L.mamba_apply(cfg, bp.mixer, h, return_state=True)
-                c["conv"][g].copy_(mc["conv"])
-                c["ssm"][g].copy_(mc["ssm"])
+                c["k"][g].copy_(_fit(out[0], s_cache, axis=2))
+                c["v"][g].copy_(_fit(out[1], s_cache, axis=2))
             x = x + o
+            del o, out      # not alive beside the ffn's buffers
+            if enc_out is not None and hasattr(bp, "cross"):
+                x, (xk, xv) = _cross(cfg, bp, x, enc_out)
+                c["xk"][g].copy_(xk)
+                c["xv"][g].copy_(xv)
             if hasattr(bp, "ffn"):
                 x, _ = _ffn_apply(cfg, bp, x)
     x = L.norm_apply(cfg, model.final_norm, x)
     logits = x[:, -1] @ model.head.T
-    return logits, cache, s
+    return logits, cache, s_total

@@ -28,8 +28,9 @@ class ServeConfig:
 
 
 def build_prefill(cfg: ModelConfig, scfg: ServeConfig):
-    def prefill_fn(model, tokens):
-        return T.prefill(cfg, model, tokens, max_len=scfg.max_len, window=scfg.window)
+    def prefill_fn(model, tokens, prefix=None, frames=None):
+        return T.prefill(cfg, model, tokens, prefix=prefix, frames=frames,
+                         max_len=scfg.max_len, window=scfg.window)
 
     return prefill_fn
 
@@ -47,12 +48,16 @@ def _sync(t: torch.Tensor) -> None:
 
 
 def greedy_generate(cfg: ModelConfig, model, prompt: torch.Tensor, steps: int,
-                    scfg: ServeConfig, temperature: float = 0.0,
+                    scfg: ServeConfig, prefix: torch.Tensor | None = None,
+                    frames: torch.Tensor | None = None, temperature: float = 0.0,
                     generator: torch.Generator | None = None,
                     trace: dict | None = None) -> torch.Tensor:
-    """Generation loop (host-driven): prefill the prompt (B, S), then
-    ``steps − 1`` decode steps.  Returns the ``steps`` sampled tokens (B,
-    steps).  Greedy unless ``temperature`` > 0 and a ``generator`` is given.
+    """Generation loop (host-driven): prefill the prompt (B, S) after the
+    VLM ``prefix`` (B, P, d), with an encoder-decoder's ``frames`` (B, Fs,
+    d), then ``steps − 1`` decode steps.  Returns the ``steps`` sampled
+    tokens (B, steps).  Greedy unless ``temperature`` > 0 and a
+    ``generator`` is given.  ``scfg.max_len`` must cover the prefix, the
+    prompt and the steps (the reference's caller adds ``prefix_len``).
 
     ``trace``, when given, receives each step's logits (``logits``, the
     prefill's first) and the host time of the prefill and of all decode
@@ -62,7 +67,7 @@ def greedy_generate(cfg: ModelConfig, model, prompt: torch.Tensor, steps: int,
     decode_fn = build_decode(cfg, scfg)
     _sync(prompt)
     t0 = time.perf_counter()
-    logits, cache, pos = prefill_fn(model, prompt)
+    logits, cache, pos = prefill_fn(model, prompt, prefix, frames)
     tok = _sample(logits, temperature, generator, cfg.vocab)
     _sync(prompt)
     t1 = time.perf_counter()

@@ -640,6 +640,14 @@ FLASH_CASES = [
     (1, 4, 4, 33, 70, 128, True, None, torch.bfloat16, "tc"),        # sq < 64
     (2, 8, 2, 1, 300, 128, True, None, torch.bfloat16, "tc"),        # one query, a cache
     (1, 4, 4, 1, 77, 64, True, None, torch.bfloat16, "tc"),
+    # MLA's qk dim of 96 (nope 64 + rope 32) stays on the CUDA cores in bf16
+    (2, 8, 8, 200, 200, 96, True, None, torch.bfloat16, "simt"),
+    (1, 4, 4, 130, 130, 96, True, None, torch.float32, "simt"),
+    # whisper at d 64: the encoder's 1,500 frames, cross-attention in prefill
+    # (2,048 queries against 1,500 keys) and in decode (one query), non-causal
+    (1, 4, 4, 1500, 1500, 64, False, None, torch.bfloat16, "tc"),
+    (1, 4, 4, 2048, 1500, 64, False, None, torch.bfloat16, "tc"),
+    (4, 12, 12, 1, 1500, 64, False, None, torch.bfloat16, "tc"),
 ]
 
 
@@ -698,6 +706,43 @@ def test_flash_attention_tensor_cores_strided_inputs(cuda, b, h, hkv, s, d, wind
     want = ref.flash_attention(q, k, v, causal=True, window=window)
     _bf16_one_ulp(got, want)
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=True, window=window))
+
+
+@pytest.mark.parametrize("sq", [2048, 1])
+def test_flash_attention_cross_kv_views(cuda, sq):
+    """Cross-attention reads ``layers.cross_kv``'s views of the encoder
+    output's projections (b, Fs, kv·hd seen as (b, kv, Fs, hd)) and a query
+    view of 2,048 rows (prefill) or one (decode), non-causal, on the
+    tensor cores."""
+    rng = np.random.default_rng(sq)
+    b, h, fs, d = 2, 12, 1500, 64
+    q = _randn(rng, (b, sq, h * d), cuda, torch.bfloat16).reshape(b, sq, h, d).transpose(1, 2)
+    k = _randn(rng, (b, fs, h * d), cuda, torch.bfloat16).reshape(b, fs, h, d).transpose(1, 2)
+    v = _randn(rng, (b, fs, h * d), cuda, torch.bfloat16).reshape(b, fs, h, d).transpose(1, 2)
+    before = flash_attention.route_launches["tc"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert flash_attention.route_launches["tc"] == before + 1
+    _bf16_one_ulp(got, ref.flash_attention(q, k, v, causal=False))
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_padded_v(cuda, dtype):
+    """``layers.mla_apply`` pads v from 64 to the qk dim of 96 with zeros
+    and cuts the output back: the kernel's first 64 columns equal exact
+    attention over the unpadded v at the same scale, 1/√96."""
+    rng = np.random.default_rng(96)
+    q = _randn(rng, (2, 8, 150, 96), cuda, dtype)
+    k = _randn(rng, (2, 8, 150, 96), cuda, dtype)
+    v = _randn(rng, (2, 8, 150, 64), cuda, dtype)
+    scale = 1.0 / 96 ** 0.5
+    got = ops.flash_attention(q, k, torch.nn.functional.pad(v, (0, 32)), scale=scale)
+    want = ref.flash_attention(q, k, v, scale=scale)
+    assert not got[..., 64:].any()
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got[..., :64].float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got[..., :64], want)
 
 
 def test_flash_attention_long_matches_chunked_route(cuda):
@@ -854,34 +899,50 @@ def test_ssd_scan_rejects_bad_inputs(cuda):
         ssd_scan.ssd_scan(xb[..., :64], a, bc, bc)
 
 
-# The kernels each tiny model launches per layer: once in prefill, and the
-# MoE gather in every decode step too.
-SERVING_KERNELS = {"qwen3-8b": ("flash_attention", None),
-                   "mamba2-1.3b": ("ssd_scan", None),
-                   "llama4-scout-17b-a16e": ("flash_attention", "dispatch_gather")}
+# The kernels each tiny model launches in one greedy generation of 6
+# tokens: attention and SSD once per layer in prefill (whisper's 2 encoder
+# layers and 2 cross-attentions too), whisper's cross-attention once per
+# decoder layer in each decode step, the MoE gather once per MoE layer in
+# prefill and each decode step; jamba runs all three LM kernels.
+SERVING_KERNELS = {
+    "qwen3-8b": {"flash_attention": 2},
+    "mamba2-1.3b": {"ssd_scan": 2},
+    "llama4-scout-17b-a16e": {"flash_attention": 2, "dispatch_gather": 12},
+    "minicpm3-4b": {"flash_attention": 2},
+    "whisper-small": {"flash_attention": 2 + 2 + 2 * 6},
+    "internvl2-26b": {"flash_attention": 2},
+    "kimi-k2-1t-a32b": {"flash_attention": 2, "dispatch_gather": 12},
+    "jamba-1.5-large-398b": {"flash_attention": 2, "ssd_scan": 14, "dispatch_gather": 12},
+}
 
 
 @pytest.mark.parametrize("arch", list(SERVING_KERNELS))
 def test_serving_path_card_equals_cpu(cuda, arch):
     """The tiny configuration's greedy generation on the card (kernels in
-    prefill, and the MoE gather in decode) against the CPU (plain
-    versions), float32: one prefill kernel launch per layer, one MoE
-    gather per MoE layer and step, logits within 1e-4 and the same
-    tokens."""
+    prefill, cross-attention and the MoE gather in decode too) against the
+    CPU (plain versions), float32, with its frames or prefix: the launches
+    of its plan, logits within 1e-4 and the same tokens."""
     cfg = configs.get_config(arch).tiny()
     model = T.init_params(cfg, 0, device="cpu")
-    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)))
-    scfg = engine.ServeConfig(max_len=48)
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)))
+    extras = {}
+    if cfg.encoder_layers:
+        extras["frames"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.frontend_seq, cfg.d_model)).astype(np.float32) * 0.1)
+    if cfg.prefix_len:
+        extras["prefix"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.prefix_len, cfg.d_model)).astype(np.float32) * 0.1)
+    scfg = engine.ServeConfig(max_len=48 + cfg.prefix_len)
     tr_cpu: dict = {}
-    want = engine.greedy_generate(cfg, model, prompt, 6, scfg, trace=tr_cpu)
+    want = engine.greedy_generate(cfg, model, prompt, 6, scfg, trace=tr_cpu, **extras)
     model_gpu = model.to(cuda)
     ops.reset_launch_counts()
     tr_gpu: dict = {}
-    got = engine.greedy_generate(cfg, model_gpu, prompt.to(cuda), 6, scfg, trace=tr_gpu)
+    got = engine.greedy_generate(cfg, model_gpu, prompt.to(cuda), 6, scfg, trace=tr_gpu,
+                                 **{k: v.to(cuda) for k, v in extras.items()})
     counts = ops.launch_counts()
-    name, every_step = SERVING_KERNELS[arch]
-    plan = {name: cfg.n_layers, **({every_step: cfg.n_layers * 6} if every_step else {})}
-    assert {k: n for k, n in counts.items() if n} == plan
+    assert {k: n for k, n in counts.items() if n} == SERVING_KERNELS[arch]
     for lg, lc in zip(tr_gpu["logits"], tr_cpu["logits"]):
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.cpu(), want)
@@ -903,6 +964,9 @@ GATHER_CASES = [
     (40, 24, 60, torch.float32, "strided"),
     (4, 5120, 16, torch.bfloat16, "rows"),          # llama4-scout's decode shape
     (8192, 5120, 10240, torch.bfloat16, "rows"),    # and its prefill shape
+    (4, 7168, 384, torch.bfloat16, "rows"),         # kimi-k2 (E 384, top-8): decode,
+    (8192, 7168, 82176, torch.bfloat16, "rows"),    # and prefill at capacity 214
+    (8192, 8192, 20480, torch.bfloat16, "rows"),    # jamba's prefill (E 16, top-2)
 ]
 
 

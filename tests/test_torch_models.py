@@ -1,14 +1,19 @@
 """The port's LM serving path (``repro_torch.models``, ``configs``,
 ``serve.engine``) against the reference package's, on the CPU, for the
-tiny configurations of the seven architectures the port runs: qwen3-8b
-(GQA, qk-norm), granite-20b (MQA, gelu MLP), deepseek-coder-33b (GQA),
-mamba2-1.3b (Mamba-2 SSD, tied embeddings), and the MoE models
-llama4-scout (top-1, shared expert), kimi-k2 (top-2 at tiny size, shared
-expert) and jamba-1.5-large (MoE on the attention layer of each 8-layer
-pattern, Mamba-2 elsewhere).  The tiny configurations route drop-free
-(capacity factor E), as the reference's tests need for decode == forward.  The reference's
+tiny configurations of all ten architectures: qwen3-8b (GQA, qk-norm),
+granite-20b (MQA, gelu MLP), deepseek-coder-33b (GQA), mamba2-1.3b
+(Mamba-2 SSD, tied embeddings), the MoE models llama4-scout (top-1,
+shared expert), kimi-k2 (top-2 at tiny size, shared expert) and
+jamba-1.5-large (MoE on the attention layer of each 8-layer pattern,
+Mamba-2 elsewhere), minicpm3-4b (MLA), whisper-small (encoder-decoder:
+frames through the encoder, cross-attention in every decoder layer) and
+internvl2-26b (a VLM prefix of patch embeddings before the tokens).  The
+tiny configurations route drop-free (capacity factor E), as the
+reference's tests need for decode == forward.  The reference's
 ``init_params(PRNGKey(0))`` is carried across with ``params_from_jax``;
-tokens are made with numpy.  Everything runs in float32.
+tokens, frames and prefixes are made with numpy.  Everything runs in
+float32.  ``tests/test_torch_models_mla_encdec.py`` holds the MLA,
+cross-attention, encoder and prefix pieces on their own.
 
 Tolerances, and why:
 - port against the reference, logits and caches: 1e-5 absolute and
@@ -41,9 +46,8 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 
 ARCHS = ["qwen3-8b", "granite-20b", "deepseek-coder-33b", "mamba2-1.3b",
-         "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"]
-NOT_PORTED = {"whisper-small": "A10 left item 3", "minicpm3-4b": "A10 left item 2",
-              "internvl2-26b": "A10 left item 4"}
+         "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+         "minicpm3-4b", "whisper-small", "internvl2-26b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 AUX_TOL = 1e-6  # the MoE aux loss: float32 sums of probabilities in another order
 SELF_TOL = 5e-4
@@ -64,6 +68,30 @@ def models():
 
 def _tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+
+
+def _extras(cfg, b, seed=0):
+    """The inputs beside the tokens a configuration serves with, as numpy:
+    an encoder-decoder's frames (b, frontend_seq, d) and a VLM's prefix (b,
+    prefix_len, d), each normal · 0.1 as the reference's
+    ``launch/serve.py`` draws them."""
+    rng = np.random.default_rng(seed + 100)
+    out = {}
+    if cfg.frontend == "audio_stub":
+        out["frames"] = (rng.normal(size=(b, cfg.frontend_seq, cfg.d_model)) * 0.1).astype(
+            np.float32)
+    if cfg.prefix_len:
+        out["prefix"] = (rng.normal(size=(b, cfg.prefix_len, cfg.d_model)) * 0.1).astype(
+            np.float32)
+    return out
+
+
+def _jx(extras):
+    return {k: jnp.asarray(v) for k, v in extras.items()}
+
+
+def _tx(extras):
+    return {k: torch.as_tensor(v) for k, v in extras.items()}
 
 
 def _close(got, want, **tol):
@@ -98,15 +126,6 @@ def test_config_and_param_counts_equal_the_reference(arch):
         tcfg.padded_vocab
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_configs_not_ported_yet_raise(arch):
-    cfg = tconfigs.get_config(arch).tiny()
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        TT.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        TT.init_cache(cfg, 1, 8, device="cpu")
-
-
 # -- parameters ------------------------------------------------------------------
 
 
@@ -116,10 +135,10 @@ def _jax_leaves(cfg, params):
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
         keys = [p.key for p in path]
-        if keys[0] == "blocks":
-            for g in range(cfg.n_groups):
-                out[".".join(["blocks", str(g)] + keys[1:])] = (tuple(leaf.shape[1:]),
-                                                                 str(leaf.dtype))
+        if keys[0] in ("blocks", "encoder"):
+            for g in range(cfg.n_groups if keys[0] == "blocks" else cfg.encoder_layers):
+                out[".".join([keys[0], str(g)] + keys[1:])] = (tuple(leaf.shape[1:]),
+                                                                str(leaf.dtype))
         else:
             out[".".join(keys)] = (tuple(leaf.shape), str(leaf.dtype))
     return out
@@ -147,7 +166,7 @@ def test_init_params_scales_and_seed(arch):
     assert not torch.equal(m.embed, TT.init_params(cfg, 4, device="cpu").embed)
     assert abs(float(m.embed.std()) - 0.02) < 0.002
     mixer = m.blocks[0]["l0"].mixer
-    w = mixer.wq if hasattr(mixer, "wq") else mixer.w_in
+    w = next(getattr(mixer, n) for n in ("wq", "w_dq", "w_in") if hasattr(mixer, n))
     assert abs(float(w.std()) * np.sqrt(w.shape[0]) - 1.0) < 0.1
     assert torch.equal(m.final_norm.w, torch.ones_like(m.final_norm.w))
 
@@ -177,9 +196,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_forward_equals_the_reference(models, arch):
     """Logits, and the aux loss summed over the MoE layers (0 without)."""
     jcfg, tcfg, params, model = models[arch]
-    toks = _tokens(jcfg, 2, 16)
-    want, want_aux = JT.forward(jcfg, params, jnp.asarray(toks))
-    got, aux = TT.forward(tcfg, model, torch.as_tensor(toks))
+    toks, extras = _tokens(jcfg, 2, 16), _extras(jcfg, 2)
+    want, want_aux = JT.forward(jcfg, params, jnp.asarray(toks), **_jx(extras))
+    got, aux = TT.forward(tcfg, model, torch.as_tensor(toks), **_tx(extras))
     assert got.shape == (2, 16, tcfg.padded_vocab) and aux.dtype == torch.float32
     assert abs(float(aux) - float(want_aux)) <= AUX_TOL
     assert (float(aux) == 0.0) == (tcfg.n_experts == 0)
@@ -191,10 +210,13 @@ def test_prefill_and_decode_equal_the_reference(models, arch):
     """Prefill's last-token logits and every cache leaf (values and dtypes),
     then each decode step's logits and the updated cache."""
     jcfg, tcfg, params, model = models[arch]
-    toks = _tokens(jcfg, 2, 12, seed=1)
-    jl, jcache, jpos = JT.prefill(jcfg, params, jnp.asarray(toks[:, :6]), max_len=12)
-    tl, tcache, tpos = TT.prefill(tcfg, model, torch.as_tensor(toks[:, :6]), max_len=12)
-    assert tpos == int(jpos) == 6
+    toks, extras = _tokens(jcfg, 2, 12, seed=1), _extras(jcfg, 2, seed=1)
+    max_len = 12 + jcfg.prefix_len
+    jl, jcache, jpos = JT.prefill(jcfg, params, jnp.asarray(toks[:, :6]), max_len=max_len,
+                                  **_jx(extras))
+    tl, tcache, tpos = TT.prefill(tcfg, model, torch.as_tensor(toks[:, :6]), max_len=max_len,
+                                  **_tx(extras))
+    assert tpos == int(jpos) == 6 + jcfg.prefix_len
     _close(tl, jl)
     assert tcache.keys() == jcache.keys()
     for key in jcache:
@@ -217,12 +239,15 @@ def test_prefill_and_decode_equal_the_reference(models, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_equals_the_reference(models, arch):
     jcfg, tcfg, params, model = models[arch]
-    prompt = _tokens(jcfg, 2, 10, seed=2)
+    prompt, extras = _tokens(jcfg, 2, 10, seed=2), _extras(jcfg, 2, seed=2)
+    max_len = 18 + jcfg.prefix_len
     want = jengine.greedy_generate(jcfg, params, jnp.asarray(prompt), 8,
-                                   jengine.ServeConfig(max_len=18), jpar.ParallelCtx())
+                                   jengine.ServeConfig(max_len=max_len), jpar.ParallelCtx(),
+                                   **_jx(extras))
     trace: dict = {}
     got = tengine.greedy_generate(tcfg, model, torch.as_tensor(prompt), 8,
-                                  tengine.ServeConfig(max_len=18), trace=trace)
+                                  tengine.ServeConfig(max_len=max_len), trace=trace,
+                                  **_tx(extras))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert len(trace["logits"]) == 8 and trace["prefill_s"] >= 0 and trace["decode_s"] >= 0
 
@@ -235,9 +260,9 @@ def test_decode_matches_forward(models, arch):
     """prefill + decode_step reproduce the teacher-forced logits
     (tests/test_models.py::test_decode_matches_forward)."""
     _, cfg, _, model = models[arch]
-    toks = torch.as_tensor(_tokens(cfg, 2, 12, seed=3))
-    logits_tf, _ = TT.forward(cfg, model, toks)
-    lg, cache, pos = TT.prefill(cfg, model, toks[:, :6], max_len=12)
+    toks, extras = torch.as_tensor(_tokens(cfg, 2, 12, seed=3)), _tx(_extras(cfg, 2, seed=3))
+    logits_tf, _ = TT.forward(cfg, model, toks, **extras)
+    lg, cache, pos = TT.prefill(cfg, model, toks[:, :6], max_len=12 + cfg.prefix_len, **extras)
     errs = [float((lg - logits_tf[:, 5]).abs().max())]
     for t in range(6, 11):
         lg, cache = TT.decode_step(cfg, model, toks[:, t:t + 1], cache, pos)
