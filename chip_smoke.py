@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them:
-DDC's pipeline and the LM stack's serving path.
+DDC's pipeline and the LM stack's serving and training paths.
 
     python3 chip_smoke.py
 
@@ -66,6 +66,39 @@ LM. The serving path at full width (``LM_ARCHS``): qwen3-8b (36 layers,
    Then ``python -m repro_torch.launch.serve --mode lm`` (``lm_cli`` line):
    every architecture's tiny configuration in this process, its launches
    equal to its plan, and whisper-small at full width as its own process.
+LM training (``lm_train`` lines, ``TRAIN_ARCHS``): qwen3-8b (8 of 36
+   layers, AdamW), mamba2-1.3b (48 layers, AdamW) and llama4-scout (1 of 48
+   layers, Adafactor) at full width, float32 parameters, batches of 2 ×
+   2,048 tokens from ``data/pipeline.py`` at seed 0, the reference's
+   optimizer defaults.  Each trains 3 steps from the seed through
+   ``train/step.py::build_train_step`` with the kernels (B7, B8 and B9
+   forward inside ``torch.autograd.Function``s whose backward is the plain
+   version's VJP; launches equal to one forward's plan a step, all on the
+   CUDA cores in float32) and 3 with ``ops.FORCE = "ref"`` (remat "full",
+   which changes no value): each step's loss within ``LM_F32_TOL``, gnorm
+   within ``TRAIN_GNORM_RTOL``, every parameter tensor after the last step
+   within ``TRAIN_PARAM_RTOL`` relative in norm.  One step with bf16
+   parameters runs the tensor-core routes inside training: at the seed's
+   parameters the RMS distance of every token's NLL and of every gradient
+   entry from the float32 plain run's must be at most ``LM_BF16_NOISE`` ×
+   the plain bf16 run's (the mean loss's distance, an average of ± token
+   errors, is reported: on an H100 80GB HBM3 at 700 W it was 5.6e-4 against
+   the plain run's 1.4e-4 for qwen3-8b while the gradient RMS agreed within
+   0.1 %).  One
+   more step is profiled (the card's activity only): device ms of the
+   forward kernels and of the GEMMs, the busy share, and the span of the
+   plain recompute by CUDA events.  The checkpoint check
+   (``lm_train_checkpoint`` line): mamba2-1.3b at full width cut to
+   ``TRAIN_CKPT_LAYERS``, trained under deterministic algorithms and saved
+   after step 2 by a ``CheckpointManager``; restored into a fresh state,
+   step 3 must equal the uninterrupted step 3 bit for bit (within
+   ``TRAIN_CKPT_RTOL`` if an op refuses deterministic mode, named in the
+   line).  Then
+   ``python -m repro_torch.launch.train --arch qwen3-8b --tiny`` in this
+   process (10 steps with checkpoints, ``--resume`` to 20, equal to an
+   uninterrupted run) and ``examples/train_lm_torch.py --steps 20``
+   (``lm_train_cli`` line).  The kernels line's B7, B8 and B9
+   entries carry the training launches a step (``train_launches_per_step``).
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
    ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
@@ -276,6 +309,7 @@ import io
 import json
 import math
 import os
+import runpy
 import statistics
 import subprocess
 import sys
@@ -451,6 +485,55 @@ LM_MAIN_CAPTURE = {"flash_attention": "qwen3-8b prefill", "ssd_scan": "mamba2-1.
 LM_LAYERS = {"llama4-scout-17b-a16e": 4, "internvl2-26b": 24, "kimi-k2-1t-a32b": 1,
              "jamba-1.5-large-398b": 8}
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
+# The training phase (lm_train): each model trained TRAIN_STEPS steps from
+# the seed with the kernels and again with the plain versions (ops.FORCE =
+# "ref"), float32 parameters, the reference's optimizer defaults, batches of
+# TRAIN_BATCH × TRAIN_SEQ tokens from data/pipeline.py at seed 0, TF32 off;
+# then one step with bf16 parameters.  Depth cuts by one card's 80 GB
+# (ModelConfig.param_counts(), 1e9 bytes; the card holds about 85):
+# - qwen3-8b, AdamW: float32 params + grads + m + v are 16 B a parameter; 8
+#   of its 36 layers and the untied embedding and head are 2.79 B params,
+#   44.6 GB, beside the activations of 2 × 2,048 tokens (about 1.6 GB a
+#   layer) and the 2.5 GB float32 logits with their log-softmax and
+#   gradient.
+# - mamba2-1.3b, AdamW, all 48 layers: 1.34 B params, 21.5 GB of float32
+#   state, beside about 0.9 GB of activations a layer.
+# - llama4-scout, Adafactor, 1 of its 48 layers: every layer is MoE (16
+#   experts top-1 and a shared one); one layer is 2.20 B params and the
+#   embedding and head add 2.07 B.  AdamW's 16 B a parameter would need 68
+#   GB before any activation; Adafactor keeps float32 params and grads and a
+#   factored second moment, 34 GB in all (the reference's optimizer calls
+#   it the memory answer for such configurations).  It runs the MoE aux
+#   loss, B9's VJP and Adafactor.
+# The plain runs checkpoint each block group (remat "full", which changes
+# no value: tests/test_torch_models_grad.py holds it bit for bit): the
+# plain chunked attention and SSD keep every chunk's intermediates for the
+# backward pass (about 2.1 GB a qwen3-8b layer, 0.7 GB a mamba2 layer),
+# which these depths leave no room for.  The kernel runs keep remat "none".
+TRAIN_ARCHS = {"qwen3-8b": ("adamw", 8), "mamba2-1.3b": ("adamw", None),
+               "llama4-scout-17b-a16e": ("adafactor", 1)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+# The checkpoint-resume check: mamba2-1.3b (the smallest state) at full
+# width, cut to 4 of its 48 layers: 0.21 B params, 2.5 GB of float32
+# params, m and v written and read back (on an H100 80GB HBM3 at 700 W, its
+# full depth's 16.1 GB took 50–64 s to snapshot, write and restore, and 8
+# layers' 3.7 GB 16 s).
+TRAIN_CKPT_ARCH, TRAIN_CKPT_LAYERS = "mamba2-1.3b", 4
+TRAIN_CKPT_RTOL = 1e-6  # where an op refuses deterministic algorithms
+# Kernel run against plain run: each step's loss within LM_F32_TOL, gnorm
+# within TRAIN_GNORM_RTOL relative, and after the last step each parameter
+# tensor within TRAIN_PARAM_RTOL relative in norm (‖kernel − plain‖ ≤
+# TRAIN_PARAM_RTOL · ‖plain‖).  The largest entry's relative error is
+# reported, not gated: mamba2-1.3b's zero-initialised a_log and dt_bias are a
+# few learning-rate steps from 0, where AdamW's normalisation magnifies the
+# float32 noise of gradients near zero (on an H100 80GB HBM3: 1.4e-3 of the
+# largest entry, 1.15e-8 absolute, 2.9e-4 in norm).
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_PARAM_RTOL = 5e-4
+# The port's forward kernels by op, as the profiler names them.
+TRAIN_KERNELS = {"flash_attention": ("flash_fwd_kernel", "flash_tc_kernel"),
+                 "ssd_scan": ("ssd_scan_kernel", "ssd_tc_kernel"),
+                 "dispatch_gather": ("gather_copy_kernel",)}
 LONG_PREFILL = 32_768  # prefill_32k's sequence length
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 # The kernel run against the plain run of the same path, per step's logits
@@ -1842,6 +1925,558 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict, dict]:
         del tr, tr2, runs, toks, toks2, plain, plain_u, kern32, plain32, extras, prompt
         torch.cuda.empty_cache()
     return launches_by_kernel, captured, lm_routes, at_shapes
+
+
+def flat_named(tree) -> list[tuple[str, object]]:
+    """(name, tensor) of a tree (``models/tree.py``) in flatten order, each
+    ``Stack`` opened into its groups' tensors (``path[g]``)."""
+    from repro_torch.models.tree import Stack, flatten
+
+    out = []
+    for path, leaf in flatten(tree):
+        name = "/".join(path)
+        if isinstance(leaf, Stack):
+            out.extend((f"{name}[{g}]", t) for g, t in enumerate(leaf))
+        else:
+            out.append((name, leaf))
+    return out
+
+
+def flat_tensors(tree) -> list:
+    return [t for _, t in flat_named(tree)]
+
+
+def host_copies(ckpt_mod, tensors) -> list:
+    """Host copies (array, dtype name) of card tensors, through one pinned
+    staging buffer (``checkpoint.Stager``)."""
+    stager = ckpt_mod.Stager()
+    return [(stager.to_host(t), str(t.dtype).removeprefix("torch.")) for t in tensors]
+
+
+def device_copies(ckpt_mod, items, dev):
+    """The card tensors of ``host_copies``' items, one at a time."""
+    stager = ckpt_mod.Stager()
+    for arr, dtype in items:
+        yield stager.to_device(arr, dtype, dev)
+
+
+def train_batches(torch, cfg, dev) -> list[dict]:
+    """The TRAIN_STEPS batches of TRAIN_BATCH × TRAIN_SEQ tokens the runs
+    train on: ``data/pipeline.py``'s batches 0, 1, ... at seed 0, on the card."""
+    from repro_torch.data import pipeline
+
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               seed=0, frontend=cfg.frontend, frontend_seq=cfg.frontend_seq,
+                               prefix_len=cfg.prefix_len, d_model=cfg.d_model)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in pipeline.batch_at(dcfg, i).items()}
+            for i in range(TRAIN_STEPS)]
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` while
+    active; yields a function that lists the ops that refused it so far
+    (the first line of each such warning)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield lambda: sorted({str(w.message).splitlines()[0][:160] for w in caught
+                                  if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_profile(torch, ops, fn, wall_s: float) -> dict:
+    """One train step ``fn`` under torch.profiler (the card's activity
+    only: recording every host op of mamba2-1.3b's step as well took 87 s
+    on an H100 80GB HBM3's host): device ms by kernel (the top 8), of the
+    port's forward kernels (TRAIN_KERNELS' names) and of the GEMMs, and the
+    busy share of ``wall_s`` (the unprofiled step's time).  The plain versions' recompute
+    in the backward pass is timed by CUDA events around each
+    ``ops._plain_vjp`` call (its span on the card, idle gaps inside it
+    included), as a share of ``wall_s``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans, orig = [], ops._plain_vjp
+
+    def timed(name, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(name, *args, **kw)
+        end.record()
+        spans.append((name, start, end))
+        return out
+
+    ops._plain_vjp = timed
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        ops._plain_vjp = orig
+    vjp: dict = {}
+    for name, start, end in spans:
+        ms, n = vjp.get(name, (0.0, 0))
+        vjp[name] = (ms + start.elapsed_time(end), n + 1)
+    vjp_ms = sum(ms for ms, _ in vjp.values())
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, count = rows.get(_short(e.key), (0.0, 0))
+        rows[_short(e.key)] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    out = {"wall_s": wall_s, "plain_vjp_ms": {op: ms for op, (ms, _) in vjp.items()},
+           "plain_vjp_calls": {op: n for op, (_, n) in vjp.items()},
+           "plain_vjp_share": vjp_ms / 1e3 / wall_s}
+    if not rows:
+        return {**out, "device_ms": "not measured"}
+    device_ms = sum(ms for ms, _ in rows.values())
+    gemm_ms = sum(ms for k, (ms, _) in rows.items()
+                  if any(w in k.lower() for w in ("gemm", "xmma", "cutlass", "cublas")))
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+    return {**out, "device_ms": device_ms, "busy_share": device_ms / 1e3 / wall_s,
+            "device_calls": sum(c for _, c in rows.values()),
+            "forward_kernels_ms": {op: sum(rows.get(k, (0.0, 0))[0] for k in names)
+                                   for op, names in TRAIN_KERNELS.items()},
+            "gemm_ms": gemm_ms, "gemm_share": gemm_ms / device_ms,
+            "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in ranked]}
+
+
+def train_steps(torch, ops, step_mod, par, cfg, tcfg, batches, dev, *, plain: bool,
+                on_step=None):
+    """TRAIN_STEPS steps of ``build_train_step`` from the seed, with the
+    kernels or (``plain``) the plain versions, which launch no kernel and
+    checkpoint each block group (remat "full": see TRAIN_ARCHS).  Returns
+    (state, per-step metrics, launches, launches by route, peak bytes).
+    ``on_step(i, state)`` runs after step i, and with i = −1 before the
+    first step."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    step_fn = step_mod.build_train_step(cfg, tcfg, par.ParallelCtx(
+        remat="full" if plain else "none"))
+    state = step_mod.make_train_state(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    ops.FORCE = "ref" if plain else None
+    steps = []
+    try:
+        if on_step is not None:
+            on_step(-1, state)
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                          "gnorm": float(m["gnorm"]), "lr": float(m["lr"])})
+            if on_step is not None:
+                on_step(i, state)
+    finally:
+        ops.FORCE = None
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    if plain and launches:
+        raise RuntimeError(f"{cfg.name}: the plain training run launched {launches}")
+    return state, steps, launches, route_counts(fa, ssd), torch.cuda.max_memory_allocated(dev)
+
+
+@contextlib.contextmanager
+def step_grads(step_mod, keep):
+    """While active, the gradients the next train step hands the optimizer
+    (``step_mod.opt_mod.apply_updates``) are passed, in flatten order, to
+    ``keep``, once."""
+    orig, done = step_mod.opt_mod.apply_updates, []
+
+    def apply_updates(cfg, grads, *args, **kw):
+        if not done:
+            done.append(True)
+            keep(flat_tensors(grads))
+        return orig(cfg, grads, *args, **kw)
+
+    step_mod.opt_mod.apply_updates = apply_updates
+    try:
+        yield
+    finally:
+        step_mod.opt_mod.apply_updates = orig
+
+
+def plain_grads(torch, ops, step_mod, par, cfg, tcfg, model, batch):
+    """(loss, gradients in flatten order) of ``batch`` at ``model``'s
+    parameters, on the plain versions (remat "full")."""
+    ops.FORCE = "ref"
+    try:
+        with par.use(par.ParallelCtx(remat="full")):
+            loss, grads = step_mod._loss_and_grads(cfg, tcfg, model, batch)
+    finally:
+        ops.FORCE = None
+    return float(loss), flat_tensors(grads)
+
+
+def token_nll(torch, T, cfg, model, batch):
+    """Each next token's NLL (B, S − 1), float32, as ``loss_fn`` takes their
+    mean (without the MoE aux term), under ``torch.no_grad``."""
+    with torch.no_grad():
+        logits, _ = T.forward(cfg, model, batch["tokens"], prefix=batch.get("prefix"),
+                              frames=batch.get("frames"))
+        logits = logits.float()
+        if cfg.padded_vocab != cfg.vocab:
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+            logits = torch.where(pad, -1e30, logits)
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        return -lp.gather(-1, batch["tokens"][:, 1:].long()[..., None])[..., 0]
+
+
+def rms_dist(torch, a, b) -> float:
+    return float((a.double() - b.double()).pow(2).mean().sqrt())
+
+
+def grad_rms(torch, ckpt_mod, grads: list, ref_host: list) -> float:
+    """RMS over every element of (gradient − the reference's, in float32);
+    the reference as ``host_copies``' items."""
+    total, n = 0.0, 0
+    for g, r in zip(grads, device_copies(ckpt_mod, ref_host, grads[0].device)):
+        d = g.float() - r
+        total += float(torch.sum(d * d, dtype=torch.float64))
+        n += d.numel()
+    return math.sqrt(total / n)
+
+
+def leaf_errs(torch, ckpt_mod, named: list, want_host: list) -> list[dict]:
+    """Each tensor of ``named`` ((name, card tensor)) against its host copy
+    (``host_copies``' item): max |got − want| / max |got|, and the relative
+    norm ‖got − want‖ / ‖got‖; bit-identical or not."""
+    out = []
+    for (name, g), w in zip(named, device_copies(ckpt_mod, want_host, named[0][1].device)):
+        g = g.detach()
+        exact = bool(torch.equal(g, w))
+        g, w = g.double(), w.double()
+        scale, norm = float(g.abs().max()), float(g.norm())
+        d = g - w
+        err, dnorm = float(d.abs().max()), float(d.norm())
+        out.append({"name": name, "exact": exact, "max_abs": scale, "max_abs_err": err,
+                    "rel_max": err / scale if scale else err,
+                    "rel_norm": dnorm / norm if norm else dnorm})
+        del g, w, d
+    return out
+
+
+def train_model(torch, dev, card: str, arch: str, opt_name: str, layers) -> dict:
+    """One model of TRAIN_ARCHS at full width (module docstring): the
+    kernel run, a profiled step, the plain run, the bf16 step.  Returns its
+    line, whose ``failures`` lists the gates it failed (a wrong launch
+    count or route raises)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    published = configs.get_config(arch)
+    cfg = dataclasses.replace(published, n_layers=layers or published.n_layers)
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(name=opt_name))
+    batches = train_batches(torch, cfg, dev)
+    plan = {k: n for k, n in lm_launch_plan(cfg, 1).items() if n}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    t_phase = time.perf_counter()
+    sections, t_mark, failures = {}, [t_phase], []
+
+    def mark(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sections[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    state, steps, launches, routes, peak = train_steps(
+        torch, ops, step_mod, par, cfg, tcfg, batches, dev, plain=False)
+    want = {k: n * TRAIN_STEPS for k, n in plan.items()}
+    want_routes = {k: {"tc": 0, "simt": want.get(k, 0)} for k in routes}
+    log(f"{arch} train: {steps}, launches {launches}, routes {routes}, peak {peak / 1e9} GB")
+    if launches != want or routes != want_routes:
+        raise RuntimeError(f"{arch}: the kernel run launched {launches} by route {routes}; "
+                           f"expected {want} on the CUDA cores (float32)")
+    mark("kernel_run")
+    final = host_copies(ckpt_mod, flat_tensors(state.params))
+    n_params = sum(a.size for a, _ in final)
+    mark("host_copy")
+
+    # One more step under the profiler, against the kernel run's median
+    # unprofiled step time.
+    step_fn = step_mod.build_train_step(cfg, tcfg, par.ParallelCtx())
+    prof = train_profile(torch, ops, lambda: step_fn(state, batches[0]),
+                         statistics.median(x["s"] for x in steps[1:]))
+    log(f"{arch} profiled step: {prof}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    mark("profile")
+
+    # The plain run; its first step's gradient and each token's NLL at the
+    # seed's parameters are the bf16 gate's float32 reference.
+    ref32 = {}
+
+    def at_init(i, state):
+        if i == -1:
+            ref32["nll"] = token_nll(torch, T, cfg, state.params, batches[0])
+
+    with step_grads(step_mod, lambda g: ref32.setdefault("grads", host_copies(ckpt_mod, g))):
+        pstate, psteps, _, _, ppeak = train_steps(torch, ops, step_mod, par, cfg, tcfg, batches,
+                                                  dev, plain=True, on_step=at_init)
+    loss32, grads32, nll32 = psteps[0]["loss"], ref32["grads"], ref32["nll"]
+    loss_errs = [abs(a["loss"] - b["loss"]) for a, b in zip(steps, psteps)]
+    gnorm_errs = [abs(a["gnorm"] - b["gnorm"]) / b["gnorm"] for a, b in zip(steps, psteps)]
+    param_errs = leaf_errs(torch, ckpt_mod, flat_named(pstate.params), final)
+    worst = sorted(param_errs, key=lambda e: -e["rel_norm"])[:4]
+    log(f"{arch} plain: {psteps}; loss errs {loss_errs}, gnorm rel {gnorm_errs}, params "
+        f"worst {worst}")
+    rtol, atol = LM_F32_TOL
+    if not all(e <= atol + rtol * abs(b["loss"]) for e, b in zip(loss_errs, psteps)):
+        failures.append(f"training losses differ beyond {LM_F32_TOL}: {loss_errs}")
+    if not max(gnorm_errs) <= TRAIN_GNORM_RTOL:
+        failures.append(f"gnorm differs by {gnorm_errs} relative")
+    if not worst[0]["rel_norm"] <= TRAIN_PARAM_RTOL:
+        failures.append(f"parameters differ from the plain run's beyond {TRAIN_PARAM_RTOL}: "
+                        f"{worst}")
+    del pstate, final
+    torch.cuda.empty_cache()
+    mark("plain_run")
+
+    # bf16 parameters: the gradient and each token's NLL at the seed's
+    # parameters on the plain versions, then with the kernels (the first
+    # step's), each against the float32 plain run's; the step runs the
+    # tensor-core routes inside training.
+    tcfg16 = dataclasses.replace(tcfg, param_dtype="bfloat16")
+    s16 = step_mod.make_train_state(cfg, tcfg16, device=dev)
+    loss_p, grads_p = plain_grads(torch, ops, step_mod, par, cfg, tcfg16, s16.params, batches[0])
+    ops.FORCE = "ref"
+    try:
+        nll_p = token_nll(torch, T, cfg, s16.params, batches[0])
+    finally:
+        ops.FORCE = None
+    dist_p = {"token_nll_rms": rms_dist(torch, nll_p, nll32),
+              "grad_rms": grad_rms(torch, ckpt_mod, grads_p, grads32)}
+    del grads_p, nll_p
+    nll_k = token_nll(torch, T, cfg, s16.params, batches[0])
+    step_fn = step_mod.build_train_step(cfg, tcfg16, par.ParallelCtx())
+    before = route_counts(fa, ssd)
+    kept = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with step_grads(step_mod, kept.append):
+        s16, m16 = step_fn(s16, batches[0])
+    torch.cuda.synchronize()
+    step16_s = time.perf_counter() - t0
+    routes16 = {k: {r: n - before[k][r] for r, n in v.items()}
+                for k, v in route_counts(fa, ssd).items()}
+    dist_k = {"token_nll_rms": rms_dist(torch, nll_k, nll32),
+              "grad_rms": grad_rms(torch, ckpt_mod, kept[0], grads32)}
+    loss_dist = {"kernel": abs(float(m16["loss"]) - loss32), "plain": abs(loss_p - loss32)}
+    del kept, grads32, nll_k, nll32
+    log(f"{arch} bf16: kernel {dist_k}, plain {dist_p}, mean loss {loss_dist}, "
+        f"routes {routes16}")
+    want16 = {k: {"tc": 0, "simt": 0} for k in routes16}
+    for k, n in plan.items():
+        if k in want16:
+            d = attention_head_dim(cfg) if k == "flash_attention" else None
+            r = (fa.route(torch.bfloat16, d) if k == "flash_attention"
+                 else ssd.route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state))
+            want16[k][r] = n
+    if routes16 != want16:
+        raise RuntimeError(f"{arch}: the bf16 forward took routes {routes16}, expected {want16}")
+    if not all(dist_k[k] <= LM_BF16_NOISE * dist_p[k] for k in dist_k):
+        failures.append(f"the bf16 kernel run is {dist_k} from the float32 run, more than "
+                        f"{LM_BF16_NOISE} x the plain bf16 run's {dist_p}")
+    if not (math.isfinite(float(m16["loss"])) and math.isfinite(float(m16["gnorm"]))):
+        failures.append(f"the bf16 step's loss, gnorm are {float(m16['loss'])}, "
+                        f"{float(m16['gnorm'])}")
+    del s16, step_fn
+    torch.cuda.empty_cache()
+    mark("bf16")
+
+    warm = steps[1:]
+    line = {
+        "card": card, "layers": cfg.n_layers, "published_layers": published.n_layers,
+        "d_model": cfg.d_model, "optimizer": opt_name, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps, "plain_steps": psteps,
+        "step_s": statistics.median(s["s"] for s in warm),
+        "tokens_per_s": tokens / statistics.median(s["s"] for s in warm),
+        "plain_step_s": statistics.median(s["s"] for s in psteps[1:]),
+        "peak_mem_gb": peak / 1e9, "plain_peak_mem_gb": ppeak / 1e9,
+        "launches_per_step": {k: n // TRAIN_STEPS for k, n in launches.items()},
+        "routes": routes, "profile": prof,
+        "loss_abs_err": loss_errs, "loss_tolerance": list(LM_F32_TOL),
+        "gnorm_rel_err": gnorm_errs, "gnorm_tolerance": TRAIN_GNORM_RTOL,
+        "param_rel_norm_err": worst[0]["rel_norm"], "param_tolerance": TRAIN_PARAM_RTOL,
+        "param_max_rel_err": max(e["rel_max"] for e in param_errs),
+        "param_worst": worst,
+        "params_bit_identical": sum(e["exact"] for e in param_errs),
+        "param_tensors": len(param_errs),
+        "bf16": {"kernel_vs_f32": dist_k, "plain_vs_f32": dist_p, "routes": routes16,
+                 "mean_loss_vs_f32": loss_dist,
+                 "noise_factor": LM_BF16_NOISE, "step_s": step16_s,
+                 "loss": float(m16["loss"]), "gnorm": float(m16["gnorm"])},
+        "sections_s": sections, "failures": failures,
+        "phase_s": time.perf_counter() - t_phase}
+    return line
+
+
+def train_cli_runs(torch, ops) -> dict:
+    """``repro_torch.launch.train`` on the card: tiny qwen3-8b for 10 steps
+    with checkpoints every 5, then ``--resume`` to 20 (it must resume at
+    step 10), and an uninterrupted 20-step run, whose last 10 losses the
+    resumed run must give within 1e-6 relative; each run's launches follow
+    the plan (attention once per layer a step).  Then
+    ``examples/train_lm_torch.py --steps 20`` as its own process."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+
+    tiny = configs.get_config("qwen3-8b").tiny()
+    per_step = lm_launch_plan(tiny, 1)["flash_attention"]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", "qwen3-8b", "--tiny", "--log-every", "5"]
+        runs = {}
+        for name, extra, steps in (("first", ["--ckpt-dir", d, "--ckpt-every", "5"], 10),
+                                   ("resumed", ["--ckpt-dir", d, "--resume"], 10),
+                                   ("uninterrupted", [], 20)):
+            n_steps = 20 if name != "first" else 10
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                losses = train_mod.main(base + ["--steps", str(n_steps)] + extra)
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+            launches = {k: n for k, n in ops.launch_counts().items() if n}
+            if launches != {"flash_attention": per_step * steps} or len(losses) != steps \
+                    or not all(math.isfinite(x) for x in losses) \
+                    or any(x["device"] != "cuda" for x in lines):
+                raise RuntimeError(f"launch.train ({name}): launches {launches}, losses "
+                                   f"{losses}, lines {lines}")
+            runs[name] = {"losses": losses, "lines": lines, "text": text}
+        if "[ckpt] resumed at step 10" not in runs["resumed"]["text"]:
+            raise RuntimeError(f"launch.train --resume: {runs['resumed']['text'][-500:]}")
+        full, resumed = runs["uninterrupted"]["losses"][10:], runs["resumed"]["losses"]
+        errs = [abs(a - b) / abs(b) for a, b in zip(resumed, full)]
+        if max(errs) > TRAIN_CKPT_RTOL:
+            raise RuntimeError(f"launch.train --resume: losses {resumed} vs {full}")
+        out["launch_train"] = {"resumed_at": 10, "losses_resumed": resumed,
+                               "losses_uninterrupted": full, "bit_identical": resumed == full,
+                               "last_line": runs["resumed"]["lines"][-1],
+                               "launches_per_step": per_step}
+        t0 = time.perf_counter()
+        example = runpy.run_path(str(ROOT / "examples" / "train_lm_torch.py"),
+                                 run_name="train_lm_torch")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            losses = example["main"](["--steps", "20", "--ckpt-dir", os.path.join(d, "example")])
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+        if len(losses) != 20 or not lines or lines[-1]["step"] != 20 \
+                or lines[-1]["device"] != "cuda" or not losses[-1] < losses[0]:
+            raise RuntimeError(f"examples/train_lm_torch.py: {text[-2000:]}")
+        out["example"] = {"wall_s": time.perf_counter() - t0, "last_line": lines[-1],
+                          "summary": text.strip().splitlines()[-1]}
+    return out
+
+
+def train_checkpoint_check(torch, dev, card: str) -> dict:
+    """TRAIN_CKPT_ARCH at full width, cut to TRAIN_CKPT_LAYERS, under
+    deterministic algorithms: TRAIN_STEPS steps with a CheckpointManager
+    saving after step 2 (a background write beside step 3); the checkpoint
+    restored into a fresh state (drawn from another seed) must give step
+    3 of the uninterrupted run bit for bit (parameters, moments, step), or
+    within TRAIN_CKPT_RTOL where an op refuses deterministic mode (named in
+    the line).  Returns its line, with ``failures``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import api as par
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(TRAIN_CKPT_ARCH), n_layers=TRAIN_CKPT_LAYERS)
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig())
+    batches = train_batches(torch, cfg, dev)
+    plan = {k: n for k, n in lm_launch_plan(cfg, 1).items() if n}
+    failures, save_s = [], []
+    with tempfile.TemporaryDirectory() as ckpt_dir, deterministic(torch) as refused:
+        mgr = ckpt_mod.CheckpointManager(ckpt_dir, keep=1)
+
+        def on_step(i, state):
+            if i == 1:
+                t0 = time.perf_counter()
+                mgr.save_async(state, 2)
+                save_s.append(time.perf_counter() - t0)
+
+        state, steps, launches, _, _ = train_steps(torch, ops, step_mod, par, cfg, tcfg,
+                                                   batches, dev, plain=False, on_step=on_step)
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        whole = host_copies(ckpt_mod, flat_tensors(state))
+        del state
+        torch.cuda.empty_cache()
+        fresh = step_mod.make_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(1),
+                                          device=dev)
+        t0 = time.perf_counter()
+        fresh, manifest = ckpt_mod.restore(ckpt_dir, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if int(manifest["step"]) != 2 or int(fresh.step) != 2:
+            raise RuntimeError(f"{cfg.name}: restored step {manifest['step']}, {int(fresh.step)}")
+        ops.reset_launch_counts()
+        resumed, m3 = step_mod.build_train_step(cfg, tcfg, par.ParallelCtx())(fresh, batches[2])
+        torch.cuda.synchronize()
+        if {k: n for k, n in ops.launch_counts().items() if n} != plan:
+            raise RuntimeError(f"{cfg.name}: the resumed step launched {ops.launch_counts()}")
+        errs = leaf_errs(torch, ckpt_mod, flat_named(resumed), whole)
+        exact = all(e["exact"] for e in errs)
+        worst = max(e["rel_max"] for e in errs)
+        if not refused() and not exact:
+            failures.append(f"the resumed step 3 differs from the uninterrupted one under "
+                            f"deterministic algorithms (max rel {worst})")
+        if not worst <= TRAIN_CKPT_RTOL:
+            failures.append(f"the resumed step 3 differs by {worst} relative")
+        line = {"card": card, "arch": TRAIN_CKPT_ARCH, "layers": cfg.n_layers,
+                "d_model": cfg.d_model, "saved_after_step": 2, "bit_identical": exact,
+                "max_rel_err": worst, "refused_deterministic": refused(),
+                "losses": [x["loss"] for x in steps], "loss_step3_resumed": float(m3["loss"]),
+                "launches": launches, "save_snapshot_s": save_s[0], "write_wait_s": wait_s,
+                "restore_s": restore_s, "bytes": sum(a.nbytes for a, _ in whole),
+                "leaves": len(whole), "failures": failures,
+                "phase_s": time.perf_counter() - t_phase}
+    log(f"checkpoint check: {line}")
+    return line
+
+
+def lm_train_phase(torch, dev, card: str) -> tuple[list, dict]:
+    """The training phase (TRAIN_ARCHS, module docstring): one ``lm_train``
+    line a model; raises after the last if any model failed a gate.
+    Returns ([model lines], {kernel: {model: launches a step}})."""
+    lines, per_step = [], {}
+    for arch, (opt_name, layers) in TRAIN_ARCHS.items():
+        line = train_model(torch, dev, card, arch, opt_name, layers)
+        print(json.dumps({"lm_train": {arch: line}}), flush=True)
+        lines.append(line)
+        for k, n in line["launches_per_step"].items():
+            per_step.setdefault(k, {})[arch] = n
+    ckpt = train_checkpoint_check(torch, dev, card)
+    print(json.dumps({"lm_train_checkpoint": ckpt}), flush=True)
+    failed = {arch: line["failures"] for arch, line in zip(TRAIN_ARCHS, lines)
+              if line["failures"]}
+    if ckpt["failures"]:
+        failed["checkpoint"] = ckpt["failures"]
+    if failed:
+        raise RuntimeError(f"lm_train: {failed}")
+    return lines, per_step
 
 
 class FrozenSource:
@@ -3549,6 +4184,8 @@ def main() -> int:
     # Before torch touches the card: kimi-k2's float32 run fills it to within
     # a few GB, where the caching allocator's split blocks would not fit.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # cuBLAS's setting for deterministic algorithms (the lm_train checkpoint check).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3595,6 +4232,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"lm_long_prefill_attention": long_attn,
                       "lm_phase_s": time.perf_counter() - t_lm}), flush=True)
+
+    # -- LM training: three models at full width, the CLI and the example --
+    t_train = time.perf_counter()
+    _, train_per_step = lm_train_phase(torch, dev, card.splitlines()[0])
+    for entry in lm_kernels:
+        if entry["name"] in train_per_step:
+            entry["train_launches_per_step"] = train_per_step[entry["name"]]
+            entry["train_backward"] = "the plain version's VJP (kernels/ops.py)"
+    print(json.dumps({"lm_train_cli": train_cli_runs(torch, ops),
+                      "lm_train_phase_s": time.perf_counter() - t_train}), flush=True)
+    torch.cuda.empty_cache()
 
     # -- 2. full width: eps search on the default configuration ----------
     pts = spatial.make_d2(FULL_N, seed=1)

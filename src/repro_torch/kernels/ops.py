@@ -12,6 +12,23 @@ to run the same path without the kernels on the card).  The LM ops
 (``flash_attention``, ``ssd_scan``) route their plain versions exactly
 as the reference's ``kernels/ops.py`` routes off the TPU: the chunked
 forms for long sequences, the exact ones otherwise.
+
+Training: the LM ops are differentiable.  On the CPU (or under ``FORCE``)
+autograd differentiates the plain versions as they run.  A CUDA call that
+needs a gradient (grad mode on and an input that requires one) goes
+through a ``torch.autograd.Function``: its forward launches the same
+kernel as a call without a gradient (counted alike), and its backward
+runs the plain version of the same function again on the saved inputs,
+under grad mode, and returns ``torch.autograd.grad`` of it against the
+incoming cotangent.  The backward is the plain version's VJP because the
+reference defines no other gradient: its Pallas kernels have no VJP rule
+(``jax.grad`` through them stops in ``pallas_call``'s JVP rule), so the
+only gradient the reference computes is autodiff of the plain jnp
+functions its ``ops`` run off the TPU.  The recompute follows this
+module's size rule (``CHUNKED_ATTENTION_MIN``, ``PLAIN_SSD_CHUNK``), so
+its memory stays bounded at long sequences.  A call without a gradient
+(serving, ``torch.no_grad``) takes the plain kernel path and launches
+exactly what it did before.
 """
 from __future__ import annotations
 
@@ -200,12 +217,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     online softmax when sq·skv > 2**21 and the dims are equal, the exact
     version otherwise."""
     if FORCE == "ref" or q.device.type == "cpu":
-        if (q.shape[2] * k.shape[2] > CHUNKED_ATTENTION_MIN
-                and v.shape[-1] == q.shape[-1]):
-            return ref.flash_attention_chunked(q, k, v, causal=causal, scale=scale,
-                                               window=window)
-        return ref.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+        return _plain_attention(q, k, v, causal, scale, window)
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, scale, window)
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+
+
+def _plain_attention(q, k, v, causal, scale, window):
+    """The plain route of ``flash_attention`` (the reference's off the TPU)."""
+    if q.shape[2] * k.shape[2] > CHUNKED_ATTENTION_MIN and v.shape[-1] == q.shape[-1]:
+        return ref.flash_attention_chunked(q, k, v, causal=causal, scale=scale, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -216,19 +238,107 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor)
     reference's off the TPU: chunked at ``PLAIN_SSD_CHUNK`` when l >=
     2·PLAIN_SSD_CHUNK, the sequential recurrence otherwise."""
     if FORCE == "ref" or x.device.type == "cpu":
-        if x.shape[1] >= 2 * PLAIN_SSD_CHUNK:
-            return ref.ssd_scan_chunked(x, a, b, c, chunk=PLAIN_SSD_CHUNK)
-        return ref.ssd_scan(x, a, b, c)
+        return _plain_ssd(x, a, b, c)
+    if _needs_grad(x, a, b, c):
+        return _SSDScan.apply(x, a, b, c)
     return _ssd.ssd_scan(x, a, b, c)
+
+
+def _plain_ssd(x, a, b, c):
+    """The plain route of ``ssd_scan`` (the reference's off the TPU)."""
+    if x.shape[1] >= 2 * PLAIN_SSD_CHUNK:
+        return ref.ssd_scan_chunked(x, a, b, c, chunk=PLAIN_SSD_CHUNK)
+    return ref.ssd_scan(x, a, b, c)
 
 
 def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
     """MoE dispatch gather: (buf (S, d), scales (S,)) with buf[i] =
     x[idx[i]], zeros where idx[i] < 0; int8 per-row absmax with
-    ``quant``.  See ``ref.dispatch_gather``."""
+    ``quant``.  See ``ref.dispatch_gather``.  Differentiable in x without
+    ``quant`` (the int8 form is a wire format, with no gradient)."""
     if FORCE == "ref":
         return ref.dispatch_gather(x, idx, quant=quant)
+    if not quant and x.device.type == "cuda" and _needs_grad(x):
+        return _DispatchGather.apply(x, idx)
     return _mg.dispatch_gather(x, idx, quant=quant)
+
+
+# -- gradients: the kernel forward, the plain version's VJP backward ----------
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(getattr(t, "requires_grad", False)
+                                           for t in tensors)
+
+
+def _plain_vjp(name: str, plain, inputs, needs, cotangent):
+    """``torch.autograd.grad`` of ``plain`` (the op ``name``'s plain version)
+    recomputed on detached ``inputs`` (the tensors a kernel read) against
+    ``cotangent``, for the inputs whose ``needs`` flag is set (None for the
+    others)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, cotangent, allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B7 forward (the route ``flash_attention.route`` picks), the plain
+    attention's VJP backward.  Saves q, k, v as the kernel read them (MLA's
+    padded v included: the pad's gradient is cut off by ``F.pad``'s own
+    backward, outside this Function)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, scale, window)
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, scale, window = ctx.opts
+        dq, dk, dv = _plain_vjp(
+            "flash_attention", lambda q, k, v: _plain_attention(q, k, v, causal, scale, window),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return dq, dk, dv, None, None, None
+
+
+class _SSDScan(torch.autograd.Function):
+    """B8 forward (the route ``ssd_scan.route`` picks), the plain SSD's VJP
+    backward.  Saves x, a, b, c as the kernel read them (the Mamba layer's
+    stride-0 c included; its gradient comes back dense and ``expand``'s
+    backward sums it)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c):
+        ctx.save_for_backward(x, a, b, c)
+        return _ssd.ssd_scan(x, a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_plain_vjp("ssd_scan", _plain_ssd, ctx.saved_tensors,
+                                ctx.needs_input_grad, g))
+
+
+class _DispatchGather(torch.autograd.Function):
+    """B9 forward (without ``quant``), the plain gather's VJP backward:
+    each kept slot's cotangent row added to its token's row."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(x, idx)
+        buf, scales = _mg.dispatch_gather(x, idx, quant=False)
+        ctx.mark_non_differentiable(scales)
+        return buf, scales
+
+    @staticmethod
+    def backward(ctx, g, _g_scales):
+        x, idx = ctx.saved_tensors
+        (dx,) = _plain_vjp("dispatch_gather",
+                           lambda x_: ref.dispatch_gather(x_, idx, quant=False)[0], (x,),
+                           (True,), g)
+        return dx, None
 
 
 def launch_counts() -> dict[str, int]:

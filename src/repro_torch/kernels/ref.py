@@ -342,8 +342,9 @@ def ssd_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch
     by 0.  There exp(cum_i − cum_j) grows, and once a chunk's decay sums to
     more than ~88 it overflows to inf, and the reference's inf·0 turns the
     whole output NaN (a Mamba-2 layer at init decays by ~0.7 a step, so a
-    128-step chunk does).  Wherever the reference is finite the two agree
-    bit for bit."""
+    128-step chunk does).  The exponent is masked (to −inf) before the exp,
+    so the gradient is finite too.  Wherever the reference is finite the
+    two agree bit for bit."""
     bsz, l, h, dh = x.shape
     ds = b.shape[-1]
     ch = min(chunk, l)
@@ -361,8 +362,11 @@ def ssd_scan_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch
         sl = slice(i * ch, (i + 1) * ch)
         xc, ac, bc, cc = (t[:, sl].float() for t in (x, a, b, c))
         cum = torch.cumsum(ac, dim=1)                                   # (bsz, ch, h)
-        decay = torch.where(causal[None, :, :, None],
-                            torch.exp(cum[:, :, None] - cum[:, None, :]), 0.0)
+        # Masked before the exp (exp(−inf) = 0), so that no masked entry
+        # overflows: the same values as masking exp's output, and a
+        # gradient without the 0 · inf = NaN an overflowed entry would give.
+        decay = torch.exp(torch.where(causal[None, :, :, None],
+                                      cum[:, :, None] - cum[:, None, :], -torch.inf))
         cb = torch.einsum("bihs,bjhs->bijh", cc, bc)
         y = torch.einsum("bijh,bjhd->bihd", cb * decay, xc)
         y = y + torch.exp(cum)[..., None] * torch.einsum("bihs,bhsd->bihd", cc, state)

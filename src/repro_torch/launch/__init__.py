@@ -1,4 +1,5 @@
 """Entry points of the port: the lane layout of the device-resident serve
-engine (``mesh``) and the serving entry point (``serve``, run as
-``python -m repro_torch.launch.serve``)."""
+engine (``mesh``), the serving entry point (``serve``, run as
+``python -m repro_torch.launch.serve``) and the training entry point
+(``train``, run as ``python -m repro_torch.launch.train``)."""
 from . import mesh  # noqa: F401

@@ -1,3 +1,3 @@
-"""The LM stack's serving path: configuration, layers and the transformer
-(dense GQA/MQA and Mamba-2 so far)."""
-from . import config, layers, transformer  # noqa: F401
+"""The LM stack: configuration, layers, the transformer (serving and the
+training loss) and parameter trees in the reference's layout."""
+from . import config, layers, transformer, tree  # noqa: F401

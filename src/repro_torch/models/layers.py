@@ -1,4 +1,4 @@
-"""Layers of the LM stack's serving path: the port of
+"""Layers of the LM stack: the port of
 ``repro/models/layers.py`` for dense GQA/MQA attention (qk-norm, rope,
 windows), multi-head latent attention (MLA), cross-attention, the MLP,
 the one-card MoE layer and the Mamba-2 (SSD) block.
@@ -17,6 +17,14 @@ in prefill and decode alike, and cross-attention reaches the flash
 kernel in decode too (one query row against the encoder's keys).
 Decode runs no other kernel (float32 einsums and an elementwise
 recurrence, as in the reference; MLA's absorbed decode likewise).
+
+Every full-sequence layer is differentiable (training: ``transformer.
+loss_fn``): the kernels' ops are ``torch.autograd.Function``s on the card
+(``kernels/ops.py``).  The reference's ``_f32c`` (a float32 upcast whose
+cotangent comes back in the input's dtype) needs no custom function here:
+``x.float()``'s backward already returns the cotangent in x's dtype.
+Parameters are built with ``requires_grad=False`` (serving);
+``transformer.init_params(..., trainable=True)`` turns it on.
 
 Not here yet: the MoE layer's expert-parallel (``epsum``, ``a2a``) forms
 across cards (ROADMAP A10 item 6).
@@ -465,16 +473,23 @@ def _moe_local(cfg, p: MoE, x_flat: torch.Tensor, capacity: int):
     probs = ex / ex.sum(dim=-1, keepdim=True)                   # jax.nn.softmax
     r = _route(probs, k, capacity)
 
-    # The same products as silu(xe·w1) * (xe·w3), then ·w2, with fewer
-    # buffers alive at once: the activation in place, xe released before
-    # the down projection, and ye written beside its empty last row.
     xe = ops.dispatch_gather(x_flat, r.idx, quant=False)[0].reshape(e, capacity, d)
-    h = F.silu(torch.bmm(xe, p.w1), inplace=True)
-    h.mul_(torch.bmm(xe, p.w3))
-    del xe
-    ye = x_flat.new_empty((e * capacity + 1, d))
-    torch.bmm(h, p.w2, out=ye[:-1].view(e, capacity, d))
-    ye[-1] = 0
+    if ops._needs_grad(x_flat, p.router, p.w1, p.w3, p.w2):
+        # Training: the same products in the same order, out of place (the
+        # buffer reuse below overwrites what autograd saves).
+        h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
+        del xe
+        ye = torch.cat([torch.bmm(h, p.w2).reshape(e * capacity, d), x_flat.new_zeros((1, d))])
+    else:
+        # Serving: silu(xe·w1) * (xe·w3), then ·w2, with fewer buffers alive
+        # at once: the activation in place, xe released before the down
+        # projection, and ye written beside its empty last row.
+        h = F.silu(torch.bmm(xe, p.w1), inplace=True)
+        h.mul_(torch.bmm(xe, p.w3))
+        del xe
+        ye = x_flat.new_empty((e * capacity + 1, d))
+        torch.bmm(h, p.w2, out=ye[:-1].view(e, capacity, d))
+        ye[-1] = 0
     del h
 
     gate_s = (r.gates.reshape(-1)[r.order] * r.keep).to(ye.dtype)

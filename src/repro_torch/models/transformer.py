@@ -1,5 +1,5 @@
-"""The LM stack's serving path: the port of ``repro/models/transformer.py``
-for every configuration kind of ``repro.configs`` on one card: decoder-only
+"""The LM stack: the port of ``repro/models/transformer.py`` for every
+configuration kind of ``repro.configs`` on one card: decoder-only
 dense (GQA/MQA, MLA), MoE, Mamba-2 and hybrid models, the encoder-decoder
 (whisper: an encoder over stub frame embeddings, cross-attention in every
 decoder layer) and the VLM prefix (patch embeddings before the tokens).
@@ -15,18 +15,36 @@ stacks each leaf over a leading group or encoder-layer axis instead;
 ``cache["l{i}"]`` holds each leaf stacked over groups.
 
 Entry points: ``init_params`` (seeded random weights, on the card unless
-``device="cpu"``), ``forward`` (the teacher-forced oracle), ``encode``,
-``init_cache``, ``prefill`` and ``decode_step``.  ``decode_step`` updates
-the cache in place.
+``device="cpu"``), ``forward`` (the teacher-forced oracle), ``loss_fn``
+(training), ``encode``, ``init_cache``, ``prefill`` and ``decode_step``.
+``decode_step`` updates the cache in place.  ``LM.tree()`` is the
+parameter tree in the reference's layout (a block leaf is a
+``tree.Stack`` of its per-group tensors), which the optimizer and the
+checkpoint read.
+
+Rematerialisation follows ``parallel.api.ctx().remat`` as the reference's
+``_scan_blocks`` / ``encode`` do: "full" checkpoints each block group (and
+each encoder layer) whole (``torch.utils.checkpoint``, non-reentrant);
+"dots" is a selective checkpoint that keeps the outputs of the products
+of matrices without a batch axis (``aten.mm`` / ``aten.addmm``, the
+counterpart of ``checkpoint_dots_with_no_batch_dims``) and recomputes the
+rest; the encoder's layers are checkpointed whole under either.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tree import Stack
+from repro_torch.parallel import api as par
+
+AUX_COEF = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +111,31 @@ class LM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
+    def tree(self) -> dict:
+        """The parameters as the reference's pytree: ``embed``,
+        ``final_norm``, ``lm_head`` (untied), ``blocks`` and for an
+        encoder-decoder ``encoder`` and ``enc_final_norm``; each leaf of
+        ``blocks`` (``encoder``) a ``Stack`` of its groups' (layers')
+        tensors."""
+        out: dict = {}
+
+        def put(d: dict, name: str, value) -> None:
+            *head, last = name.split(".")
+            for key in head:
+                d = d.setdefault(key, {})
+            d[last] = value
+
+        for name, param in self.named_parameters():
+            top = name.split(".")[0]
+            if top not in ("blocks", "encoder"):
+                put(out, name, param)
+            elif name.split(".")[1] == "0":
+                rest = name.split(".", 2)[2]
+                stack = getattr(self, top)
+                put(out.setdefault(top, {}), rest, Stack(
+                    m.get_parameter(rest) for m in stack))
+        return out
+
 
 def _device(device) -> torch.device:
     dev = torch.device(device)
@@ -103,7 +146,7 @@ def _device(device) -> torch.device:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cuda",
-                dtype=torch.float32) -> LM:
+                dtype=torch.float32, trainable: bool = False) -> LM:
     """Seeded random weights with the reference's shapes and scales:
     embeddings and the head normal·0.02, matrices normal/√fan_in (the
     output projection of attention normal/√(h·hd), the Mamba conv
@@ -112,18 +155,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cud
     in float32 from ``gen`` (a ``torch.Generator`` on ``device``, or a
     seed for one) and cast to ``dtype``.  The numbers differ from the
     reference's ``jax.random`` draws; ``params_from_jax`` carries those
-    across."""
+    across.  ``trainable`` turns ``requires_grad`` on (training);
+    serving leaves it off."""
     dev = _device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
-    return LM(cfg, gen, device=dev, dtype=dtype)
+    return LM(cfg, gen, device=dev, dtype=dtype).requires_grad_(trainable)
 
 
-def params_from_jax(cfg: ModelConfig, tree, *, device="cuda") -> LM:
+def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", trainable: bool = False) -> LM:
     """The port's model holding the reference's parameter pytree ``tree``
     (numpy arrays: ``blocks`` stacked over groups on a leading axis, keyed
     ``l{i}``; ``encoder`` stacked over encoder layers), on ``device``, in
-    the arrays' dtype (one numpy has)."""
+    the arrays' dtype (one numpy has); ``requires_grad`` as
+    ``trainable``."""
     dev = _device(device)
     dtype = torch.from_numpy(np.empty(0, np.asarray(tree["embed"]).dtype)).dtype
     model = LM(cfg, None, device=dev, dtype=dtype)
@@ -154,7 +199,7 @@ def params_from_jax(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     if loaded != expected:
         raise ValueError(f"parameters not in the tree: {sorted(expected - loaded)}; "
                          f"extra: {sorted(loaded - expected)}")
-    return model
+    return model.requires_grad_(trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +267,15 @@ def encode(cfg: ModelConfig, model: LM, frames: torch.Tensor) -> torch.Tensor:
     frames = frames.to(model.embed.dtype)
     x = frames + L.sinusoid_pos(frames.shape[1], cfg.d_model,
                                 device=frames.device).to(frames.dtype)
-    for bp in model.encoder:
+
+    def layer(bp, x):
         o, _ = L.attn_apply(cfg, bp.mixer, L.norm_apply(cfg, bp.norm1, x), causal=False)
         x = x + o
-        x = x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+        return x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+
+    remat = par.ctx().remat != "none"
+    for bp in model.encoder:
+        x = _ckpt.checkpoint(layer, bp, x, use_reentrant=False) if remat else layer(bp, x)
     return L.norm_apply(cfg, model.enc_final_norm, x)
 
 
@@ -256,15 +306,58 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, f
     positions = torch.arange(x.shape[1], device=x.device)
     enc_out = encode(cfg, model, frames) if frames is not None else None
     kinds = cfg.layer_kinds()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group in model.blocks:
+
+    def group_apply(group, x, aux):
         for i, (kind, _) in enumerate(kinds):
             x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win, enc_out)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    remat = par.ctx().remat
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in model.blocks:
+        if remat == "none":
+            x, aux = group_apply(group, x, aux)
+        else:
+            x, aux = _ckpt.checkpoint(group_apply, group, x, aux, use_reentrant=False,
+                                      **_REMAT_KW[remat])
     x = L.norm_apply(cfg, model.final_norm, x)[:, offset:]
     logits = x @ model.head.T
     return logits, aux
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the products of
+    matrices without a batch axis, recompute everything else."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_KW = {"full": {},
+             "dots": {"context_fn": functools.partial(
+                 _ckpt.create_selective_checkpoint_contexts, _save_dots)}}
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: dict) -> torch.Tensor:
+    """Next-token cross entropy (+ ``AUX_COEF`` × the MoE aux loss), as the
+    reference's ``loss_fn``: ``batch`` holds "tokens" (B, S) and, where the
+    configuration takes them, "prefix" or "frames", passed to ``forward``.
+    The logits are taken in float32, the padded vocabulary entries set to
+    −1e30, and the mean NLL of each next token under ``log_softmax`` over
+    positions [:, :-1]."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, model, tokens, prefix=batch.get("prefix"),
+                          frames=batch.get("frames"))
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad, -1e30, logits)
+    targets = tokens[:, 1:].long()
+    lp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -lp.gather(-1, targets[..., None])[..., 0]
+    return nll.mean() + AUX_COEF * aux
 
 
 # ---------------------------------------------------------------------------

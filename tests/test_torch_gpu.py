@@ -16,7 +16,9 @@ routes (the tensor cores at attention's d 64 and 128 and the SSD's (dh,
 ds) = (64, 128), the CUDA cores otherwise), also to one bf16 ulp
 (chip_smoke.py's bf16_tol).  The MoE dispatch gather (a copy, or one
 IEEE division and rounding per element) equals its plain version bit for
-bit.
+bit.  In training the three LM kernels run forward inside
+``torch.autograd.Function``s whose backward is the plain version's VJP:
+their gradients equal autograd of the plain version bit for bit.
 """
 import dataclasses
 import types
@@ -1011,6 +1013,178 @@ def test_dispatch_gather_rejects_bad_inputs(cuda):
         moe_gather.dispatch_gather(x[None], idx, quant=False)
     with pytest.raises(ValueError):  # ids on another device
         moe_gather.dispatch_gather(x, idx.cpu(), quant=False)
+
+
+# -- training: the LM kernels as torch.autograd.Functions -------------------------
+# A call that needs a gradient launches the kernel forward (one launch, on
+# the route of its dtype and shape, equal to the plain version as above)
+# and, in the backward pass, the plain version's VJP on the saved inputs:
+# its gradients equal autograd of the plain version on the same inputs and
+# cotangent, bit for bit, and the backward launches no kernel.
+
+GRAD_FLASH_CASES = [
+    # b, h, hkv, s, d, causal, window, dtype, route, layout
+    (2, 8, 2, 300, 128, True, None, torch.bfloat16, "tc", "bhsd"),    # GQA, causal
+    (1, 4, 2, 200, 64, True, 64, torch.bfloat16, "tc", "bshd"),       # window, gqa_qkv views
+    (2, 8, 2, 300, 128, True, None, torch.float32, "simt", "bhsd"),
+    (1, 4, 4, 200, 64, False, 50, torch.float32, "simt", "bhsd"),     # non-causal window
+    (2, 4, 4, 256, 96, True, None, torch.bfloat16, "simt", "mla"),    # MLA: v 64 padded to 96
+    (2, 4, 4, 256, 96, True, None, torch.float32, "simt", "mla"),
+    (1, 4, 2, 1600, 64, True, None, torch.float32, "simt", "bhsd"),   # chunked recompute
+]
+
+
+def _grad_inputs(rng, shapes, cuda, dtype):
+    return [_randn(rng, s, cuda, dtype).requires_grad_(True) for s in shapes]
+
+
+def _grads(out, inputs, g):
+    return torch.autograd.grad(out, inputs, g)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype,route,layout", GRAD_FLASH_CASES)
+def test_flash_attention_backward_is_the_plain_vjp(cuda, b, h, hkv, s, d, causal, window,
+                                                   dtype, route, layout):
+    rng = np.random.default_rng(s + d)
+    dv = 64 if layout == "mla" else d
+    if layout == "bshd":
+        base = _grad_inputs(rng, [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)], cuda, dtype)
+
+        def views(q, k, v):
+            return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    else:
+        base = _grad_inputs(rng, [(b, h, s, d), (b, hkv, s, d), (b, hkv, s, dv)], cuda, dtype)
+
+        def views(q, k, v):
+            return q, k, (torch.nn.functional.pad(v, (0, d - dv)) if dv < d else v)
+    kw = dict(causal=causal, window=window, scale=1.0 / d ** 0.5)
+
+    def kernel(*t):
+        return ops.flash_attention(*views(*t), **kw)[..., :dv]
+
+    def plain(*t):
+        return ops._plain_attention(*views(*t), kw["causal"], kw["scale"], kw["window"])[
+            ..., :dv]
+
+    assert flash_attention.route(dtype, d) == route
+    ops.reset_launch_counts()
+    got = kernel(*base)
+    assert got.requires_grad
+    assert flash_attention.route_launches == {**{"tc": 0, "simt": 0}, route: 1}
+    want = plain(*base)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got.detach(), want.detach())
+    g = _randn(rng, tuple(got.shape), cuda, dtype)
+    got_g = _grads(got, base, g)
+    assert flash_attention.launches["flash_attention"] == 1    # none in the backward
+    for a, w in zip(got_g, _grads(want, base, g)):
+        assert a.dtype == dtype and torch.equal(a, w)
+    with torch.no_grad():   # without a gradient: the serving path, one launch
+        assert torch.equal(kernel(*base), got.detach())
+    assert flash_attention.launches["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("b,l,h,dh,ds,dtype,route", [
+    (2, 300, 4, 64, 128, torch.bfloat16, "tc"),
+    (2, 300, 4, 64, 128, torch.float32, "simt"),
+    (1, 100, 3, 16, 8, torch.float32, "simt"),     # the exact recurrence (l < 256)
+])
+def test_ssd_scan_backward_is_the_plain_vjp(cuda, b, l, h, dh, ds, dtype, route):
+    """The Mamba layer's inputs: x a slice of the conv output, b times dt,
+    c broadcast over the heads (stride 0)."""
+    rng = np.random.default_rng(l + ds)
+    xbc = _randn(rng, (b, l, h * dh + 2 * ds), cuda, dtype).requires_grad_(True)
+    dt = torch.as_tensor(rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32),
+                         device=cuda).requires_grad_(True)
+
+    def inputs(xbc, dt):
+        x = xbc[..., :h * dh].reshape(b, l, h, dh)
+        bb = (xbc[..., h * dh:h * dh + ds][:, :, None, :] * dt[..., None]).to(dtype)
+        c = xbc[..., h * dh + ds:][:, :, None, :].expand(b, l, h, ds)
+        return x, -0.7 * dt, bb, c
+
+    assert ssd_scan.route(dtype, dh, ds) == route
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*inputs(xbc, dt))
+    assert ssd_scan.route_launches == {**{"tc": 0, "simt": 0}, route: 1}
+    want = ops._plain_ssd(*inputs(xbc, dt))
+    rtol, atol = SSD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got.detach(), want.detach())
+    g = _randn(rng, tuple(got.shape), cuda, dtype)
+    got_g = _grads(got, (xbc, dt), g)
+    assert ssd_scan.launches["ssd_scan"] == 1
+    for a, w in zip(got_g, _grads(want, (xbc, dt), g)):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_gather_backward_is_the_plain_vjp(cuda, dtype):
+    """Top-2 routing's slots (a token in two slots), empty slots and ids
+    beyond t."""
+    rng = np.random.default_rng(11)
+    t, d, s = 300, 256, 700
+    x = _randn(rng, (t, d), cuda, dtype).requires_grad_(True)
+    idx = torch.as_tensor(np.concatenate([rng.permutation(np.repeat(np.arange(t), 2)),
+                                          np.full(90, -1), np.arange(t, t + 10)]),
+                          dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    buf, scales = ops.dispatch_gather(x, idx, quant=False)
+    assert buf.requires_grad and not scales.requires_grad
+    want = ref.dispatch_gather(x, idx, quant=False)[0]
+    assert torch.equal(buf, want)
+    g = _randn(rng, (s, d), cuda, dtype)
+    got_g = _grads(buf, (x,), g)
+    assert ops.launch_counts()["dispatch_gather"] == 1
+    assert torch.equal(got_g[0], _grads(want, (x,), g)[0])
+
+
+# One train step of a tiny configuration: each of its kernels launched once
+# per layer in the forward (none in the backward: the plain VJPs).
+TRAIN_KERNELS = {
+    "qwen3-8b": {"flash_attention": 2},
+    "mamba2-1.3b": {"ssd_scan": 2},
+    "llama4-scout-17b-a16e": {"flash_attention": 2, "dispatch_gather": 2},
+    "minicpm3-4b": {"flash_attention": 2},
+    "whisper-small": {"flash_attention": 2 + 2 + 2},
+    "jamba-1.5-large-398b": {"flash_attention": 2, "ssd_scan": 14, "dispatch_gather": 2},
+}
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_KERNELS))
+def test_train_step_card_equals_cpu(cuda, arch):
+    """``build_train_step`` on the card (the kernels forward, the plain VJPs
+    backward) against the CPU (plain versions): the kernels of the plan,
+    loss and gnorm within 1e-4, every parameter after the step within 1e-4."""
+    from repro_torch.data import pipeline
+    from repro_torch.parallel import api as par
+    from repro_torch.train import step as train_step
+
+    cfg = configs.get_config(arch).tiny()
+    tcfg = train_step.TrainConfig(opt=train_step.opt_mod.OptConfig(lr=1e-2, warmup=0))
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2,
+                               frontend=cfg.frontend, frontend_seq=cfg.frontend_seq,
+                               prefix_len=cfg.prefix_len, d_model=cfg.d_model)
+    batch = pipeline.batch_at(dcfg, 0)
+    step_fn = train_step.build_train_step(cfg, tcfg, par.ParallelCtx())
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = train_step.make_train_state(cfg, tcfg, 0, device="cpu")
+        state = train_step.state_for(state.params.to(device), tcfg)
+        ops.reset_launch_counts()
+        state, metrics = step_fn(state, {k: torch.as_tensor(v, device=device)
+                                         for k, v in batch.items()})
+        out[device] = (state, metrics, {k: n for k, n in ops.launch_counts().items() if n})
+    (cpu, m_cpu, n_cpu), (card, m_card, n_card) = out["cpu"], out["cuda"]
+    assert n_cpu == {} and n_card == TRAIN_KERNELS[arch]
+    for key in ("loss", "gnorm"):
+        torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=1e-4, atol=1e-4)
+    for (name, a), (_, b) in zip(card.params.named_parameters(), cpu.params.named_parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-4,
+                                   msg=name)
 
 
 # -- the DDC facade (repro_torch.ddc) and its snapshot query tier -----------------
