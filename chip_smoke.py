@@ -67,7 +67,7 @@ LM. The serving path at full width (``LM_ARCHS``): qwen3-8b (36 layers,
    every architecture's tiny configuration in this process, its launches
    equal to its plan, and whisper-small at full width as its own process.
 LM training (``lm_train`` lines, ``TRAIN_ARCHS``): qwen3-8b (8 of 36
-   layers, AdamW), mamba2-1.3b (48 layers, AdamW) and llama4-scout (1 of 48
+   layers, AdamW), mamba2-1.3b (24 of 48 layers, AdamW) and llama4-scout (1 of 48
    layers, Adafactor) at full width, float32 parameters, batches of 2 ×
    2,048 tokens from ``data/pipeline.py`` at seed 0, the reference's
    optimizer defaults.  Each trains 3 steps from the seed through
@@ -99,6 +99,30 @@ LM training (``lm_train`` lines, ``TRAIN_ARCHS``): qwen3-8b (8 of 36
    uninterrupted run) and ``examples/train_lm_torch.py --steps 20``
    (``lm_train_cli`` line).  The kernels line's B7, B8 and B9
    entries carry the training launches a step (``train_launches_per_step``).
+   Then the LM stack over a mesh of ranks (``lm_mesh`` line; the block
+   above ``lm_mesh_phase`` holds the cuts and tolerances): 4 rank
+   processes share the card over gloo (collectives staged through pinned
+   host memory); rank 0 first computes each one-rank reference from the
+   same seeded draw, the ranks then hold their shards against it (a gloo
+   scatter of rank 0's host copy).  qwen3-8b at full width (2 of 36
+   layers) on (data 2, model 2) with FSDP: an AdamW step, then one with
+   ``compress_grads``, losses, gnorms and each leaf's update; the first
+   block group's leaves saved from (2, 2) and restored onto (4, 1) bit for
+   bit.
+   llama4-scout at full width (1 of 48) on (2, 2), at its published
+   capacity factor 1.25: the final hidden states, aux and loss at 4 ×
+   2,048 tokens under epsum, a2a and a2a with the int8 wire, the a2a
+   branch with the tokens replicated at batch 1, each against the
+   one-rank route with that mesh route's drops, and one Adafactor step
+   under a2a without and one with the int8 wire (FSDP, 2 × 1,024
+   tokens); each rank launches B7 and B9 (and B9's int8 mode on the send
+   path, counted by ``moe_gather.mode_launches``).  Then
+   ``launch/serve.py``'s ``serve_lm`` over 2 ranks (qwen3-8b cut to 2
+   layers) against the one-card tokens,
+   one train step on NCCL at world size 1 (a (1, 1) mesh; the machine has
+   one card), and B9's int8 mode at the a2a send shape held bit for bit
+   to its plain version and timed (the kernels line's
+   ``dispatch_gather_int8`` entry).
 2. Full width: ``make_d2`` at 262,144 points in 8 lanes of 32,768 with
    the ``DDCConfig`` defaults (grid 128, 32 clusters, 128 vertices,
    ``block_sparse="auto"``, tile 512), through ``make_ddc_fn``.  eps
@@ -248,8 +272,9 @@ LM training (``lm_train`` lines, ``TRAIN_ARCHS``): qwen3-8b (8 of 36
    track=True, ...))`` with ``tracking.play`` (window 7: rings of 32,768,
    229,376 points live at each refresh), flat and with the tree of degree
    2; the two tracker states must be bit-identical, as must a save at
-   frame 12, ``DDC.load`` on the card and the resumed run, and the same
-   frames under ``ops.FORCE = "ref"``; 8 births and no other event, ID
+   frame 12, ``DDC.load`` on the card and the resumed run, and the first 12
+   frames under ``ops.FORCE = "ref"`` against the kernel run saved there;
+   8 births and no other event, ID
    stability 1.0, and every track's velocity within 5e-3 of the true one.
    Printed: refresh ms p50, tracker update ms (mean, last), B5
    rectangular launches a generation, ``_global_d2``'s time at 256 × 256
@@ -361,7 +386,10 @@ DELTA_SEED = 2
 # capacity, rounds, points a round), at STREAM_SMALL_EPS times the
 # full-width eps, block-sparse on both devices in tiles of
 # STREAM_SMALL_TILE (the CPU's plain dense DBSCAN would take 5–10 s a
-# local phase at 4,096 points; its plain sparse path takes about 1 s).
+# local phase at 4,096 points; its plain sparse path about 1 s).
+# Each shard takes one round, which evicts as many points as it brings; at
+# (4, 4,096, 8, 1,024) the CPU's half took about 58 s in each of the stream
+# and dist phases.
 STREAM_ROUNDS = 32
 STREAM_ROUND_N = 4096
 STREAM_CHUNK = 256
@@ -369,7 +397,7 @@ STREAM_PROBES = 256
 STREAM_TTL_EVERY = 8
 STREAM_WINDOW = FULL_N - 8192
 STREAM_FAULT_SHARD = 3
-STREAM_SMALL = (4, 4096, 8, 1024)
+STREAM_SMALL = (4, 2048, 4, 512)
 STREAM_SMALL_EPS = 2.0
 STREAM_SMALL_TILE = 128
 # The dist engine at full width (dist_full_width) takes stream_full_width's
@@ -496,8 +524,10 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
 #   44.6 GB, beside the activations of 2 × 2,048 tokens (about 1.6 GB a
 #   layer) and the 2.5 GB float32 logits with their log-softmax and
 #   gradient.
-# - mamba2-1.3b, AdamW, all 48 layers: 1.34 B params, 21.5 GB of float32
-#   state, beside about 0.9 GB of activations a layer.
+# - mamba2-1.3b, AdamW, 24 of its 48 layers: 0.72 B params, 11.6 GB of
+#   float32 state, beside about 0.9 GB of activations a layer (all 48, 21.5
+#   GB, fit too; the cut is one of time, so that the script ends within
+#   its limit: the model's training took about 95 s at 48 layers).
 # - llama4-scout, Adafactor, 1 of its 48 layers: every layer is MoE (16
 #   experts top-1 and a shared one); one layer is 2.20 B params and the
 #   embedding and head add 2.07 B.  AdamW's 16 B a parameter would need 68
@@ -510,7 +540,7 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 16
 # plain chunked attention and SSD keep every chunk's intermediates for the
 # backward pass (about 2.1 GB a qwen3-8b layer, 0.7 GB a mamba2 layer),
 # which these depths leave no room for.  The kernel runs keep remat "none".
-TRAIN_ARCHS = {"qwen3-8b": ("adamw", 8), "mamba2-1.3b": ("adamw", None),
+TRAIN_ARCHS = {"qwen3-8b": ("adamw", 8), "mamba2-1.3b": ("adamw", 24),
                "llama4-scout-17b-a16e": ("adafactor", 1)}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 # The checkpoint-resume check: mamba2-1.3b (the smallest state) at full
@@ -1290,7 +1320,8 @@ def moe_gather_entry(torch, ops, ref, captured: dict, by_model: dict,
         torch, "dispatch_gather_int8", "moe_gather.cu", LM_KERNEL_REPLACES["dispatch_gather"],
         shape, lambda: ops.dispatch_gather(x, idx, quant=True)[0],
         lambda: ref.dispatch_gather(x, idx, quant=True)[0], *bound(quant_ops, quant_bytes),
-        0, "none: the int8 mode is the a2a wire format (several cards)", library=library,
+        0, "the MoE a2a island's send buffer (lm_mesh); none on the serving path",
+        library=library,
         extra={"bytes": quant_bytes, "operations": quant_ops})
     entry["int8"] = {k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "max_abs_err", "exact", "bytes", "operations",
@@ -1641,8 +1672,8 @@ def record_routes(L):
     prefill's MoE layers, then each decode step's."""
     calls, orig = [], L._route
 
-    def route(probs, k, capacity):
-        r = orig(probs, k, capacity)
+    def route(probs, k, capacity, *experts):
+        r = orig(probs, k, capacity, *experts)
         calls.append((r.topi, r.keep))
         return r
 
@@ -1662,11 +1693,11 @@ def replay_routes(L, log: list):
     the caller checks that every logged call was replayed."""
     calls, orig, logged = [], L._route, iter(log)
 
-    def route(probs, k, capacity):
+    def route(probs, k, capacity, *experts):
         step = next(logged, None)
         if step is None or step[0].shape != (probs.shape[0], k):
             raise RuntimeError("replayed routing: the MoE calls do not line up with the log")
-        r = L.route_given(probs, step[0], capacity)
+        r = L.route_given(probs, step[0], capacity, *experts)
         if not r.keep.equal(step[1]):
             raise RuntimeError("replayed routing: the replayed choice keeps other copies")
         calls.append((r.topi, r.keep))
@@ -3859,6 +3890,7 @@ def tracking_full_width(torch, np, ddc, ops, spatial, dev, card: str):
     # Save at TRACK_RESUME_AT, load on the card, resume.
     part1 = model()
     play_steps(part1, traj.frames[:TRACK_RESUME_AT])
+    at_resume = part1.service.tracker.state_dict()
     with tempfile.TemporaryDirectory() as d:
         part1.save(os.path.join(d, "snap"))
         resumed = T.DDC.load(os.path.join(d, "snap"), device=dev)
@@ -3867,16 +3899,19 @@ def tracking_full_width(torch, np, ddc, ops, spatial, dev, card: str):
                                             resumed.service.tracker.state_dict())
     if not resumed_bitexact:
         raise RuntimeError("tracking: save -> load -> resume differs from the uninterrupted run")
-    # The plain versions of the kernels on the same frames (every generation).
+    # The plain versions of the kernels on the first TRACK_RESUME_AT frames
+    # (every generation), against the kernel run saved there (all
+    # TRACK_STEPS frames took 52–60 s on an H100; cut to make room for the
+    # lm_mesh phase).
     plain = model()
     t0 = time.perf_counter()
     ops.FORCE = "ref"
     try:
-        play_steps(plain, traj.frames)
+        play_steps(plain, traj.frames[:TRACK_RESUME_AT])
     finally:
         ops.FORCE = None
     plain_s = time.perf_counter() - t0
-    plain_bitexact = tracker_states_equal(np, flat["state"], plain.service.tracker.state_dict())
+    plain_bitexact = tracker_states_equal(np, at_resume, plain.service.tracker.state_dict())
     if not plain_bitexact:
         raise RuntimeError("tracking: the plain run's tracker state differs from the kernels'")
     # The ground truth: eight lanes that never meet.
@@ -3913,7 +3948,7 @@ def tracking_full_width(torch, np, ddc, ops, spatial, dev, card: str):
            "slots": [int(pc.shape[0]), int(pc.shape[0])], "truth": truth,
            "checks": {"tree_equals_flat": True, "resumed_bitexact": resumed_bitexact,
                       "resumed_at": TRACK_RESUME_AT, "plain_bitexact": plain_bitexact,
-                      "plain_generations": TRACK_STEPS, "plain_s": plain_s},
+                      "plain_generations": TRACK_RESUME_AT, "plain_s": plain_s},
            "global_d2_ms": global_d2_ms, "runs": {}}
     for name, run in runs.items():
         gens = run["gens"]
@@ -3978,7 +4013,7 @@ def ranks_full_width(torch, np, ddc, ops, dev, eps, pts, card: str) -> tuple[dic
         [dict(points=pts, mask=mask, k=LANES, warmup=1, profile=True, **job)
          for job in jobs.values()], LANES, device=dev.type, timing=timing, timeout=600)
     spawn_call_s = time.perf_counter() - t0
-    out = {"card": card, "n": FULL_N, "ranks": LANES, "backend": "gloo", "eps": eps,
+    out = {"card": card, "n": FULL_N, "ranks": LANES, "backend": timing["backend"], "eps": eps,
            "start_up": timing, "spawn_call_s": spawn_call_s, "runs": {}}
     launches: dict = {}
     for (name, job), res in zip(jobs.items(), results):
@@ -4180,6 +4215,799 @@ def shape_timing(torch, ops, ref, args, floor_ms: float) -> dict:
             "floor_ms": floor_ms}
 
 
+# -- LM over a mesh of ranks (lm_mesh) ----------------------------------------
+# The LM stack's explicit SPMD over rank processes that share this card
+# (launch/ranks.py; gloo, each collective staged through pinned host
+# memory: NCCL refuses two ranks on one card).  Each case is held to the
+# one-rank port run on the same parameters (the same seeded draw, cut by
+# spec on each rank) and inputs, which rank 0 computes first while the
+# others wait; its results sit on rank 0's host and reach each rank's
+# shard by a gloo scatter.  Cuts, each by the 80 GB the four ranks share:
+# - qwen3-8b at full width, 2 of 36 layers (float32 params, m, v and grads
+#   of 2.4 B params are 38 GB whole on rank 0's one-rank run);
+# - llama4-scout at full width, 1 of 48 layers (every layer MoE: the
+#   leaves are 17 GB in float32, 8 GB of them experts);
+# - the llama4 Adafactor steps at 2 × 1,024 tokens, not 4 × 2,048, and
+#   with FSDP: the one-rank step holds 17 GB of params, 17 of grads, up to
+#   four float32 copies of its largest leaf (4.1 GB) in the update and the
+#   activations; each of the four ranks about 18 GB of shards, gathers,
+#   grads and activations.
+# The MoE runs at llama4-scout's published capacity factor, 1.25, so its
+# routes drop token-copies, each by its own rule: epsum ranks a copy among
+# its data lane's copies to the same expert (the one-rank route run on
+# each data lane's part of the batch); the a2a island among its lane's
+# copies to the same destination lane (⌈t·k/D·cf⌉ send slots), then among
+# the copies an expert receives (⌈D·cap/(E/D)⌉); its replicated branch
+# among all copies to an expert (⌈t·k/(E/D)⌉, no capacity factor).  Each
+# one-rank reference runs the "local" route at capacity factor E (it
+# drops nothing) with the mesh route's drops applied (``moe_mesh_keep``,
+# ``masked_routes``), so it is exact, and the drop rules themselves are
+# held to the reference's own mesh runs in tests/test_torch_mesh.py.
+MESH_SHAPE = (2, 2)
+MESH_AXES = ("data", "model")
+MESH_SEED = 0
+MESH_QWEN = ("qwen3-8b", 2, (2, 2048))            # arch, layers, (batch, seq)
+MESH_LLAMA = ("llama4-scout-17b-a16e", 1, (4, 2048), (2, 1024))
+# lr 1e-3 from the first step (warmup 1): the update is the whole lr.
+MESH_OPT = dict(lr=1e-3, warmup=1)
+# Tolerances against the one-rank run, each set from the readings of
+# tools/mesh_phase.py --control (PERF.md) with room for rounding:
+# - losses rtol MESH_LOSS_RTOL (read ≤ 2.2e-7), MESH_INT8_LOSS_RTOL under
+#   the int8 wire (read 6.3e-5); gradient norms rtol MESH_GNORM_RTOL (read
+#   ≤ 1.3e-5, the int8 wire's);
+# - each leaf's update, ‖Δmesh − Δone rank‖ / ‖Δone rank‖ over the whole
+#   leaf (through its sketch, below), at most MESH_UPDATE_RTOL[kind]: "exact" steps read ≤ 5.9e-4
+#   (AdamW's first update divides each gradient by its own magnitude, so
+#   an element whose gradient rounds to the other side of 0 flips),
+#   "compress" (compress_grads: an element at an int8 rounding midpoint
+#   moves a step) 3.5e-3, "int8" (the a2a wire's rounding, up to 1/254 of
+#   a row's absmax, flips the sign-like update of small gradients in a
+#   norm weight) 0.17.  A zero update reads 1, a sign-flipped one 2, and
+#   the one-rank update of data lane 0's half of the batch 1.10 (qwen3)
+#   and 1.30 (llama4);
+# - the final hidden states MESH_HIDDEN_TOL (rtol, atol) without the
+#   int8 wire (read 3.2e-5 abs), and with it RMS(mesh − one rank) <=
+#   MESH_INT8_RMS × RMS(one rank) (read 1.4 %; the reference's own
+#   int8-wire MoE output is 1.0 % RMS from its plain a2a one at
+#   tests/_torch_ref_script.py's tiny llama4-scout).
+MESH_LOSS_RTOL = 1e-5
+MESH_INT8_LOSS_RTOL = 5e-4
+MESH_GNORM_RTOL = 1e-4
+MESH_UPDATE_RTOL = {"exact": 5e-3, "compress": 2e-2, "int8": 0.3}
+MESH_HIDDEN_TOL = (1e-4, 1e-4)
+MESH_INT8_RMS = 3e-2
+MESH_SERVE = ("qwen3-8b", 2, 2)                   # arch, layers, --mesh-devices
+
+
+def mesh_tokens(np, cfg, shape, seed: int):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape).astype(np.int64)
+
+
+def mesh_cfg(arch: str, layers: int, **kw):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), n_layers=layers, **kw)
+
+
+def moe_mesh_keep(torch, topi, route: str, lanes: int, n_experts: int, capacity_factor: float):
+    """The token-copies a mesh MoE route keeps, in copy order (token · k +
+    choice), for the whole batch's top-k experts ``topi`` (T, k): the
+    tokens split in order into ``lanes`` data lanes ("epsum", "a2a"), or
+    replicated on each ("a2a_replicated", whose lane takes the copies to
+    its E/D experts).  Plain: each copy's rank among the earlier copies
+    with its key is a cumulative count."""
+    import torch.nn.functional as F
+
+    t, k = topi.shape
+    fe = topi.reshape(-1)
+    n = fe.numel()
+    lane = torch.arange(n, device=fe.device) // max(n // lanes, 1)
+    e_per = n_experts // lanes
+
+    def rank_by(key, n_keys):
+        onehot = F.one_hot(key, n_keys)
+        return (onehot.cumsum(0) * onehot).sum(1) - 1
+
+    if route == "epsum":
+        cap = math.ceil(t // lanes * k / n_experts * capacity_factor)
+        return rank_by(lane * n_experts + fe, lanes * n_experts) < cap
+    if route == "a2a_replicated":
+        return rank_by(fe, n_experts) < math.ceil(t * k / e_per)
+    if route != "a2a":
+        raise ValueError(route)
+    cap = math.ceil(t // lanes * k / lanes * capacity_factor)
+    r1 = rank_by(lane * lanes + fe // e_per, lanes * lanes)
+    sent = r1 < cap
+    # An expert's lane receives sender s's copies at s·cap + r1 (a copy not
+    # sent sorts last); it ranks them by that position.
+    order = torch.argsort(torch.where(sent, lane * cap + r1, lanes * cap), stable=True)
+    r2 = torch.empty_like(r1)
+    r2[order] = rank_by(fe[order], n_experts)
+    return sent & (r2 < math.ceil(lanes * cap / e_per))
+
+
+@contextlib.contextmanager
+def masked_routes(torch, L, keep_fn):
+    """While active, every MoE layer's route keeps, of the token-copies it
+    keeps itself, only those ``keep_fn(topi)`` keeps (in copy order): the
+    one-rank route made to drop what a mesh route drops.  Yields the list
+    of each call's (topi, keep in sorted order)."""
+    calls, orig = [], L._route
+
+    def route(probs, k, capacity, *experts):
+        r = orig(probs, k, capacity, *experts)
+        keep = r.keep & keep_fn(r.topi)[r.order]
+        slot = torch.where(keep, r.slot, r.idx.numel())
+        tok = torch.where(keep, r.order // k, -1).to(torch.int32)
+        idx = torch.full((r.idx.numel() + 1,), -1, dtype=torch.int32,
+                         device=tok.device).scatter_(0, slot, tok)[:-1]
+        calls.append((r.topi, keep))
+        return r._replace(keep=keep, slot=slot, idx=idx)
+
+    L._route = route
+    try:
+        yield calls
+    finally:
+        L._route = orig
+
+
+def _rank_setup(torch):
+    """TF32 off, and the card's memory that an earlier case of the spawn
+    left cached handed back (the ranks share the card)."""
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+# Updates are compared through a CountSketch of each leaf: every element
+# adds ±its value to one of SKETCH_BUCKETS buckets, the bucket and sign
+# hashed from its flat index in the whole leaf (_SKETCH_HASH: (lo·a1 +
+# hi·a2 + c) mod p of the index's low 22 and high bits).  The map is
+# linear, so a rank sketches its shard placed in the whole leaf and the
+# sum over the ranks is the whole leaf's sketch, and sketch(after) −
+# sketch(before) is the update's (float64 sums of float32 values: exact
+# to 1e-15 of the parameters).  ‖sketch(d)‖ estimates ‖d‖ within about
+# (2 / SKETCH_BUCKETS)^½ / 2 = 0.3 % relative (exactly for a leaf of fewer
+# elements than buckets but for collisions), so the update ratio needs no
+# leaf copied off the card or between ranks.
+SKETCH_BUCKETS = 1 << 16
+_SKETCH_HASH = (1_594_350_793, 1_182_594_721, 362_436_069, 2_147_483_647)
+
+
+def _sketch(torch, t, full_shape, starts):
+    """The CountSketch (float64, on t's device) of ``t``, the block of a
+    leaf of ``full_shape`` that starts at ``starts``."""
+    a1, a2, c, p = _SKETCH_HASH
+    k = SKETCH_BUCKETS
+    flat = t.detach().reshape(-1)
+    lshape, full, starts = list(t.shape) or [1], list(full_shape) or [1], list(starts) or [0]
+    gstride = [math.prod(full[d + 1:]) for d in range(len(full))]
+    out = torch.zeros(k, dtype=torch.float64, device=t.device)
+    chunk = 1 << 24
+    for c0 in range(0, flat.numel(), chunk):
+        q = torch.arange(c0, min(flat.numel(), c0 + chunk), device=t.device)
+        g = torch.zeros_like(q)
+        for d in reversed(range(len(lshape))):
+            g += (q % lshape[d] + starts[d]) * gstride[d]
+            q = q // lshape[d]
+        h = ((g & ((1 << 22) - 1)) * a1 + (g >> 22) * a2 + c) % p
+        out.index_add_(0, h % k, flat[c0:c0 + g.numel()].double() * ((h // k) % 2 * 2 - 1))
+    return out
+
+
+def _sketches(torch, model, mesh=None) -> dict:
+    """Each leaf's sketch: of the whole leaf (``mesh`` None), or of this
+    rank's shard in place, on one rank of those that hold the same shard
+    (zeros on the others), so that the sum over the ranks is the whole
+    leaf's."""
+    from repro_torch.parallel import sharding as S
+
+    out = {}
+    for name, p in model.named_parameters():
+        if mesh is None:
+            out[name] = _sketch(torch, p, tuple(p.shape), (0,) * p.dim())
+            continue
+        spec = tuple(getattr(p, "spec", ())) + (None,) * p.dim()
+        axes = [() if e is None else (e,) if isinstance(e, str) else tuple(e)
+                for e in spec[:p.dim()]]
+        full = tuple(d * math.prod(mesh.shape.get(a, 1) for a in ax)
+                     for d, ax in zip(p.shape, axes))
+        starts = tuple(sl.start for sl in S.local_slice(full, spec[:p.dim()], mesh))
+        used = {a for ax in axes for a in ax}
+        if all(mesh.coords[a] == 0 for a in mesh.shape if a not in used):
+            out[name] = _sketch(torch, p, full, starts)
+        else:
+            out[name] = torch.zeros(SKETCH_BUCKETS, dtype=torch.float64, device=p.device)
+    return out
+
+
+def _minus(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in after}
+
+
+def _update_ratio(torch, got: dict, want: dict) -> dict:
+    """Each leaf's ‖got − want‖ / ‖want‖ (sketches of two updates): the
+    largest and its leaf, and the range of ‖got‖ / ‖want‖."""
+    worst, where, scale = -1.0, None, []
+    for name, w in want.items():
+        r = float((got[name] - w).norm() / w.norm().clamp_min(1e-300))
+        scale.append(float(got[name].norm() / w.norm().clamp_min(1e-300)))
+        if r > worst:
+            worst, where = r, name
+    return {"max_ratio": worst, "leaf": where, "norm_ratio": [min(scale), max(scale)],
+            "leaves": len(want)}
+
+
+def _compare_update(torch, mesh, model, before: dict, ref: dict | None) -> dict | None:
+    """The mesh's update of each leaf (``model``'s sketches − ``before``,
+    summed over the ranks) against rank 0's one-rank update sketches
+    ``ref``: ``_update_ratio``'s result on rank 0, None elsewhere."""
+    import torch.distributed as dist
+
+    delta = _minus(_sketches(torch, model, mesh), before)
+    names = list(delta)
+    stacked = torch.stack([delta[n] for n in names]).cpu()
+    dist.all_reduce(stacked)
+    if mesh.rank != 0:
+        return None
+    got = dict(zip(names, stacked.to(ref[names[0]].device)))
+    return _update_ratio(torch, got, ref)
+
+
+def _scatter_rows(torch, mesh, x, ref, split: bool):
+    """(max |x − ref rows|, RMS(x − ref), RMS(ref), max |ref|) over the ranks:
+    ``x`` this rank's rows (its DP lane's part of the batch when ``split``),
+    ``ref`` rank 0's whole host tensor."""
+    import torch.distributed as dist
+
+    recv = torch.empty(tuple(x.shape), dtype=x.dtype)
+    parts = None
+    if mesh.rank == 0:
+        n = x.shape[0]
+        parts = []
+        for r in range(mesh.size):
+            d = mesh.coords_of(r)["data"]
+            parts.append(ref[d * n:(d + 1) * n].contiguous() if split else ref)
+    dist.scatter(recv, parts, src=0)
+    diff = (x.detach().float() - recv.to(x.device).float())
+    mx = torch.tensor([float(diff.abs().max()), float(recv.abs().max())], dtype=torch.float64)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX)
+    sums = torch.tensor([float((diff.double() ** 2).sum()), float((recv.double() ** 2).sum()),
+                         float(diff.numel())], dtype=torch.float64)
+    dist.all_reduce(sums)
+    return (float(mx[0]), float((sums[0] / sums[2]).sqrt()), float((sums[1] / sums[2]).sqrt()),
+            float(mx[1]))
+
+
+def _mesh_stats(torch, dev, coll, t0) -> dict:
+    return {"collectives": coll.STATS["collectives"], "bytes": coll.STATS["bytes"],
+            "staged_bytes": coll.STATS["staged_bytes"],
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "s": time.perf_counter() - t0}
+
+
+def _mark(out: dict, label: str) -> None:
+    """A point of this rank's timeline: seconds since it started its case."""
+    out["timeline"].append((label, time.perf_counter() - out["t_start"]))
+
+
+def mesh_qwen_rank(rank, group, dev, tokens, ckpt_dir, control):
+    """qwen3-8b at full width (MESH_QWEN) on (data 2, model 2), FSDP: one
+    AdamW step, then one with ``compress_grads``; each held to the one-rank
+    step from the same seed on the same batch (rank 0 computes it first):
+    loss, gradient norm and each leaf's update; then the first block
+    group's leaves saved from (2, 2) and restored onto (4, 1) bit for bit.
+    With ``control``, rank 0 also reads the first step's one-rank update of
+    data lane 0's half of the batch against the whole batch's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import compress
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    _rank_setup(torch)
+    arch, layers, _ = MESH_QWEN
+    cfg = mesh_cfg(arch, layers)
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(**MESH_OPT))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    out = {"rank": rank, "timeline": [], "t_start": time.perf_counter()}
+    ref = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, MESH_SEED, device=dev, trainable=True)
+        s0 = _sketches(torch, model)
+        _mark(out, "one_rank sketch")
+        state = step_mod.state_for(model, tcfg)
+        state = state._replace(step=torch.ones_like(state.step))   # lr > 0 at once
+        step_fn = step_mod.build_train_step(cfg, tcfg, par.ParallelCtx())
+        state, m1 = step_fn(state, batch)
+        _mark(out, "one_rank step 1")
+        s1 = _sketches(torch, model)
+        ref["step1"] = _minus(s1, s0)
+        loss2, grads = step_mod._loss_and_grads(cfg, tcfg, model, batch)
+        grads = compress.compress_decompress(grads)
+        _, opt, m2 = opt_mod.apply_updates(tcfg.opt, grads, state.opt, model, state.step)
+        del grads, opt
+        ref["step2"] = _minus(_sketches(torch, model), s1)
+        _mark(out, "one_rank step 2")
+        out["one_rank"] = {"loss": [float(m1["loss"]), float(loss2)],
+                           "gnorm": [float(m1["gnorm"]), float(m2["gnorm"])],
+                           "s": time.perf_counter() - t0,
+                           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del model, state, step_fn, m1, m2
+        torch.cuda.empty_cache()
+        if control:
+            # The control: data lane 0's half of the batch.
+            model = T.init_params(cfg, MESH_SEED, device=dev, trainable=True)
+            state = step_mod.state_for(model, tcfg)
+            state = state._replace(step=torch.ones_like(state.step))
+            step_mod.build_train_step(cfg, tcfg, par.ParallelCtx())(
+                state, {"tokens": batch["tokens"][:tokens.shape[0] // MESH_SHAPE[0]]})
+            half = _minus(_sketches(torch, model), s0)
+            del model, state
+            torch.cuda.empty_cache()
+            out["control_half_batch"] = _update_ratio(torch, half, ref["step1"])
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    mesh = mesh_mod.make_mesh(MESH_SHAPE, MESH_AXES, group, device=dev)
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=True)
+    state = step_mod.make_train_state(cfg, tcfg, gen=MESH_SEED, device=dev, pctx=pctx)
+    state = state._replace(step=torch.ones_like(state.step))
+    before = _sketches(torch, state.params, mesh)
+    _mark(out, "mesh state")
+    t0 = time.perf_counter()
+    coll.reset_stats()
+    ops.reset_launch_counts()
+    state, m1 = step_mod.build_train_step(cfg, tcfg, pctx)(state, batch)
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["step1"] = {"loss": float(m1["loss"]), "gnorm": float(m1["gnorm"]),
+                    **_mesh_stats(torch, dev, coll, t0)}
+    _mark(out, "step 1")
+    out["step1"]["update"] = _compare_update(torch, mesh, state.params, before,
+                                             ref.pop("step1", None))
+    _mark(out, "compare 1")
+    before = _sketches(torch, state.params, mesh)
+    t1 = time.perf_counter()
+    coll.reset_stats()
+    state, m2 = step_mod.build_train_step(
+        cfg, tcfg, dataclasses.replace(pctx, compress_grads=True))(state, batch)
+    torch.cuda.synchronize()
+    out["step2"] = {"loss": float(m2["loss"]), "gnorm": float(m2["gnorm"]),
+                    **_mesh_stats(torch, dev, coll, t1)}
+    _mark(out, "step 2")
+    out["step2"]["update"] = _compare_update(torch, mesh, state.params, before,
+                                             ref.pop("step2", None))
+    _mark(out, "compare 2")
+    del before
+    out["backend"], out["staged"] = mesh.backend, mesh.staged
+    # The elastic restore: the first block group's leaves from (2, 2) onto
+    # (4, 1).
+    t2 = time.perf_counter()
+    blocks = {name: p for name, p in state.params.named_parameters()
+              if name.startswith("blocks.0.")}
+    with par.use(pctx):
+        ck.save(ckpt_dir, blocks, 1)
+    mesh41 = mesh_mod.make_mesh((4, 1), MESH_AXES, group, device=dev)
+    pctx41 = par.ParallelCtx(mesh=mesh41, fsdp=True)
+    specs = dict(T.leaf_specs(cfg, pctx41))
+    like = {name: torch.empty(0, device=dev) for name in blocks}
+    restored, _ = ck.restore(ckpt_dir, like, shardings={n: S.Spec(specs[n]) for n in blocks},
+                             mesh=mesh41)
+    equal = True
+    for name, p in blocks.items():
+        whole = S.unshard(p.detach(), p.spec, mesh)
+        mine = whole[S.local_slice(tuple(whole.shape), specs[name], mesh41)]
+        equal &= bool(torch.equal(mine, restored[name]))
+        del whole, mine
+    flags = torch.tensor([0.0 if equal else 1.0])
+    dist.all_reduce(flags)
+    out["elastic"] = {"from": "(data 2, model 2)", "to": "(data 4, model 1)",
+                      "leaves": len(blocks),
+                      "bytes_per_rank": sum(p.numel() * p.element_size() for p in blocks.values()),
+                      "bit_identical": float(flags) == 0.0,
+                      "s": time.perf_counter() - t2}
+    _mark(out, "elastic")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if rank == 0:
+        log(f"lm_mesh qwen3 rank 0: {json.dumps(out)}")
+    return out
+
+
+# name -> (moe_impl, a2a_int8, batch key, the route whose drops its
+# one-rank reference applies) of the llama4-scout forwards.
+MESH_MOE_CASES = {"epsum": ("epsum", False, "b4", "epsum"),
+                  "a2a": ("a2a", False, "b4", "a2a"),
+                  "a2a_int8": ("a2a", True, "b4", "a2a"),
+                  "a2a_replicated": ("a2a", False, "b1", "a2a_replicated")}
+
+
+def _llama_keep(torch, cfg, route):
+    return lambda topi: moe_mesh_keep(torch, topi, route, MESH_SHAPE[0], cfg.n_experts,
+                                      cfg.capacity_factor)
+
+
+def mesh_llama_rank(rank, group, dev, tokens, tokens1, tokens_step, control):
+    """llama4-scout at full width (MESH_LLAMA) on (data 2, model 2), at its
+    published capacity factor: the forward under epsum, a2a and a2a +
+    a2a_int8 at 4 × 2,048 tokens, the a2a branch with the tokens
+    replicated at batch 1, and one Adafactor step under a2a without and
+    one with the int8 wire (FSDP, 2 × 1,024 tokens), each held to the
+    one-rank run that rank 0 computes first: the "local" route at capacity
+    factor E with the mesh route's drops applied.  With ``control``, rank 0
+    also reads the step's one-rank update of data lane 0's half of the
+    batch against the whole batch's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import moe_gather, ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    _rank_setup(torch)
+    arch, layers, _, _ = MESH_LLAMA
+    cfg = mesh_cfg(arch, layers)
+    whole = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))   # drops nothing
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(name="adafactor", **MESH_OPT))
+    toks = {"b4": torch.as_tensor(tokens, device=dev), "b1": torch.as_tensor(tokens1, device=dev)}
+    step_batch = {"tokens": torch.as_tensor(tokens_step, device=dev)}
+    scalar_keys = [f"{r}/{q}" for r in ("epsum", "a2a", "a2a_replicated")
+                   for q in ("aux", "loss", "dropped")] + ["step_loss", "step_gnorm"]
+    out = {"rank": rank, "forward": {}, "timeline": [], "t_start": time.perf_counter()}
+    ref = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        model = T.init_params(whole, MESH_SEED, device=dev)
+        _mark(out, "one_rank init")
+        with torch.no_grad():
+            for route, key in (("epsum", "b4"), ("a2a", "b4"), ("a2a_replicated", "b1")):
+                t = toks[key]
+                with masked_routes(torch, L, _llama_keep(torch, cfg, route)) as calls:
+                    x, aux = T._hidden(whole, model, t, None, None, "cfg")
+                    ref[route] = x.cpu()
+                    ref[route + "/aux"] = float(aux)
+                    ref[route + "/loss"] = float(T.loss_fn(whole, model, {"tokens": t}))
+                ref[route + "/dropped"] = float((~calls[0][1]).sum())
+                del x
+                _mark(out, "one_rank forward")
+        model.requires_grad_(True)
+        s0 = _sketches(torch, model)
+        state = step_mod.state_for(model, tcfg)
+        state = state._replace(step=torch.ones_like(state.step))
+        _mark(out, "one_rank sketch")
+        with masked_routes(torch, L, _llama_keep(torch, cfg, "a2a")) as calls:
+            state, m = step_mod.build_train_step(whole, tcfg, par.ParallelCtx())(
+                state, step_batch)
+        ref["step_loss"], ref["step_gnorm"] = float(m["loss"]), float(m["gnorm"])
+        ref["step_dropped"] = int((~calls[0][1]).sum())
+        ref["step"] = _minus(_sketches(torch, model), s0)
+        _mark(out, "one_rank step")
+        out["one_rank"] = {"s": time.perf_counter() - t0,
+                           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                           **{k: v for k, v in ref.items() if isinstance(v, (int, float))}}
+        del model, state, m
+        torch.cuda.empty_cache()
+        if control:
+            model = T.init_params(whole, MESH_SEED, device=dev, trainable=True)
+            state = step_mod.state_for(model, tcfg)
+            state = state._replace(step=torch.ones_like(state.step))
+            half = {"tokens": step_batch["tokens"][:tokens_step.shape[0] // MESH_SHAPE[0]]}
+            with masked_routes(torch, L, _llama_keep(torch, cfg, "a2a")):
+                step_mod.build_train_step(whole, tcfg, par.ParallelCtx())(state, half)
+            half = _minus(_sketches(torch, model), s0)
+            del model, state
+            torch.cuda.empty_cache()
+            out["control_half_batch"] = _update_ratio(torch, half, ref["step"])
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    mesh = mesh_mod.make_mesh(MESH_SHAPE, MESH_AXES, group, device=dev)
+    scalars = torch.tensor([float(ref.get(k, 0.0)) for k in scalar_keys], dtype=torch.float64)
+    dist.broadcast(scalars, src=0)
+    ref_scalars = dict(zip(scalar_keys, scalars.tolist()))
+    model, built_for = None, None
+    for name, (impl, int8, key, ref_route) in MESH_MOE_CASES.items():
+        t0 = time.perf_counter()
+        pctx = par.ParallelCtx(mesh=mesh, moe_impl=impl, a2a_int8=int8)
+        if built_for != impl:
+            model = None
+            torch.cuda.empty_cache()
+            model = T.init_params(cfg, MESH_SEED, device=dev, pctx=pctx)
+            built_for = impl
+        local, split = pctx.shard_batch({"tokens": toks[key]})
+        coll.reset_stats()
+        ops.reset_launch_counts()
+        with torch.no_grad(), par.use(dataclasses.replace(pctx, batch_sharded=split)):
+            route = L.moe_route(cfg)
+            x, aux = T._hidden(cfg, model, local["tokens"], None, None, "cfg")
+            loss = float(T.loss_fn(cfg, model, local))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        mx, rms, ref_rms, ref_max = _scatter_rows(torch, mesh, x, ref.get(ref_route), split)
+        out["forward"][name] = {
+            "route": route, "tokens": list(toks[key].shape), "split": split,
+            "dropped_copies": int(ref_scalars[ref_route + "/dropped"]),
+            "launches": launches, "int8_launches": moe_gather.mode_launches["int8"],
+            "max_abs": mx, "max_abs_one_rank": ref_max, "rms_ratio": rms / ref_rms,
+            "aux": float(aux), "aux_one_rank": ref_scalars[ref_route + "/aux"], "loss": loss,
+            "loss_one_rank": ref_scalars[ref_route + "/loss"],
+            **_mesh_stats(torch, dev, coll, t0)}
+        del x
+        _mark(out, "forward")
+    del model
+    ref = {"step": ref.get("step")}
+    torch.cuda.empty_cache()
+    # The Adafactor step under a2a, FSDP: without the int8 wire (exact), then with it.
+    out["step"] = {}
+    for name, int8 in (("a2a", False), ("a2a_int8", True)):
+        pctx = par.ParallelCtx(mesh=mesh, fsdp=True, moe_impl="a2a", a2a_int8=int8)
+        state = step_mod.make_train_state(cfg, tcfg, gen=MESH_SEED, device=dev, pctx=pctx)
+        state = state._replace(step=torch.ones_like(state.step))
+        before = _sketches(torch, state.params, mesh)
+        _mark(out, "step state")
+        t0 = time.perf_counter()
+        coll.reset_stats()
+        ops.reset_launch_counts()
+        state, m = step_mod.build_train_step(cfg, tcfg, pctx)(state, step_batch)
+        torch.cuda.synchronize()
+        out["step"][name] = {
+            "optimizer": "adafactor", "tokens": list(step_batch["tokens"].shape),
+            "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+            "loss_one_rank": ref_scalars["step_loss"],
+            "gnorm_one_rank": ref_scalars["step_gnorm"],
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "int8_launches": moe_gather.mode_launches["int8"],
+            **_mesh_stats(torch, dev, coll, t0)}
+        out["step"][name]["update"] = _compare_update(torch, mesh, state.params, before,
+                                                      ref["step"])
+        _mark(out, "step and compare")
+        del state, m, before
+        torch.cuda.empty_cache()
+    out["backend"], out["staged"] = mesh.backend, mesh.staged
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if rank == 0:
+        log(f"lm_mesh llama4 rank 0: {json.dumps(out)}")
+    return out
+
+
+def mesh_b9_int8(torch, ops, ref, dev) -> dict:
+    """B9's int8 mode at the a2a send-buffer shape of the llama4 run (4,096
+    local tokens, top-1, 2 ``data`` lanes of ⌈4,096 / 2 · 1.25⌉ = 2,560
+    slots): the kernel against its plain version bit for bit, timed beside
+    it and ``index_select``; bound by bytes (kept rows read, ids read, int8
+    rows and scales written)."""
+    _, _, (b, s), _ = MESH_LLAMA
+    cfg = mesh_cfg(MESH_LLAMA[0], MESH_LLAMA[1])
+    t = b * s // MESH_SHAPE[0]
+    lanes = MESH_SHAPE[0]
+    cap = int(math.ceil(t * cfg.topk / lanes * cfg.capacity_factor))
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((t, cfg.d_model), generator=g, device=dev)
+    dest = torch.randint(0, lanes, (t,), generator=g, device=dev)
+    idx = torch.full((lanes, cap), -1, dtype=torch.int32, device=dev)
+    for lane in range(lanes):
+        tok = torch.nonzero(dest == lane)[:cap, 0].to(torch.int32)
+        idx[lane, :tok.numel()] = tok
+    idx = idx.reshape(-1)
+    got, want = ops.dispatch_gather(x, idx, quant=True), ref.dispatch_gather(x, idx, quant=True)
+    torch.cuda.synchronize()
+    if not (same(torch, got[0], want[0]) and same(torch, got[1], want[1])):
+        raise RuntimeError("dispatch_gather int8 at the a2a send shape: kernel differs from "
+                           "its plain version")
+    kept = int((idx >= 0).sum())
+    d = cfg.d_model
+    nbytes = kept * d * 4 + idx.numel() * 4 + idx.numel() * d + idx.numel() * 4
+    ops_count = kept * d * 6
+    return {"shape": [t, d, idx.numel(), "float32"], "kept_rows": kept, "exact": True,
+            "max_abs_err": 0.0,
+            "ms": median_ms(torch, lambda: ops.dispatch_gather(x, idx, quant=True), 20, per=10),
+            "plain_ms": median_ms(torch, lambda: ref.dispatch_gather(x, idx, quant=True), 5),
+            "library_ms": median_ms(torch, lambda: x.index_select(0, idx.clamp_min(0)), 20,
+                                    per=10),
+            "bound_ms": bound(ops_count, nbytes)[0], "bound_by": bound(ops_count, nbytes)[1],
+            "bytes": nbytes, "operations": ops_count}
+
+
+def mesh_nccl_rank(rank, group, dev, tokens):
+    """One rank on NCCL (each rank its own card: here one rank, one card): a
+    (data 1, model 1) mesh and one AdamW step of qwen3-8b at full width
+    (MESH_QWEN's depth), an all-reduce on the group to show NCCL runs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import api as par
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    _rank_setup(torch)
+    mesh = mesh_mod.make_mesh((1, 1), MESH_AXES, group, device=dev)
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe)
+    cfg = mesh_cfg(MESH_QWEN[0], MESH_QWEN[1])
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(**MESH_OPT))
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=True)
+    state = step_mod.make_train_state(cfg, tcfg, gen=MESH_SEED, device=dev, pctx=pctx)
+    state, m = step_mod.build_train_step(cfg, tcfg, pctx)(
+        state, {"tokens": torch.as_tensor(tokens, device=dev)})
+    torch.cuda.synchronize()
+    return {"backend": mesh.backend, "staged": mesh.staged, "loss": float(m["loss"]),
+            "all_reduce": float(probe.sum()), "device_count": torch.cuda.device_count()}
+
+
+def _step_gates(tag: str, got: dict, loss_one: float, gnorm_one: float, kind: str) -> list:
+    """A mesh step against the one-rank step: loss, gradient norm and each
+    leaf's update (MESH_* tolerances above; ``kind`` "exact", "compress"
+    or "int8")."""
+    fails = []
+    loss_tol = MESH_INT8_LOSS_RTOL if kind == "int8" else MESH_LOSS_RTOL
+    if not abs(got["loss"] - loss_one) <= loss_tol * abs(loss_one):
+        fails.append(f"{tag} loss {got['loss']} vs {loss_one}")
+    if not abs(got["gnorm"] - gnorm_one) <= MESH_GNORM_RTOL * abs(gnorm_one):
+        fails.append(f"{tag} gnorm {got['gnorm']} vs {gnorm_one}")
+    if not got["update"]["max_ratio"] <= MESH_UPDATE_RTOL[kind]:
+        fails.append(f"{tag} update {got['update']}")
+    return fails
+
+
+def lm_mesh_phase(torch, np, ops, ref, dev, card: str, control: bool = False
+                  ) -> tuple[dict, dict]:
+    """The lm_mesh phase: qwen3-8b and llama4-scout at full width over 4
+    ranks on this card, the serve CLI over 2, NCCL at world size 1, and B9's
+    int8 mode at the a2a send shape.  ``control`` adds the half-batch
+    update controls (tools/mesh_phase.py --control).  Returns (its line,
+    the int8 kernel entry)."""
+    import argparse
+    import tempfile
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    failures = []
+    qcfg = mesh_cfg(MESH_QWEN[0], MESH_QWEN[1])
+    lcfg = mesh_cfg(MESH_LLAMA[0], MESH_LLAMA[1])
+    tokens_q = mesh_tokens(np, qcfg, MESH_QWEN[2], 1)
+    tokens_l = mesh_tokens(np, lcfg, MESH_LLAMA[2], 2)
+    tokens_s = mesh_tokens(np, lcfg, MESH_LLAMA[3], 3)
+    timing: dict = {}
+    with tempfile.TemporaryDirectory(prefix="lm-mesh-") as tmp:
+        t0 = time.perf_counter()
+        qwen, llama = ranks.run_cases(
+            [ranks.Case(mesh_qwen_rank, 4, (tokens_q, tmp + "/ckpt", control)),
+             ranks.Case(mesh_llama_rank, 4, (tokens_l, tokens_l[:1], tokens_s, control))],
+            4, device=dev.type, timing=timing, timeout=900)
+        spawn_s = time.perf_counter() - t0
+    q0, l0 = qwen[0], llama[0]
+    # qwen3-8b: both steps against the one-rank steps.
+    for i, key in enumerate(("step1", "step2")):
+        failures += _step_gates(f"qwen3 {key}", q0[key], q0["one_rank"]["loss"][i],
+                                q0["one_rank"]["gnorm"][i], ("exact", "compress")[i])
+    if not q0["elastic"]["bit_identical"]:
+        failures.append("qwen3 elastic restore (2, 2) -> (4, 1) differs")
+    if q0["launches"].get("flash_attention", 0) < 1:
+        failures.append(f"qwen3 mesh step launched {q0['launches']}")
+    # llama4-scout: each forward against the one-rank route with its drops.
+    b9_launches = 0
+    for name, f in l0["forward"].items():
+        want_route = MESH_MOE_CASES[name][0]
+        int8 = MESH_MOE_CASES[name][1]
+        if f["route"] != want_route:
+            failures.append(f"llama4 {name}: route {f['route']}")
+        if int8 and f["split"]:       # the replicated branch has no wire
+            if f["rms_ratio"] > MESH_INT8_RMS:
+                failures.append(f"llama4 {name}: RMS ratio {f['rms_ratio']}")
+        elif f["max_abs"] > MESH_HIDDEN_TOL[1] + MESH_HIDDEN_TOL[0] * f["max_abs_one_rank"]:
+            failures.append(f"llama4 {name}: max |mesh - one rank| {f['max_abs']}")
+        if abs(f["aux"] - f["aux_one_rank"]) > 1e-3 * abs(f["aux_one_rank"]):
+            failures.append(f"llama4 {name}: aux {f['aux']} vs {f['aux_one_rank']}")
+        if abs(f["loss"] - f["loss_one_rank"]) > (
+                MESH_INT8_LOSS_RTOL if int8 and f["split"] else MESH_LOSS_RTOL) * abs(
+                    f["loss_one_rank"]):
+            failures.append(f"llama4 {name}: loss {f['loss']} vs {f['loss_one_rank']}")
+        want = {"flash_attention", "dispatch_gather"}
+        per_rank = [r["forward"][name]["launches"] for r in llama]
+        if any(set(lr) != want for lr in per_rank):
+            failures.append(f"llama4 {name}: launches {per_rank}")
+        # One send-path launch a MoE layer in each of the two passes (the
+        # hidden states, the loss).
+        int8_per_rank = [r["forward"][name]["int8_launches"] for r in llama]
+        n_moe = lcfg.n_groups * sum(moe for _, moe in lcfg.layer_kinds())
+        if int8_per_rank != [2 * n_moe if int8 and f["split"] else 0] * len(llama):
+            failures.append(f"llama4 {name}: int8 launches {int8_per_rank}")
+        b9_launches += sum(int8_per_rank)
+    for name, st in l0["step"].items():
+        failures += _step_gates(f"llama4 step {name}", st, st["loss_one_rank"],
+                                st["gnorm_one_rank"], "int8" if name.endswith("int8") else "exact")
+    b9_step = sum(r["step"]["a2a_int8"]["int8_launches"] for r in llama)
+    if [r["step"]["a2a"]["int8_launches"] for r in llama] != [0] * len(llama):
+        failures.append("llama4 step a2a: the int8 wire ran without a2a_int8")
+    # The serve CLI's LM loop over 2 ranks against one card, at a cut depth.
+    t_serve = time.perf_counter()
+    arch, layers, n = MESH_SERVE
+    args = dict(arch=arch, tiny=False, requests=4, prompt_len=128, gen=8, temperature=0.0,
+                seed=0, device="cuda")
+    cut = mesh_cfg(arch, layers)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        one = serve.serve_lm(argparse.Namespace(**args, mesh_devices=0), cfg=cut)
+        torch.cuda.empty_cache()
+        many = serve.serve_lm(argparse.Namespace(**args, mesh_devices=n), cfg=cut)
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    serve_line = {"args": args, "layers": layers, "mesh_devices": n, "tokens_equal": bool(
+        torch.equal(one.cpu(), many.cpu())), "one_card": lines[0], "ranks": lines[1],
+                  "s": time.perf_counter() - t_serve}
+    if not serve_line["tokens_equal"] or lines[1].get("ranks") != n:
+        failures.append(f"serve over {n} ranks: {serve_line}")
+    torch.cuda.empty_cache()
+    # NCCL at world size 1.
+    t_nccl = time.perf_counter()
+    nccl_timing: dict = {}
+    nccl = ranks.run_cases([ranks.Case(mesh_nccl_rank, 1, (tokens_q[:1, :512],))], 1,
+                           device=dev.type, timing=nccl_timing, timeout=600)[0][0]
+    nccl.update(timing=nccl_timing, s=time.perf_counter() - t_nccl,
+                note=f"{torch.cuda.device_count()} card(s) on this machine: NCCL ran at world "
+                     "size 1 only; several cards were not available")
+    if nccl["backend"] != "nccl" or nccl_timing.get("backend") != "nccl" \
+            or not math.isfinite(nccl["loss"]) or nccl["all_reduce"] != 4.0:
+        failures.append(f"nccl world 1: {nccl}")
+    b9 = mesh_b9_int8(torch, ops, ref, dev)
+    b9["launches"] = b9_launches
+    b9["launches_in_the_step"] = b9_step
+    if b9_launches < 1:
+        failures.append("B9's int8 mode was not launched on the a2a path")
+    line = {"card": card, "ranks": 4, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+            "backend": q0["backend"], "staged": q0["staged"], "spawn": timing,
+            "spawn_call_s": spawn_s,
+            "note": "the 4 ranks time-slice one card and every collective stages through "
+                    "the host over gloo: no collective bandwidth here is NCCL's",
+            "qwen3": {"arch": MESH_QWEN[0], "layers": MESH_QWEN[1], "tokens": MESH_QWEN[2],
+                      "opt": MESH_OPT, "one_rank": q0["one_rank"], "step1": q0["step1"],
+                      "step2": q0["step2"], "elastic": q0["elastic"],
+                      "control_half_batch": q0.get("control_half_batch"),
+                      "timeline": q0["timeline"],
+                      "launches": [r["launches"] for r in qwen],
+                      "peak_gb": [r["peak_gb"] for r in qwen],
+                      "staged_bytes": [r["step1"]["staged_bytes"] for r in qwen]},
+            "llama4": {"arch": MESH_LLAMA[0], "layers": MESH_LLAMA[1],
+                       "capacity_factor": lcfg.capacity_factor, "opt": MESH_OPT,
+                       "one_rank": l0["one_rank"], "forward": l0["forward"], "step": l0["step"],
+                       "control_half_batch": l0.get("control_half_batch"),
+                       "timeline": l0["timeline"],
+                       "peak_gb": [r["peak_gb"] for r in llama]},
+            "serve": serve_line, "nccl_world_1": nccl, "b9_int8": b9,
+            "failures": failures, "lm_mesh_phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"lm_mesh": line}), flush=True)
+    if failures:
+        raise RuntimeError(f"lm_mesh: {failures}")
+    entry = {"name": "dispatch_gather_int8", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/moe_gather.cu",
+             "replaces": LM_KERNEL_REPLACES["dispatch_gather"],
+             "launched_in": "the MoE a2a island's send buffer under a2a_int8 (lm_mesh: llama4-scout "
+                     "over 4 ranks)", **{k: b9[k] for k in (
+                         "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "shape", "exact")},
+             "launches_in_the_step": b9_step, "library": "index_select (no mask, no int8)"}
+    return line, entry
+
+
 def main() -> int:
     # Before torch touches the card: kimi-k2's float32 run fills it to within
     # a few GB, where the caching allocator's split blocks would not fit.
@@ -4242,6 +5070,14 @@ def main() -> int:
             entry["train_backward"] = "the plain version's VJP (kernels/ops.py)"
     print(json.dumps({"lm_train_cli": train_cli_runs(torch, ops),
                       "lm_train_phase_s": time.perf_counter() - t_train}), flush=True)
+    torch.cuda.empty_cache()
+
+    # -- LM over a mesh of 4 ranks on this card, the serve CLI over 2, NCCL --
+    _, b9_int8 = lm_mesh_phase(torch, np, ops, ref, dev, card.splitlines()[0])
+    lm_kernels.append(b9_int8)
+    dg = next(e for e in lm_kernels if e["name"] == "dispatch_gather")
+    dg["int8"]["launches"] = b9_int8["launches"]
+    dg["int8"]["launched_in"] = b9_int8["launched_in"]
     torch.cuda.empty_cache()
 
     # -- 2. full width: eps search on the default configuration ----------

@@ -670,8 +670,9 @@ SCHEDULE_FNS = {"sync": merge_sync, "async": merge_async, "tree": merge_tree}
 class Wire:
     """A ClusterSet's trip between the ranks of a ``torch.distributed``
     group: the five leaves packed into one uint8 message of
-    ``pytree_wire_bytes`` bytes, copied to the host (the group's backend,
-    gloo, moves host memory), sent, and copied back to the rank's device.
+    ``pytree_wire_bytes`` bytes, copied to the host when the group's
+    backend is gloo (which moves host memory; NCCL moves the card's),
+    sent, and copied back to the rank's device.
     This is the inter-node message of the paper's phase 2.  ``sent``
     counts the bytes of this rank's messages over every link: an
     all-gather's buffer once for each other rank, a send once."""
@@ -681,6 +682,8 @@ class Wire:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.device = torch.device(device)
+        self.wire_device = (torch.device("cpu") if dist.get_backend(group) == "gloo"
+                            else self.device)
         c, v = cfg.max_clusters, cfg.max_verts
         self.shapes = ((c, v, 2), (c,), (c,), (c,), ())
         self.nbytes = cfg.buffer_bytes()
@@ -690,7 +693,7 @@ class Wire:
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
     def pack(self, cs: ClusterSet) -> torch.Tensor:
-        return torch.cat([t.reshape(-1).view(torch.uint8) for t in cs]).cpu()
+        return torch.cat([t.reshape(-1).view(torch.uint8) for t in cs]).to(self.wire_device)
 
     def unpack(self, buf: torch.Tensor) -> ClusterSet:
         buf = buf.to(self.device)
@@ -703,7 +706,8 @@ class Wire:
 
     def all_gather(self, cs: ClusterSet) -> list:
         """Every rank's ClusterSet, in rank order."""
-        out = [torch.empty(self.nbytes, dtype=torch.uint8) for _ in range(self.size)]
+        out = [torch.empty(self.nbytes, dtype=torch.uint8, device=self.wire_device)
+               for _ in range(self.size)]
         dist.all_gather(out, self.pack(cs), group=self.group)
         self.sent += (self.size - 1) * self.nbytes
         return [self.unpack(b) for b in out]
@@ -719,7 +723,8 @@ class Wire:
             buf = packed.setdefault(id(cs), self.pack(cs))
             ops.append(dist.P2POp(dist.isend, buf, self._peer(dst), self.group))
             self.sent += self.nbytes
-        got = [torch.empty(self.nbytes, dtype=torch.uint8) for _ in srcs]
+        got = [torch.empty(self.nbytes, dtype=torch.uint8, device=self.wire_device)
+               for _ in srcs]
         ops += [dist.P2POp(dist.irecv, buf, self._peer(src), self.group)
                 for buf, src in zip(got, srcs)]
         if ops:

@@ -6,7 +6,9 @@ dispatch_gather``: slot i of the output gets token row ``idx[i]`` of x,
 or zeros where ``idx[i] < 0``.  A CUDA tensor launches the kernel on the
 current stream; a CPU tensor runs ``ref.dispatch_gather``; any other
 device raises.  ``launches`` counts kernel launches (either mode) and
-nothing else.
+nothing else; ``mode_launches`` splits them into "copy" and "int8" (the
+a2a wire), outside ``ops.launch_counts()``, as ``flash_attention``'s
+``route_launches``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from . import _build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"dispatch_gather": 0}
+mode_launches = {"copy": 0, "int8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,4 +81,5 @@ def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
         msg = lib.dispatch_gather_error_string(code).decode()
         raise _build.KernelLaunchError(f"dispatch_gather: CUDA error {code} ({msg})")
     launches["dispatch_gather"] += 1
+    mode_launches["int8" if quant else "copy"] += 1
     return buf, scales

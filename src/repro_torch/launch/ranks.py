@@ -4,12 +4,14 @@ group: the port's counterpart of the reference's K-device mesh, on which
 ranks.
 
 The ranks are ``torch.multiprocessing`` processes started with ``spawn``
-(never ``fork``: the parent may hold a CUDA context), joined by a gloo
-group through a ``file://`` store in a temporary directory.  Rank r
-works on ``cuda:(r % device_count)``, or on the CPU when asked: on one
-card all ranks share it (their contexts time-slice), and gloo, which
-moves host memory, is the group's backend (NCCL refuses two ranks on one
-card).  ``spawn`` hands each rank the parent's ``sys.path``, so a
+(never ``fork``: the parent may hold a CUDA context), joined by one group
+through a ``file://`` store in a temporary directory.  Rank r works on
+``cuda:(r % device_count)``, or on the CPU when asked.  The group's
+backend follows ``launch.mesh.choose_backend``: NCCL when every rank has
+a card of its own, gloo (which moves host memory) when ranks share a
+card (their contexts time-slice; NCCL refuses two ranks on one card) or
+run on the CPU.  ``run_cases`` reports the backend it chose in
+``timing["backend"]``.  ``spawn`` hands each rank the parent's ``sys.path``, so a
 parent that imports this package from ``src`` needs nothing more.  The
 parent builds the CUDA kernels before it spawns, so the ranks only load
 them.  A rank that raises fails the call with its
@@ -38,6 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core import ddc
 from repro_torch.kernels import _build, ops
+from repro_torch.launch.mesh import choose_backend
 
 @dataclasses.dataclass
 class Case:
@@ -57,7 +60,8 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return dev
 
 
-def _entry(rank: int, world: int, tmp: str, device: str, timeout_s: float) -> None:
+def _entry(rank: int, world: int, tmp: str, device: str, timeout_s: float,
+           backend: str) -> None:
     t_entry = time.time()
     with open(Path(tmp) / "cases.pkl", "rb") as f:
         cases = pickle.load(f)
@@ -69,7 +73,7 @@ def _entry(rank: int, world: int, tmp: str, device: str, timeout_s: float) -> No
         torch.zeros(1, device=dev).add_(1)
         torch.cuda.synchronize(dev)
     t_ready = time.time()
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     groups = {k: None if k == world else dist.new_group(list(range(k)))
               for k in sorted({case.k for case in cases})}
@@ -85,12 +89,13 @@ def _entry(rank: int, world: int, tmp: str, device: str, timeout_s: float) -> No
 def run_cases(cases: list, world: int | None = None, *, device="cuda", timeout: float = 900.0,
               timing: dict | None = None) -> list:
     """Run every ``Case`` in one spawn of ``world`` ranks (default: the
-    largest k), each rank on one CPU thread.  Returns, for each case, the
-    list of its ranks' results.  ``timing`` is filled with
-    the spawn's start-up seconds: until the slowest rank ran
-    (``spawn_s``), its device set up (``device_init_s``) and the group
-    formed (``group_init_s``)."""
+    largest k), each rank on one CPU thread, over ``choose_backend``'s
+    backend.  Returns, for each case, the list of its ranks' results.
+    ``timing`` is filled with the backend and the spawn's start-up
+    seconds: until the slowest rank ran (``spawn_s``), its device set up
+    (``device_init_s``) and the group formed (``group_init_s``)."""
     world = world or max(case.k for case in cases)
+    backend = choose_backend(world, device)
     if any(not 1 <= case.k <= world for case in cases):
         raise ValueError(f"every case needs 1..{world} ranks: {[case.k for case in cases]}")
     if torch.device(device).type == "cuda":
@@ -106,7 +111,7 @@ def run_cases(cases: list, world: int | None = None, *, device="cuda", timeout: 
             pickle.dump(cases, f)
         t0 = time.time()
         ctx = torch.multiprocessing.start_processes(
-            _entry, args=(world, tmp, str(device), timeout),
+            _entry, args=(world, tmp, str(device), timeout, backend),
             nprocs=world, join=False, start_method="spawn")
         while not ctx.join(timeout=0.5):
             if time.time() - t0 > timeout:
@@ -118,7 +123,7 @@ def run_cases(cases: list, world: int | None = None, *, device="cuda", timeout: 
             with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
                 out.append(pickle.load(f))
     if timing is not None:
-        timing.update(spawn_s=max(o["t_entry"] for o in out) - t0,
+        timing.update(backend=backend, spawn_s=max(o["t_entry"] for o in out) - t0,
                       device_init_s=max(o["t_ready"] - o["t_entry"] for o in out),
                       group_init_s=max(o["t_group"] for o in out) - max(o["t_ready"] for o in out))
     return [[out[r]["results"][i] for r in range(case.k)] for i, case in enumerate(cases)]

@@ -11,9 +11,16 @@ CPU).
   device seeded with ``--seed`` (the reference's ``jax.random`` draws
   cannot be reproduced; ``params_from_jax`` carries them across), the
   parameters in float32 as the reference's.  Greedy unless
-  ``--temperature`` > 0, which samples with the same generator.  One card:
-  ``--mesh-devices`` above 1 raises.  Prints one JSON line with the
-  reference's keys and the device.
+  ``--temperature`` > 0, which samples with the same generator.
+  ``--mesh-devices N`` (N > 1) serves over N rank processes
+  (``launch/ranks.py``), the reference's host mesh of N ``data`` lanes
+  with the parameters unsharded: every rank draws the same parameters and
+  requests, generates for its part of the requests (all of them when
+  they do not divide), and the tokens are gathered to rank 0; a sampling
+  rank draws for every request and keeps its own rows, so the tokens are
+  the one-process run's.  Prints one JSON line with the reference's keys and the device
+  (over ranks also their count, the backend and whether collectives
+  staged through the host).
 * ``--mode ddc`` — the streaming spatial-clustering service: ingest a
   synthetic layout shard by shard with an incremental delta-merge refresh
   after every batch, then serve point -> cluster queries.  Prints one JSON
@@ -109,26 +116,62 @@ def main(argv=None):
     return serve_lm(args)
 
 
-def serve_lm(args, *, model=None, prompts=None, frames=None, prefix=None):
+def serve_lm(args, *, cfg=None, model=None, prompts=None, frames=None, prefix=None):
     """The LM request loop (the reference's ``serve_lm``): one greedy
     generation of ``args.gen`` tokens for ``args.requests`` prompts, timed,
     printed as one JSON line; returns the tokens (requests, gen).  A
-    caller may hand over the model, prompts, frames or prefix (a parity
+    caller may hand over the configuration (in place of ``args.arch``'s,
+    e.g. one cut in depth), the model, prompts, frames or prefix (a parity
     check with the reference's draws); what it leaves out is drawn from
     the seeded generator, in the reference's order."""
     import torch
 
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer as T
+
+    n = args.mesh_devices or 1
+    if n <= 1:
+        out, line = _serve_lm(args, None, cfg, model, prompts, frames, prefix)
+    else:
+        T._device(args.device)
+        host = {k: v if v is None or not isinstance(v, torch.Tensor) else v.cpu()
+                for k, v in dict(model=model, prompts=prompts, frames=frames,
+                                 prefix=prefix).items()}
+        timing: dict = {}
+        res = ranks.run_cases([ranks.Case(serve_rank, n, (args, cfg, host))], n,
+                              device=args.device, timing=timing)[0][0]
+        out, line = torch.as_tensor(res[0]), res[1]
+    print(json.dumps(line))
+    return out
+
+
+def serve_rank(rank, group, dev, args, cfg, given):
+    """One rank of ``--mesh-devices N``: (the gathered tokens as an array,
+    the JSON line's fields)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    args = argparse.Namespace(**{**vars(args), "device": str(dev)})
+    given = {k: None if v is None else v.to(dev) for k, v in given.items()}
+    out, line = _serve_lm(args, mesh_mod.make_host_mesh(group=group, device=dev), cfg,
+                          **given)
+    return out.cpu().numpy(), line
+
+
+def _serve_lm(args, mesh, cfg=None, model=None, prompts=None, frames=None, prefix=None):
+    import dataclasses
+
+    import torch
+
     from repro_torch import configs
     from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
     from repro_torch.serve import engine
 
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            f"--mesh-devices {args.mesh_devices}: serving across several cards is not "
-            "ported yet (ROADMAP A10 item 6); the port serves on one card")
-    cfg = configs.get_config(args.arch)
-    if args.tiny:
-        cfg = cfg.tiny()
+    if cfg is None:
+        cfg = configs.get_config(args.arch)
+        if args.tiny:
+            cfg = cfg.tiny()
     dev = T._device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     if model is None:
@@ -145,21 +188,33 @@ def serve_lm(args, *, model=None, prompts=None, frames=None, prefix=None):
         kw["prefix"] = prefix if prefix is not None else torch.randn(
             (args.requests, cfg.prefix_len, cfg.d_model), generator=gen, device=dev) * 0.1
 
+    pctx = par.ParallelCtx(mesh=mesh)
+    split = False
+    if mesh is not None:
+        local, split = pctx.shard_batch({"prompts": prompts, **kw})
+        prompts = local.pop("prompts")
+        kw = local
+        pctx = dataclasses.replace(pctx, batch_sharded=split)
     t0 = time.time()
-    out = engine.greedy_generate(
-        cfg, model, prompts, args.gen, scfg, temperature=args.temperature,
-        generator=gen if args.temperature > 0 else None, **kw)
+    with par.use(pctx):
+        out = engine.greedy_generate(
+            cfg, model, prompts, args.gen, scfg, temperature=args.temperature,
+            generator=gen if args.temperature > 0 else None, **kw)
+        if split:
+            out = coll.gather_raw(out, mesh, pctx.dp_axes, 0)
     dt = time.time() - t0
     toks = args.requests * args.gen
-    print(json.dumps({
+    line = {
         "requests": args.requests,
         "generated_tokens": toks,
         "wall_s": round(dt, 3),
         "tok_per_s": round(toks / dt, 2),
         "sample_output": out[0][:8].tolist(),
         "device": str(dev),
-    }))
-    return out
+    }
+    if mesh is not None:
+        line.update(ranks=mesh.size, backend=mesh.backend, staged=mesh.staged)
+    return out, line
 
 
 def serve_ddc(args):

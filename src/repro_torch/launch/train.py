@@ -1,5 +1,5 @@
-"""End-to-end training on one card: the port of the reference
-package's ``launch/train.py``.
+"""End-to-end training on one card or over a mesh of ranks: the port of
+the reference package's ``launch/train.py``.
 
 Wires together: config registry → train state (``train/step.py``) →
 deterministic data pipeline (``data/pipeline.py``, optionally DDC-curated
@@ -12,9 +12,16 @@ falls back to the CPU).  Prints the reference's JSON log line every
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen3-8b --tiny --steps 50 --batch 8 --seq 128
 
-The multi-card flags (``--mesh production``, ``--multi-pod``,
-``--mesh-devices`` > 1, ``--fsdp``, ``--compress-grads``) raise
-``ValueError``: the port drives one card (ROADMAP A10 item 6).
+``--mesh host --mesh-devices N`` (N > 1) trains on N rank processes
+(``launch/ranks.py::run_cases``; NCCL when each rank has a card of its
+own, gloo when they share one) over the reference's host mesh, N lanes of
+``data``, with ``--fsdp`` and ``--compress-grads`` as the reference reads
+them; every rank draws the same parameters and batches and keeps its
+part.  Rank 0 prints the log (with the backend, and whether collectives
+staged through the host) and writes the checkpoints.  ``--mesh
+production`` (``--multi-pod``) lays the state out on the (16, 16)
+((2, 16, 16)) mesh, which needs 256 (512) ranks: with fewer it raises
+``ValueError``, as the reference does short of devices.
 """
 from __future__ import annotations
 
@@ -23,8 +30,6 @@ import json
 import time
 
 import numpy as np
-
-MULTI_CARD = "needs several cards, which the port does not drive yet (ROADMAP A10 item 6)"
 
 
 def parser() -> argparse.ArgumentParser:
@@ -66,6 +71,45 @@ def train(args, state=None):
     reference's ``jax.random`` parameters); otherwise it is drawn from
     ``TrainConfig.seed``.  ``--resume`` replaces it with the latest
     checkpoint in ``--ckpt-dir``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer as T
+
+    if args.mesh == "production" or args.multi_pod:
+        shape, _ = mesh_mod.production_shape(args.multi_pod)
+        need = int(np.prod(shape))
+        have = dist.get_world_size() if dist.is_initialized() else 1
+        if have != need:
+            raise ValueError(f"--mesh production{' --multi-pod' if args.multi_pod else ''}: it "
+                             f"lays the state over {shape}, which needs {need} ranks, and "
+                             f"{have} run")
+        return _train(args, mesh_mod.make_production_mesh(multi_pod=args.multi_pod,
+                                                          device=T._device(args.device)),
+                      state)
+    n = args.mesh_devices or 1
+    if n > 1:
+        if state is not None:
+            raise ValueError("a given state is one process's; --mesh-devices > 1 draws its own")
+        T._device(args.device)
+        timing: dict = {}
+        out = ranks.run_cases([ranks.Case(train_rank, n, (args,))], n, device=args.device,
+                              timing=timing)[0]
+        return out[0]
+    return _train(args, None, state)
+
+
+def train_rank(rank, group, dev, args):
+    """One rank of ``--mesh-devices N``: the host mesh of N ``data`` lanes
+    on this rank's device; returns its losses."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    args = argparse.Namespace(**{**vars(args), "device": str(dev)})
+    return _train(args, mesh_mod.make_host_mesh(group=group, device=dev), None)
+
+
+def _train(args, mesh, state):
     import torch
 
     from repro_torch import configs
@@ -76,18 +120,13 @@ def train(args, state=None):
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import step as step_mod
 
-    for flag, on in (("--mesh production", args.mesh == "production"),
-                     ("--multi-pod", args.multi_pod),
-                     (f"--mesh-devices {args.mesh_devices}", args.mesh_devices > 1),
-                     ("--fsdp", args.fsdp), ("--compress-grads", args.compress_grads)):
-        if on:
-            raise ValueError(f"{flag} {MULTI_CARD}")
-
     cfg = configs.get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
     dev = T._device(args.device)
-    pctx = par.ParallelCtx(remat=args.remat)
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=args.fsdp, remat=args.remat,
+                           compress_grads=args.compress_grads)
+    root = mesh is None or mesh.rank == 0
     tcfg = step_mod.TrainConfig(
         opt=opt_mod.OptConfig(name=args.opt, lr=args.lr, decay_steps=max(args.steps, 10)),
         microbatches=args.microbatches,
@@ -102,21 +141,28 @@ def train(args, state=None):
         emb, doc_clusters = pipeline.doc_embeddings(dcfg, n_docs=4096)
         res = curation.curate(emb)
         dcfg = curation.apply_to_data_config(dcfg, res, doc_clusters)
-        print(f"[curate] DDC found {res.n_clusters} clusters; "
-              f"exchanged {res.exchanged_fraction:.2%} of embedding bytes")
+        if root:
+            print(f"[curate] DDC found {res.n_clusters} clusters; "
+                  f"exchanged {res.exchanged_fraction:.2%} of embedding bytes")
 
     if state is None:
-        state = step_mod.make_train_state(cfg, tcfg, device=dev)
+        state = step_mod.make_train_state(cfg, tcfg, device=dev, pctx=pctx)
     step_fn = step_mod.build_train_step(cfg, tcfg, pctx)
+    where = {"device": str(dev)}
+    if mesh is not None:
+        where.update(ranks=mesh.size, mesh=mesh.shape, backend=mesh.backend,
+                     staged=mesh.staged)
 
     mgr = None
     start_step = 0
     if args.ckpt_dir:
         mgr = ckpt_mod.CheckpointManager(args.ckpt_dir)
         if args.resume and mgr.latest_step() is not None:
-            state, manifest = ckpt_mod.restore(args.ckpt_dir, state)
+            with par.use(pctx):
+                state, manifest = ckpt_mod.restore(args.ckpt_dir, state)
             start_step = int(manifest["step"])
-            print(f"[ckpt] resumed at step {start_step}")
+            if root:
+                print(f"[ckpt] resumed at step {start_step}")
 
     it = pipeline.iterate(dcfg, start_step)
     t0 = time.time()
@@ -125,7 +171,7 @@ def train(args, state=None):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in next(it).items()}
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
-        if (i + 1) % args.log_every == 0 or i == args.steps - 1:
+        if root and ((i + 1) % args.log_every == 0 or i == args.steps - 1):
             dt = time.time() - t0
             print(json.dumps({
                 "step": i + 1,
@@ -133,13 +179,16 @@ def train(args, state=None):
                 "gnorm": round(float(metrics["gnorm"]), 3),
                 "lr": float(metrics["lr"]),
                 "steps_per_s": round((i + 1 - start_step) / dt, 3),
-                "device": str(dev),
+                **where,
             }), flush=True)
         if mgr and (i + 1) % args.ckpt_every == 0:
-            mgr.save_async(state, i + 1)
+            with par.use(pctx):
+                mgr.save_async(state, i + 1)
     if mgr:
-        mgr.save(state, args.steps)
-        print(f"[ckpt] final checkpoint at step {args.steps}")
+        with par.use(pctx):
+            mgr.save(state, args.steps)
+        if root:
+            print(f"[ckpt] final checkpoint at step {args.steps}")
     return losses
 
 

@@ -26,12 +26,30 @@ cotangent comes back in the input's dtype) needs no custom function here:
 Parameters are built with ``requires_grad=False`` (serving);
 ``transformer.init_params(..., trainable=True)`` turns it on.
 
-Not here yet: the MoE layer's expert-parallel (``epsum``, ``a2a``) forms
-across cards (ROADMAP A10 item 6).
+**Over a mesh** (``parallel.api.ctx().mesh``, explicit SPMD, one rank a
+mesh position): each parameter holds this rank's shard and its ``spec``
+(``parallel/sharding.py``; ``sharded_build`` makes them so).  One rule
+for every leaf: where the local shard holds whole heads, or whole ``ff``
+/ expert-FFN columns, the layer computes on the shard; anywhere else it
+all-gathers the leaf over its sharded axes just before use
+(``_whole``) and drops it after.  So GQA attention runs head-parallel
+when the heads divide the ``model`` axis (column-parallel ``wq``/``wk``/
+``wv``, B7 on the local heads, row-parallel ``wo``, then the sum over
+``model``), the dense and shared MLPs column/row-parallel over ``ff``,
+and the MoE layer the reference's islands: ``epsum`` (each ``model``
+lane routes to its experts; the sum over ``model``) and ``a2a`` (experts
+over ``data``, expert-FFN over ``model``; routed tokens cross between
+``data`` lanes by all-to-all, through B9's int8 rows under
+``a2a_int8``).  Mamba, MLA, cross-attention and the encoder gather their
+leaves and compute replicated.  The collectives are exact transposes in
+the backward pass (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +58,52 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shard_rules
+
+_BUILD = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_build(specs, mesh):
+    """Parameters made inside keep this rank's shard of their whole draw:
+    the i-th parameter made takes ``specs[i]`` (its per-group spec) and
+    carries it as ``.spec``.  Each leaf is drawn whole, cut, and freed
+    before the next, so no rank holds a whole model."""
+    _BUILD.plan = (iter(specs), mesh)
+    try:
+        yield
+    finally:
+        _BUILD.plan = None
+
+
+@contextlib.contextmanager
+def recording(made: list):
+    """Parameters made inside are appended to ``made``, in the order they
+    are made."""
+    _BUILD.made = made
+    try:
+        yield
+    finally:
+        _BUILD.made = None
+
+
+def _leaf(make, shape) -> nn.Parameter:
+    plan = getattr(_BUILD, "plan", None)
+    if plan is None:
+        p = nn.Parameter(make(shape), requires_grad=False)
+        if getattr(_BUILD, "made", None) is not None:
+            _BUILD.made.append(p)
+        return p
+    specs, mesh = plan
+    spec = next(specs)
+    t = make(shape)
+    if any(e is not None for e in spec):
+        t = shard_rules.shard_leaf(t, spec, mesh)
+    p = nn.Parameter(t, requires_grad=False)
+    p.spec = tuple(spec)
+    return p
 
 
 def _init(gen: torch.Generator | None, shape, scale=None, *, device=None,
@@ -48,20 +112,79 @@ def _init(gen: torch.Generator | None, shape, scale=None, *, device=None,
     ``gen`` on ``device``, then cast to ``dtype``, as the reference's
     ``_init``; uninitialised when ``gen`` is None (parameters that are
     loaded afterwards)."""
-    if gen is None:
-        t = torch.empty(shape, device=device, dtype=dtype)
-    else:
-        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    def make(shape):
+        if gen is None:
+            return torch.empty(shape, device=device, dtype=dtype)
+        sc = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         # Scaled in place: one float32 draw at a time on the card (kimi-k2's
         # stacked experts are 22.5 GB in float32).
         t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        t = t.mul_(scale).to(dtype)
-    return nn.Parameter(t, requires_grad=False)
+        return t.mul_(sc).to(dtype)
+    return _leaf(make, shape)
 
 
 def _const(shape, value: float, *, device=None, dtype=torch.float32) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, device=device, dtype=dtype),
-                        requires_grad=False)
+    return _leaf(lambda shape: torch.full(shape, value, device=device, dtype=dtype), shape)
+
+
+# ---------------------------------------------------------------------------
+# Parameters over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh():
+    return par.ctx().mesh
+
+
+def _spec(t) -> tuple:
+    return getattr(t, "spec", None) or ()
+
+
+def gather_param(t: torch.Tensor, keep=()) -> torch.Tensor:
+    """``t`` whole over every mesh axis its spec shards it on but ``keep``
+    (a differentiable all-gather a sharded dimension); ``t`` itself when
+    nothing is to gather."""
+    mesh = _mesh()
+    if mesh is None:
+        return t
+    for dim, entry in enumerate(_spec(t)):
+        axes = shard_rules.spec_axes((entry,))
+        if not axes or all(a in keep for a in axes):
+            continue
+        if any(a in keep for a in axes):
+            raise ValueError(f"spec entry {entry} is kept only in part: {keep}")
+        t = coll.all_gather(t, mesh, axes, dim)
+    return t
+
+
+def _whole(p, keep=()):
+    """``p`` (a module of parameters) with each of its own parameters
+    gathered as ``gather_param`` does, as a namespace with the same names
+    (submodules as they are); ``p`` itself when none is sharded."""
+    if _mesh() is None or not any(_spec(t) for t in p.parameters(recurse=False)):
+        return p
+    ns = types.SimpleNamespace(**dict(p.named_children()))
+    for name, t in p.named_parameters(recurse=False):
+        setattr(ns, name, gather_param(t, keep))
+    return ns
+
+
+def _model_lanes() -> tuple[int, int]:
+    """(size of the ``model`` axis, this rank's lane on it); (1, 0)
+    without one."""
+    mesh = _mesh()
+    if mesh is None or mesh.shape.get("model", 1) <= 1:
+        return 1, 0
+    return mesh.shape["model"], mesh.coords["model"]
+
+
+def _sharded_on(t, dim: int, axis: str) -> bool:
+    spec = _spec(t)
+    return dim < len(spec) and axis in shard_rules.spec_axes((spec[dim],))
+
+
+def _sum_model(y: torch.Tensor) -> torch.Tensor:
+    return coll.all_reduce(y, _mesh(), "model")
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +219,7 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def norm_apply(cfg, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    p = _whole(p)
     if cfg.norm == "layernorm":
         return layernorm(x, p.w, p.b, cfg.norm_eps)
     return rmsnorm(x, p.w, cfg.norm_eps)
@@ -145,12 +269,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(cfg, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """Over a ``model`` axis that divides ff: column-parallel ``w1``/``w3``,
+    row-parallel ``w2``, then the sum over ``model``."""
+    tp = _model_lanes()[0] > 1 and _sharded_on(p.w1, 1, "model")
+    p = _whole(p, keep=("model",) if tp else ())
     h = x @ p.w1
     if cfg.act == "silu":
         h = F.silu(h) * (x @ p.w3)
     else:
         h = gelu(h)
-    return h @ p.w2
+    y = h @ p.w2
+    return _sum_model(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +311,62 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:  # (B,n,S,hd) -> (B,S,n*hd)
     return x.transpose(1, 2).reshape(b, s, n * hd)
 
 
-def gqa_qkv(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor):
-    q = _split_heads(x @ p.wq, cfg.n_heads)
-    k = _split_heads(x @ p.wk, cfg.n_kv_heads)
-    v = _split_heads(x @ p.wv, cfg.n_kv_heads)
+class Heads(NamedTuple):
+    """The attention heads a rank computes: ``n_q`` query heads from
+    ``q0`` on, and the kv heads they read (``kv``: ids into the layer's
+    kv heads, one a local kv head, in order).  ``local_kv``: the rank's
+    ``wk``/``wv`` shard holds exactly those heads."""
+
+    q0: int
+    n_q: int
+    kv: tuple
+    local_kv: bool
+
+
+def attn_heads(cfg) -> Heads | None:
+    """The heads this rank computes under the context's mesh: head-parallel
+    when the ``model`` axis (m > 1) divides the query heads; None (every
+    head, replicated) otherwise.  The kv heads are the rank's shard when
+    m divides them too; else the ones its query heads use (each local
+    query head its own kv head when the local heads do not split evenly
+    over them)."""
+    m, lane = _model_lanes()
+    if m <= 1 or cfg.n_heads % m:
+        return None
+    n_q = cfg.n_heads // m
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q0 = lane * n_q
+    if cfg.n_kv_heads % m == 0:
+        kv_l = cfg.n_kv_heads // m
+        return Heads(q0, n_q, tuple(range(lane * kv_l, (lane + 1) * kv_l)), True)
+    used = [(q0 + j) // rep for j in range(n_q)]
+    uniq = sorted(set(used))
+    if n_q % len(uniq) == 0 and used == [u for u in uniq for _ in range(n_q // len(uniq))]:
+        return Heads(q0, n_q, tuple(uniq), False)
+    return Heads(q0, n_q, tuple(used), False)
+
+
+def _kv_weight(cfg, w: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """The columns of a whole ``wk``/``wv`` for the kv heads in ``heads``."""
+    d = w.shape[0]
+    idx = torch.as_tensor(heads.kv, device=w.device)
+    return w.reshape(d, cfg.n_kv_heads, cfg.head_dim)[:, idx].reshape(d, -1)
+
+
+def gqa_qkv(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor,
+            heads: Heads | None = None):
+    """q, k, v of every head, or of ``heads`` (p then holds ``wq``'s local
+    columns, and ``wk``/``wv``'s when ``heads.local_kv``, else whole)."""
+    if heads is None:
+        n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+        wk, wv = p.wk, p.wv
+    else:
+        n_q, n_kv = heads.n_q, len(heads.kv)
+        wk, wv = ((p.wk, p.wv) if heads.local_kv
+                  else (_kv_weight(cfg, p.wk, heads), _kv_weight(cfg, p.wv, heads)))
+    q = _split_heads(x @ p.wq, n_q)
+    k = _split_heads(x @ wk, n_kv)
+    v = _split_heads(x @ wv, n_kv)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -202,9 +383,28 @@ def attn_apply(cfg, p: Attention, x: torch.Tensor, *, causal: bool = True, windo
     b, s, d = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = gqa_qkv(cfg, p, x, positions)
+    heads = attn_heads(cfg)
+    p = _tp_attention(p, heads)
+    q, k, v = gqa_qkv(cfg, p, x, positions, heads)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return _merge_heads(o) @ p.wo, (k, v)
+    o = _merge_heads(o) @ p.wo
+    return (o if heads is None else _sum_model(o)), (k, v)
+
+
+def _tp_attention(p: Attention, heads: Heads | None):
+    """The layer's parameters as its heads need them: sharded over
+    ``model`` where the rank computes its heads (``wk``/``wv`` whole when
+    their shard is not the rank's kv heads), whole otherwise."""
+    if heads is None:
+        return _whole(p)
+    if not _sharded_on(p.wq, 1, "model"):
+        raise ValueError("the mesh has a model axis but the attention parameters are not "
+                         "sharded over it: build the model under the mesh "
+                         "(transformer.init_params(..., pctx=))")
+    whole = () if heads.local_kv else ("wk", "wv")
+    return types.SimpleNamespace(**{
+        name: gather_param(t, () if name in whole else ("model",))
+        for name, t in p.named_parameters(recurse=False)})
 
 
 def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, window=None,
@@ -222,13 +422,16 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     b = x.shape[0]
     s_max = k_cache.shape[2]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = gqa_qkv(cfg, p, x, positions)
+    heads = attn_heads(cfg)
+    p = _tp_attention(p, heads)
+    n_q = cfg.n_heads if heads is None else heads.n_q
+    q, k_new, v_new = gqa_qkv(cfg, p, x, positions, heads)
     slot = pos % s_max if ring else pos
     slot = min(max(slot, 0), s_max - 1)
     k_cache[:, :, slot] = k_new[:, :, 0]
     v_cache[:, :, slot] = v_new[:, :, 0]
     kv = k_cache.shape[1]
-    rep = cfg.n_heads // kv
+    rep = n_q // kv
     qg = q.reshape(b, kv, rep, cfg.head_dim)  # (B,kv,rep,hd) from (B,H,1,hd)
     logits = torch.einsum("bkrd,bksd->bkrs", qg.float(), k_cache.float()) \
         / math.sqrt(cfg.head_dim)
@@ -245,8 +448,8 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     logits = torch.where(mask, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
-    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return o @ p.wo, cache
+    o = o.reshape(b, 1, n_q * cfg.head_dim).to(x.dtype) @ p.wo
+    return (o if heads is None else _sum_model(o)), cache
 
 
 def attn_init(cfg, gen=None, *, cross: bool = False, device=None, dtype=torch.float32):
@@ -264,6 +467,7 @@ def attn_init(cfg, gen=None, *, cross: bool = False, device=None, dtype=torch.fl
 def cross_kv(cfg, p: Attention, enc_out: torch.Tensor):
     """Cross-attention K/V of the encoder output (once per sequence; the
     cache keeps them for decode): (B, kv, Fs, hd) views of the products."""
+    p = _whole(p)
     k = _split_heads(enc_out @ p.wk, cfg.n_kv_heads)
     v = _split_heads(enc_out @ p.wv, cfg.n_kv_heads)
     return k, v
@@ -273,6 +477,7 @@ def cross_apply(cfg, p: Attention, x: torch.Tensor, kv) -> torch.Tensor:
     """Decoder cross-attention through the flash kernel: no mask, no rope.
     In decode x holds one token, a query row against every encoder key."""
     k, v = kv
+    p = _whole(p)
     q = _split_heads(x @ p.wq, cfg.n_heads)
     o = ops.flash_attention(q, k, v, causal=False)
     return _merge_heads(o) @ p.wo
@@ -332,6 +537,7 @@ def mla_apply(cfg, p: MLA, x: torch.Tensor, *, causal: bool = True, window=None,
     k_rope)) so prefill can seed the latent cache."""
     b, s, _ = x.shape
     h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
+    p = _whole(p)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
@@ -359,6 +565,7 @@ def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, pos: int):
     b = x.shape[0]
     h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
     r = cfg.kv_lora_rank
+    p = _whole(p)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)                # (B,H,1,·)
     c_new, kr_new = _mla_ckv(cfg, p, x, positions)               # (B,1,r) / (B,1,1,rope)
@@ -418,24 +625,29 @@ class Routing(NamedTuple):
     idx: torch.Tensor    # (E·cap,) int32: the token in each expert slot, −1 if empty
 
 
-def _route(probs: torch.Tensor, k: int, capacity: int) -> Routing:
+def _route(probs: torch.Tensor, k: int, capacity: int, e_lo: int = 0,
+           e_local: int | None = None) -> Routing:
     """Top-k routing with per-expert capacity, as the reference computes
     it from ``probs`` (t, E): top-k by a stable descending sort (so ties go
-    to the lower expert id, as ``jax.lax.top_k``), then ``route_given``.
-    Needs no host sync."""
+    to the lower expert id, as ``jax.lax.top_k``), then ``route_given``
+    for the experts [e_lo, e_lo + e_local).  Needs no host sync."""
     topi = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
-    return route_given(probs, topi, capacity)
+    return route_given(probs, topi, capacity, e_lo, e_local)
 
 
-def route_given(probs: torch.Tensor, topi: torch.Tensor, capacity: int) -> Routing:
-    """The routing of the choice ``topi`` (t, k), best first: the gates
-    are ``probs``' values there, their sum folded left to right; a stable
-    argsort of the copies by expert, ``first`` by a left searchsorted, and
-    each copy's rank within its expert; copies ranked at or past
-    ``capacity`` are dropped.  ``idx`` inverts the slot map for
-    ``dispatch_gather``.  (A caller may pass another run's ``topi`` to
-    route by its decisions.)"""
+def route_given(probs: torch.Tensor, topi: torch.Tensor, capacity: int, e_lo: int = 0,
+                e_local: int | None = None) -> Routing:
+    """The routing of the choice ``topi`` (t, k), best first, to the
+    ``e_local`` experts from ``e_lo`` on (all E by default; an
+    expert-parallel lane holds a slice): the gates are ``probs``' values
+    there, their sum folded left to right; a stable argsort of the copies
+    by local expert (a copy to another lane's expert sorts last), ``first``
+    by a left searchsorted, and each copy's rank within its expert; copies
+    ranked at or past ``capacity``, or to another lane, are dropped.
+    ``idx`` inverts the slot map for ``dispatch_gather``.  (A caller may
+    pass another run's ``topi`` to route by its decisions.)"""
     t, e = probs.shape
+    e_local = e if e_local is None else e_local
     k = topi.shape[1]
     dev = probs.device
     topv = probs.gather(1, topi)
@@ -444,68 +656,99 @@ def route_given(probs: torch.Tensor, topi: torch.Tensor, capacity: int) -> Routi
         total = total + topv[:, i]
     gates = topv / torch.clamp_min(total, 1e-9)[:, None]
     fe = topi.reshape(-1)
+    if e_local != e:
+        fe = torch.where((fe >= e_lo) & (fe < e_lo + e_local), fe - e_lo, e_local)
     order = torch.argsort(fe, stable=True)
     le_s = fe[order]
-    first = torch.searchsorted(le_s, torch.arange(e + 1, device=dev))
+    first = torch.searchsorted(le_s, torch.arange(e_local + 1, device=dev))
     rank = torch.arange(t * k, device=dev) - first[le_s]
-    keep = rank < capacity
-    slot = torch.where(keep, le_s * capacity + rank, e * capacity)
+    keep = (rank < capacity) & (le_s < e_local)
+    slot = torch.where(keep, le_s * capacity + rank, e_local * capacity)
     # A dropped copy writes −1 to the spare last slot, which is cut off.
     tok = torch.where(keep, order // k, -1).to(torch.int32)
-    idx = torch.full((e * capacity + 1,), -1, dtype=torch.int32, device=dev)
+    idx = torch.full((e_local * capacity + 1,), -1, dtype=torch.int32, device=dev)
     idx = idx.scatter_(0, slot, tok)[:-1]
     return Routing(topi, gates, order, keep, slot, idx)
 
 
-def _moe_local(cfg, p: MoE, x_flat: torch.Tensor, capacity: int):
-    """Route x_flat (t, d) to all E experts on this card.  Returns (y (t,
-    d), aux parts (top-1 counts (E,), prob sums (E,), t)).
+def _router_probs(x_flat: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    logits = (x_flat @ router).float()
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return ex / ex.sum(dim=-1, keepdim=True)                    # jax.nn.softmax
 
-    The expert buffer xe (E, cap, d) is ``dispatch_gather``'s copy of each
-    slot's token row (zeros where empty), the reference's gather → mask →
-    scatter.  The combine sums each token's k contributions in the
+
+def _combine(rows: torch.Tensor, slot: torch.Tensor, gate_s: torch.Tensor,
+             order: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """y (t, d): each token's k contributions ``rows[slot[c]] · gate_s[c]``
+    (c its copies' positions in the sorted list) summed in the reference's
+    order, ascending position, each add rounded in the rows' dtype (no
+    float atomics), one contribution a token at a time."""
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=order.device))
+    pos = inv.reshape(t, k).sort(dim=1).values
+    y = rows.new_zeros((t, rows.shape[1]))
+    for i in range(k):
+        c = pos[:, i]
+        y = y + rows[slot[c]] * gate_s[c][:, None]
+    return y
+
+
+def _aux_parts(e: int, topi: torch.Tensor, probs: torch.Tensor):
+    """(top-1 counts (E,), prob sums (E,), t): the load-balance loss's
+    parts, as sums, so that shards combine linearly."""
+    counts = torch.bincount(topi[:, 0], minlength=e).to(torch.float32)
+    return (counts, probs.sum(dim=0),
+            torch.full((), float(probs.shape[0]), dtype=torch.float32, device=probs.device))
+
+
+def _moe_local(cfg, p: MoE, x_flat: torch.Tensor, capacity: int, e_lo: int = 0,
+               e_local: int | None = None):
+    """Route x_flat (t, d) to the experts [e_lo, e_lo + e_local) held
+    here (all E by default; p's w1/w3/w2 hold those experts).  Returns
+    (y (t, d), aux parts (top-1 counts (E,), prob sums (E,), t)).
+
+    The expert buffer xe (e_local, cap, d) is ``dispatch_gather``'s copy
+    of each slot's token row (zeros where empty), the reference's gather →
+    mask → scatter.  The combine sums each token's k contributions in the
     reference's order, ascending position in the expert-sorted list, each
     add rounded in x's dtype (no float atomics)."""
     t, d = x_flat.shape
     e, k = cfg.n_experts, cfg.topk
-    logits = (x_flat @ p.router).float()
-    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = ex / ex.sum(dim=-1, keepdim=True)                   # jax.nn.softmax
-    r = _route(probs, k, capacity)
+    e_local = e if e_local is None else e_local
+    probs = _router_probs(x_flat, p.router)
+    r = _route(probs, k, capacity, e_lo, e_local)
 
-    xe = ops.dispatch_gather(x_flat, r.idx, quant=False)[0].reshape(e, capacity, d)
-    if ops._needs_grad(x_flat, p.router, p.w1, p.w3, p.w2):
+    ye = _expert_ffn(p, [ops.dispatch_gather(x_flat, r.idx, quant=False)[0]
+                         .reshape(e_local, capacity, d)])
+
+    gate_s = (r.gates.reshape(-1)[r.order] * r.keep).to(ye.dtype)
+    y = _combine(ye, r.slot, gate_s, r.order, t, k)
+    return y, _aux_parts(e, r.topi, probs)
+
+
+def _expert_ffn(p, held: list) -> torch.Tensor:
+    """silu(xe·w1) * (xe·w3), then ·w2, for the (E_l, cap, d) buffer xe,
+    handed over as the one item of ``held`` so that no caller keeps it
+    alive (serving frees it before the down projection); returns (E_l·cap
+    + 1, d) with a zero last row (the slot of a dropped copy)."""
+    xe = held.pop()
+    n, cap, d = xe.shape
+    if ops._needs_grad(xe, p.w1, p.w3, p.w2):
         # Training: the same products in the same order, out of place (the
         # buffer reuse below overwrites what autograd saves).
         h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
         del xe
-        ye = torch.cat([torch.bmm(h, p.w2).reshape(e * capacity, d), x_flat.new_zeros((1, d))])
-    else:
-        # Serving: silu(xe·w1) * (xe·w3), then ·w2, with fewer buffers alive
-        # at once: the activation in place, xe released before the down
-        # projection, and ye written beside its empty last row.
-        h = F.silu(torch.bmm(xe, p.w1), inplace=True)
-        h.mul_(torch.bmm(xe, p.w3))
-        del xe
-        ye = x_flat.new_empty((e * capacity + 1, d))
-        torch.bmm(h, p.w2, out=ye[:-1].view(e, capacity, d))
-        ye[-1] = 0
-    del h
-
-    gate_s = (r.gates.reshape(-1)[r.order] * r.keep).to(ye.dtype)
-    # pos[j, i]: where token j's i-th contribution sits in the sorted list.
-    inv = torch.empty_like(r.order).scatter_(
-        0, r.order, torch.arange(t * k, device=x_flat.device))
-    pos = inv.reshape(t, k).sort(dim=1).values
-    y = torch.zeros((t, d), dtype=x_flat.dtype, device=x_flat.device)
-    for i in range(k):
-        c = pos[:, i]                   # one contribution a token at a time
-        y = y + ye[r.slot[c]] * gate_s[c][:, None]
-
-    counts = torch.bincount(r.topi[:, 0], minlength=e).to(torch.float32)
-    aux_parts = (counts, probs.sum(dim=0),
-                 torch.full((), float(t), dtype=torch.float32, device=x_flat.device))
-    return y, aux_parts
+        return torch.cat([torch.bmm(h, p.w2).reshape(n * cap, d), h.new_zeros((1, d))])
+    # Serving: fewer buffers alive at once: the activation in place, xe
+    # released before the down projection, and ye written beside its empty
+    # last row.
+    h = F.silu(torch.bmm(xe, p.w1), inplace=True)
+    h.mul_(torch.bmm(xe, p.w3))
+    dtype = xe.dtype
+    del xe
+    ye = h.new_empty((n * cap + 1, d), dtype=dtype)
+    torch.bmm(h, p.w2, out=ye[:-1].view(n, cap, d))
+    ye[-1] = 0
+    return ye
 
 
 def _aux_from_parts(e: int, parts) -> torch.Tensor:
@@ -514,17 +757,214 @@ def _aux_from_parts(e: int, parts) -> torch.Tensor:
     return e * torch.sum((f_sum / t) * (p_sum / t))
 
 
+class _DispatchA2A(torch.autograd.Function):
+    """The a2a island's send path: B9 gathers the routed token rows into
+    the (D·cap, d) send buffer (int8 rows and their scales with
+    ``int8``, the wire itself), then the all-to-all over ``data`` and the
+    dequantisation.  Backward (the reference's ``_i8_a2a_bwd`` and the
+    gather's VJP): the cotangent quantised by rows (with ``int8``), sent
+    back by all-to-all, dequantised, each slot's row added to its token's
+    row."""
+
+    @staticmethod
+    def forward(ctx, x, idx, mesh, int8):
+        ctx.save_for_backward(x, idx)
+        ctx.args = (mesh, int8)
+        d = x.shape[1]
+        buf, scales = ops.dispatch_gather(x, idx, quant=int8)
+        n = mesh.axis_size("data")
+        if not int8:
+            return coll.all_to_all_raw(buf.view(n, -1, d), mesh, "data").view(-1, d)
+        q = coll.all_to_all_raw(buf.view(n, -1, d), mesh, "data").view(-1, d)
+        s = coll.all_to_all_raw(scales.view(n, -1), mesh, "data").view(-1)
+        return (q.to(torch.float32) * s[:, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.parallel import compress
+        x, idx = ctx.saved_tensors
+        mesh, int8 = ctx.args
+        back = (compress.a2a_rows_int8(g, mesh, "data") if int8
+                else coll.all_to_all_raw(g.reshape(mesh.axis_size("data"), -1, g.shape[1]),
+                                         mesh, "data").view(g.shape))
+        (dx,) = ops._plain_vjp("dispatch_gather",
+                               lambda x_: ops.ref.dispatch_gather(x_, idx, quant=False)[0],
+                               (x,), (True,), back)
+        return dx, None, None, None
+
+
+def dispatch_a2a(x: torch.Tensor, idx: torch.Tensor, mesh, int8: bool) -> torch.Tensor:
+    """Rows ``idx`` of x (−1: a zero row) in D blocks, block i to the i-th
+    ``data`` lane; returns the D blocks received, dequantised to x's
+    dtype (see ``_DispatchA2A``)."""
+    return _DispatchA2A.apply(x, idx, mesh, int8)
+
+
+def _moe_a2a(cfg, p, x_loc: torch.Tensor, *, n_dlanes: int, tokens_sharded: bool,
+             int8_wire: bool):
+    """The reference's ``_moe_a2a_island`` on this rank: experts over
+    ``data`` (p's w1/w3/w2 hold this lane's E/D experts and its ``model``
+    slice of the expert-FFN dim) never move; the routed token copies do,
+    by all-to-all over ``data`` when the tokens are sharded, and each lane
+    takes the copies routed to its experts when they are replicated.
+    Returns (y in x_loc's shape, summed over ``model`` — and ``data`` when
+    replicated —, aux parts of the local tokens)."""
+    mesh = _mesh()
+    d = x_loc.shape[-1]
+    e, k = cfg.n_experts, cfg.topk
+    big_d = n_dlanes
+    e_per = e // big_d
+    t = x_loc.shape[0] * x_loc.shape[1]
+    xf = x_loc.reshape(t, d)
+    dev = xf.device
+    probs = _router_probs(xf, p.router)
+    topi = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+    topv = probs.gather(1, topi)
+    total = topv[:, 0]
+    for i in range(1, k):
+        total = total + topv[:, i]
+    gates = topv / torch.clamp_min(total, 1e-9)[:, None]
+    fe = topi.reshape(-1)
+    gate_flat = gates.reshape(-1)
+
+    if tokens_sharded:
+        # dispatch: sort token-copies by destination data lane
+        dest = fe // e_per
+        le = fe % e_per
+        order = torch.argsort(dest, stable=True)
+        dest_s, le_s = dest[order], le[order]
+        gate_s = gate_flat[order]
+        first = torch.searchsorted(dest_s, torch.arange(big_d + 1, device=dev))
+        rank = torch.arange(t * k, device=dev) - first[dest_s]
+        cap = int(math.ceil(t * k / big_d * cfg.capacity_factor))
+        keep = rank < cap
+        slot = torch.where(keep, dest_s * cap + rank, big_d * cap)
+        # B9 builds the send buffer from the slot -> token map.
+        send_idx = torch.full((big_d * cap + 1,), -1, dtype=torch.int32, device=dev)
+        send_idx = send_idx.scatter_(0, slot, torch.where(keep, order // k, -1)
+                                     .to(torch.int32))[:-1]
+        send_le = torch.full((big_d * cap + 1,), -1, dtype=torch.int64, device=dev)
+        send_le = send_le.scatter_(0, slot, torch.where(keep, le_s, -1))[:-1]
+        recv_x = dispatch_a2a(xf, send_idx, mesh, int8_wire)
+        recv_le = coll.all_to_all_raw(send_le.view(big_d, cap), mesh, "data").view(-1)
+        n_recv = big_d * cap
+    else:
+        # Tokens replicated over 'data' (tiny batches): every lane holds all
+        # tokens and selects the copies routed to its experts.
+        dlane = mesh.coords["data"]
+        mine = (fe >= dlane * e_per) & (fe < (dlane + 1) * e_per)
+        recv_le = torch.where(mine, fe - dlane * e_per, -1)
+        recv_x = xf.repeat_interleave(k, dim=0)
+        n_recv = t * k
+
+    # group received copies by local expert; B9's second gather pass
+    key2 = torch.where(recv_le >= 0, recv_le, e_per)
+    order2 = torch.argsort(key2, stable=True)
+    rl_s = key2[order2]
+    first2 = torch.searchsorted(rl_s, torch.arange(e_per + 1, device=dev))
+    rank2 = torch.arange(n_recv, device=dev) - first2[rl_s]
+    cap_e = int(math.ceil(n_recv / e_per))
+    keep2 = (rl_s < e_per) & (rank2 < cap_e)
+    slot2 = torch.where(keep2, rl_s * cap_e + rank2, e_per * cap_e)
+    idx2 = torch.full((e_per * cap_e + 1,), -1, dtype=torch.int32, device=dev)
+    idx2 = idx2.scatter_(0, slot2, torch.where(keep2, order2, -1).to(torch.int32))[:-1]
+    # expert compute over the local f slice: ye is partial over 'model'
+    ye = _expert_ffn(p, [ops.dispatch_gather(recv_x, idx2, quant=False)[0]
+                         .reshape(e_per, cap_e, d)])
+    # un-group: copy j of the received rows gets its slot's output
+    inv2 = torch.empty_like(order2).scatter_(0, order2, torch.arange(n_recv, device=dev))
+    back = ye[slot2[inv2]]
+    if tokens_sharded:
+        if int8_wire:
+            from repro_torch.parallel import compress
+            ret = compress.int8_all_to_all(back.view(big_d, cap, d), mesh, "data")
+        else:
+            ret = coll.all_to_all(back.view(big_d, cap, d), mesh, "data")
+        ret = torch.cat([ret.reshape(n_recv, d), ret.new_zeros((1, d))])
+        y = _combine(ret, slot, (gate_s * keep).to(ret.dtype), order, t, k)
+        y = coll.all_reduce(y, mesh, "model")
+    else:
+        w = torch.where(recv_le >= 0, gate_flat, 0.0).to(back.dtype)
+        contrib = (back * w[:, None]).view(t, k, d)
+        y = contrib[:, 0]
+        for i in range(1, k):
+            y = y + contrib[:, i]
+        y = coll.all_reduce(y, mesh, ("data", "model"))
+    return y.reshape(x_loc.shape), _aux_parts(e, topi, probs)
+
+
+def _expert_params(p: MoE, keep) -> types.SimpleNamespace:
+    """The router whole, and the experts' w1 / w3 / w2 gathered over every
+    axis that shards them but ``keep`` (the island's own layout)."""
+    return types.SimpleNamespace(router=gather_param(p.router),
+                                 **{n: gather_param(getattr(p, n), keep)
+                                    for n in ("w1", "w3", "w2")})
+
+
+def moe_route(cfg) -> str:
+    """The MoE layer's route under the context, as the reference chooses
+    it: "local" (no mesh, a ``model`` axis of 1, or E not divisible by
+    it), "a2a" (``moe_impl`` "a2a" with E divisible by ``data`` > 1 and
+    the expert-FFN dim by ``model``), else "epsum"."""
+    c = par.ctx()
+    m = c.axis_size("experts")
+    e = cfg.n_experts
+    if c.mesh is None or m <= 1 or e % m:
+        return "local"
+    n_data = c.mesh.shape.get("data", 1)
+    if c.moe_impl == "a2a" and e % n_data == 0 and n_data > 1 and cfg.expert_ff % m == 0:
+        return "a2a"
+    return "epsum"
+
+
 def moe_apply(cfg, p: MoE, x: torch.Tensor):
-    """x: (B, S, d) -> (y, aux loss), the reference's one-device route:
-    capacity ⌈t·k / E · capacity_factor⌉ over the t = B·S tokens, then
-    the shared expert, if any, added to the routed output."""
+    """x: (B, S, d) -> (y, aux loss), by ``moe_route``:
+
+    local — capacity ⌈t·k / E · capacity_factor⌉ over the t = B·S tokens
+            (over a mesh, of the whole batch: a sharded batch is gathered
+            over the DP axes and each rank keeps its rows of y);
+    epsum — each ``model`` lane routes its tokens to its E/m experts
+            (capacity from the local tokens), then the sum over
+            ``model``;
+    a2a   — ``_moe_a2a``, its tokens sharded over the DP axes when the
+            batch is, else replicated.
+
+    The aux parts are summed over the DP axes when the batch is sharded
+    over them.  The shared expert, if any, is added last (an MLP,
+    column/row-parallel over ``model`` where ff divides)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.topk
-    t = b * s
-    cap = int(math.ceil(t * k / e * cfg.capacity_factor))
-    y, parts = _moe_local(cfg, p, x.reshape(t, d), cap)
-    y = y.reshape(x.shape)
-    aux = _aux_from_parts(e, parts)
+    c = par.ctx()
+    route = moe_route(cfg)
+    sharded = c.mesh is not None and c.batch_sharded and c.dp > 1
+    if route == "local":
+        pw = _whole(p)
+        xa = coll.all_gather(x, c.mesh, c.dp_axes, 0) if sharded else x
+        t = xa.shape[0] * s
+        cap = int(math.ceil(t * k / e * cfg.capacity_factor))
+        y, parts = _moe_local(cfg, pw, xa.reshape(t, d), cap)
+        y = y.reshape(xa.shape)
+        if sharded:
+            i = c.mesh.index(c.dp_axes)
+            y = y[i * b:(i + 1) * b]
+        aux = _aux_from_parts(e, parts)
+    else:
+        if route == "epsum":
+            m, lane = _model_lanes()
+            pw = _expert_params(p, keep=("model",))
+            t = b * s
+            cap = int(math.ceil(t * k / e * cfg.capacity_factor))
+            y, parts = _moe_local(cfg, pw, x.reshape(t, d), cap, e_lo=lane * (e // m),
+                                  e_local=e // m)
+            y = _sum_model(y.reshape(x.shape))
+        else:
+            pw = _expert_params(p, keep=("data", "model"))
+            y, parts = _moe_a2a(cfg, pw, x, n_dlanes=c.mesh.shape["data"],
+                                tokens_sharded=c.batch_sharded,
+                                int8_wire=c.a2a_int8)
+        if sharded:
+            parts = tuple(coll.all_reduce(a, c.mesh, c.dp_axes) for a in parts)
+        aux = _aux_from_parts(e, parts)
     if cfg.n_shared_experts:
         y = y + mlp_apply(cfg, p.shared, x)
     return y, aux
@@ -592,6 +1032,7 @@ def mamba_apply(cfg, p: Mamba, x: torch.Tensor, conv_state=None, return_state: b
     """Full-sequence Mamba-2 block through the SSD kernel.  Returns (out,
     cache|None); with ``return_state`` the cache {"conv", "ssm"} seeds
     decode."""
+    p = _whole(p)
     z, xbc, dt = _mamba_project(cfg, p, x)
     xbc, conv_tail = _causal_conv(xbc, p.conv, conv_state)
     xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)
@@ -616,6 +1057,7 @@ def mamba_decode(cfg, p: Mamba, x: torch.Tensor, cache: dict, pos: int):
     """One-step Mamba-2 recurrence.  cache: {"conv": (B,K-1,C), "ssm":
     (B,h,st,hd) float32}, updated IN PLACE (the reference returns a new
     one)."""
+    p = _whole(p)
     z, xbc, dt = _mamba_project(cfg, p, x)                      # S = 1
     xbc, conv_tail = _causal_conv(xbc, p.conv, cache["conv"])
     xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)

@@ -29,6 +29,19 @@ each encoder layer) whole (``torch.utils.checkpoint``, non-reentrant);
 of matrices without a batch axis (``aten.mm`` / ``aten.addmm``, the
 counterpart of ``checkpoint_dots_with_no_batch_dims``) and recomputes the
 rest; the encoder's layers are checkpointed whole under either.
+
+Over a mesh (``parallel.api.ctx().mesh``; explicit SPMD, one rank a mesh
+position): ``init_params(..., pctx=)`` and ``params_from_jax(...,
+pctx=)`` build the model with each parameter holding this rank's shard
+under ``parallel.sharding.spec_for`` (a leaf at a time: no rank holds a
+whole model); every other entry point takes this rank's part of the batch
+(``ParallelCtx.shard_batch``: split over the DP axes, or replicated when
+it does not divide) and runs under ``par.use(pctx)``.  The embedding
+table and the head, (V, d) with spec (``model``, None), run
+vocab-parallel: a masked lookup summed over ``model``, and logits a
+vocab slice a rank (``forward``, ``prefill`` and ``decode_step`` gather
+them over ``model``; ``loss_fn`` takes a vocab-parallel cross entropy
+and the global mean over the DP axes).
 """
 from __future__ import annotations
 
@@ -43,6 +56,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.tree import Stack
 from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shard_rules
 
 AUX_COEF = 0.01
 
@@ -145,8 +160,55 @@ def _device(device) -> torch.device:
     return dev
 
 
+def ref_path(name: str) -> tuple[tuple, bool]:
+    """(the reference's path of the port's parameter ``name``, is it a
+    stacked leaf): ``blocks.{g}.l0.mixer.wq`` is ("blocks", "l0",
+    "mixer", "wq"), stacked over the groups; ``encoder.{e}....`` over the
+    encoder layers."""
+    parts = name.split(".")
+    if parts[0] in ("blocks", "encoder"):
+        return (parts[0],) + tuple(parts[2:]), True
+    return tuple(parts), False
+
+
+def leaf_specs(cfg: ModelConfig, pctx) -> list[tuple[str, tuple]]:
+    """[(name, spec)] of the LM's parameters in the order ``LM`` makes
+    them, each spec the per-group part of ``spec_for`` of its stacked
+    leaf (no rule shards the group axis of any configuration)."""
+    made: list = []
+    with L.recording(made):
+        meta = LM(cfg, None, device="meta")
+    names = {id(p): name for name, p in meta.named_parameters()}
+    n_stack = {"blocks": cfg.n_groups, "encoder": cfg.encoder_layers}
+    out = []
+    for param in made:
+        name = names[id(param)]
+        path, stacked = ref_path(name)
+        shape = ((n_stack[path[0]],) if stacked else ()) + tuple(param.shape)
+        spec = shard_rules.spec_for(path, shape, pctx)
+        if stacked:
+            if spec and spec[0] is not None:
+                raise NotImplementedError(f"{name}: the spec {spec} shards the stacked axis")
+            spec = spec[1:]
+        out.append((name, tuple(spec)))
+    return out
+
+
+def _build(cfg, gen, dev, dtype, pctx) -> LM:
+    """The LM, sharded under ``pctx``'s mesh when it has one."""
+    if pctx is None or pctx.mesh is None:
+        return LM(cfg, gen, device=dev, dtype=dtype)
+    specs = leaf_specs(cfg, pctx)
+    with L.sharded_build([spec for _, spec in specs], pctx.mesh):
+        model = LM(cfg, gen, device=dev, dtype=dtype)
+    for name, spec in specs:
+        if getattr(model.get_parameter(name), "spec", None) != spec:
+            raise RuntimeError(f"{name}: parameters were made out of order")
+    return model
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cuda",
-                dtype=torch.float32, trainable: bool = False) -> LM:
+                dtype=torch.float32, trainable: bool = False, pctx=None) -> LM:
     """Seeded random weights with the reference's shapes and scales:
     embeddings and the head normal·0.02, matrices normal/√fan_in (the
     output projection of attention normal/√(h·hd), the Mamba conv
@@ -156,27 +218,33 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cud
     seed for one) and cast to ``dtype``.  The numbers differ from the
     reference's ``jax.random`` draws; ``params_from_jax`` carries those
     across.  ``trainable`` turns ``requires_grad`` on (training);
-    serving leaves it off."""
+    serving leaves it off.  With ``pctx`` holding a mesh, each parameter
+    keeps this rank's shard of the same draw (and its spec)."""
     dev = _device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
-    return LM(cfg, gen, device=dev, dtype=dtype).requires_grad_(trainable)
+    return _build(cfg, gen, dev, dtype, pctx).requires_grad_(trainable)
 
 
-def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", trainable: bool = False) -> LM:
+def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", trainable: bool = False,
+                    pctx=None) -> LM:
     """The port's model holding the reference's parameter pytree ``tree``
     (numpy arrays: ``blocks`` stacked over groups on a leading axis, keyed
     ``l{i}``; ``encoder`` stacked over encoder layers), on ``device``, in
     the arrays' dtype (one numpy has); ``requires_grad`` as
-    ``trainable``."""
+    ``trainable``.  With ``pctx`` holding a mesh, each parameter holds this
+    rank's shard of its array."""
     dev = _device(device)
     dtype = torch.from_numpy(np.empty(0, np.asarray(tree["embed"]).dtype)).dtype
-    model = LM(cfg, None, device=dev, dtype=dtype)
+    model = _build(cfg, None, dev, dtype, pctx)
     expected = {name for name, _ in model.named_parameters()}
     loaded = set()
 
     def put(name: str, value: np.ndarray) -> None:
         param = model.get_parameter(name)
+        spec = getattr(param, "spec", None)
+        if spec:
+            value = value[shard_rules.local_slice(value.shape, spec, pctx.mesh)]
         if tuple(param.shape) != value.shape:
             raise ValueError(f"{name}: shape {value.shape} != {tuple(param.shape)}")
         param.data = torch.as_tensor(np.array(value), device=dev).to(param.dtype)
@@ -207,15 +275,48 @@ def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", trainable: bool = 
 # ---------------------------------------------------------------------------
 
 
+def _vocab_lanes(table: torch.Tensor) -> tuple[int, int]:
+    """(vocab slices over ``model``, this rank's slice) of an embedding
+    table or head; (1, 0) when it is not split."""
+    if not L._sharded_on(table, 0, "model"):
+        return 1, 0
+    return L._model_lanes()
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, tokens, axis=0)`` with its bounds written out: an
     id in [−V, 0) counts from the end, and an id outside [−V, V) gives a
-    row of NaN (jnp.take's default "fill" mode)."""
-    v = table.shape[0]
+    row of NaN (jnp.take's default "fill" mode).  A table split over
+    ``model`` looks up the ids of its slice (zero rows for the others) and
+    sums over ``model``."""
+    m, lane = _vocab_lanes(table)
+    table = L.gather_param(table, keep=("model",))
+    v_loc = table.shape[0]
+    v = v_loc * m
     idx = torch.where(tokens < 0, tokens + v, tokens)
     ok = (idx >= 0) & (idx < v)
-    rows = table[idx.clamp(0, v - 1)]
+    if m == 1:
+        rows = table[idx.clamp(0, v - 1)]
+    else:
+        loc = idx - lane * v_loc
+        mine = (loc >= 0) & (loc < v_loc)
+        rows = table[loc.clamp(0, v_loc - 1)] * mine[..., None].to(table.dtype)
+        rows = L._sum_model(rows)
     return torch.where(ok[..., None], rows, torch.nan)
+
+
+def _head_local(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """x @ head.T over this rank's vocab slice (all of it when unsplit)."""
+    return x @ L.gather_param(model.head, keep=("model",)).T
+
+
+def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """x @ head.T over the whole vocabulary (a split head's slices
+    gathered over ``model``)."""
+    y = _head_local(model, x)
+    if _vocab_lanes(model.head)[0] > 1:
+        y = coll.all_gather(y, par.ctx().mesh, "model", dim=-1)
+    return y
 
 
 def _ffn_apply(cfg, bp: Block, x):
@@ -301,6 +402,12 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, f
     padded_vocab), aux): the prefix's positions are cut off before the
     head; aux is the MoE layers' load-balance losses summed over the
     layers in order (float32; 0 without MoE)."""
+    x, aux = _hidden(cfg, model, tokens, prefix, frames, window)
+    return _logits(model, x), aux
+
+
+def _hidden(cfg, model: LM, tokens, prefix, frames, window):
+    """The final norm's output over the token positions, and the aux loss."""
     win = cfg.window if window == "cfg" else window
     x, offset = _embed_inputs(cfg, model, tokens, prefix)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -322,9 +429,7 @@ def forward(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, f
         else:
             x, aux = _ckpt.checkpoint(group_apply, group, x, aux, use_reentrant=False,
                                       **_REMAT_KW[remat])
-    x = L.norm_apply(cfg, model.final_norm, x)[:, offset:]
-    logits = x @ model.head.T
-    return logits, aux
+    return L.norm_apply(cfg, model.final_norm, x)[:, offset:], aux
 
 
 def _save_dots(ctx, func, *args, **kwargs):
@@ -346,8 +451,22 @@ def loss_fn(cfg: ModelConfig, model: LM, batch: dict) -> torch.Tensor:
     configuration takes them, "prefix" or "frames", passed to ``forward``.
     The logits are taken in float32, the padded vocabulary entries set to
     −1e30, and the mean NLL of each next token under ``log_softmax`` over
-    positions [:, :-1]."""
+    positions [:, :-1].
+
+    Over a mesh the batch is this rank's part and the loss the global
+    mean: a head split over ``model`` takes the vocab-parallel cross
+    entropy (the max, the sum of exponentials and the target's logit
+    each reduced over ``model``), and a sharded batch's mean is summed
+    over the DP axes (each part's mean / dp)."""
     tokens = batch["tokens"]
+    c = par.ctx()
+    if c.mesh is not None:
+        x, aux = _hidden(cfg, model, tokens, batch.get("prefix"), batch.get("frames"), "cfg")
+        nll = _vocab_parallel_nll(cfg, model, x, tokens)
+        loss = nll.mean()
+        if c.batch_sharded and c.dp > 1:
+            loss = coll.all_reduce(loss / c.dp, c.mesh, c.dp_axes)
+        return loss + AUX_COEF * aux
     logits, aux = forward(cfg, model, tokens, prefix=batch.get("prefix"),
                           frames=batch.get("frames"))
     logits = logits.float()
@@ -358,6 +477,29 @@ def loss_fn(cfg: ModelConfig, model: LM, batch: dict) -> torch.Tensor:
     lp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -lp.gather(-1, targets[..., None])[..., 0]
     return nll.mean() + AUX_COEF * aux
+
+
+def _vocab_parallel_nll(cfg, model: LM, x: torch.Tensor, tokens: torch.Tensor):
+    """Each next token's NLL (B, S − 1) from this rank's vocab slice of
+    the logits (float32, the padded entries −1e30): logsumexp as max +
+    log Σ exp, both reduced over ``model``, minus the target's logit
+    (summed over ``model`` from the slice that holds it)."""
+    mesh = par.ctx().mesh
+    m, lane = _vocab_lanes(model.head)
+    axes = "model" if m > 1 else ()
+    logits = _head_local(model, x[:, :-1]).float()
+    v_loc = logits.shape[-1]
+    lo = lane * v_loc
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(lo, lo + v_loc, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad, -1e30, logits)
+    mx = coll.all_reduce_max(logits.amax(dim=-1), mesh, axes)
+    se = coll.all_reduce(torch.exp(logits - mx[..., None]).sum(dim=-1), mesh, axes)
+    loc = tokens[:, 1:].long() - lo
+    mine = (loc >= 0) & (loc < v_loc)
+    picked = logits.gather(-1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tgt = coll.all_reduce(torch.where(mine, picked, 0.0), mesh, axes)
+    return torch.log(se) + mx - tgt
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +520,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     K−1, C) and {"ssm"} (g, batch, h, st, hd) for Mamba, and for an
     encoder-decoder {"xk", "xv"} (g, batch, kv, Fs, hd), the
     cross-attention's keys and values over ``frontend_seq`` frames (the
-    config's by default).  The SSM state is float32 whatever ``dtype``."""
+    config's by default).  The SSM state is float32 whatever ``dtype``.
+    Under a mesh whose ``model`` axis splits the heads, "k"/"v" hold the
+    rank's kv heads (``layers.attn_heads``)."""
     dev = _device(device)
     g = cfg.n_groups
+    heads = L.attn_heads(cfg)
+    n_kv = cfg.n_kv_heads if heads is None else len(heads.kv)
     s = _cache_len(cfg, max_len, window)
     fs = frontend_seq or cfg.frontend_seq
 
@@ -393,8 +539,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
             c = {"ckv": zeros(g, batch, s, cfg.kv_lora_rank),
                  "kr": zeros(g, batch, s, cfg.qk_rope_dim)}
         elif kind == "attn":
-            c = {"k": zeros(g, batch, cfg.n_kv_heads, s, cfg.head_dim),
-                 "v": zeros(g, batch, cfg.n_kv_heads, s, cfg.head_dim)}
+            c = {"k": zeros(g, batch, n_kv, s, cfg.head_dim),
+                 "v": zeros(g, batch, n_kv, s, cfg.head_dim)}
         else:
             c = {"conv": zeros(g, batch, cfg.conv_kernel - 1, cfg.d_inner + 2 * cfg.ssm_state),
                  "ssm": zeros(g, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
@@ -464,7 +610,7 @@ def decode_step(cfg: ModelConfig, model: LM, token: torch.Tensor, cache: dict, p
             csl = {key: t[g] for key, t in cache[f"l{i}"].items()}
             x = _block_decode(cfg, kind, group[f"l{i}"], x, csl, pos, window=win, ring=ring)
     x = L.norm_apply(cfg, model.final_norm, x)
-    logits = (x @ model.head.T)[:, 0]
+    logits = _logits(model, x)[:, 0]
     return logits, cache
 
 
@@ -518,5 +664,5 @@ def prefill(cfg: ModelConfig, model: LM, tokens: torch.Tensor, *, prefix=None, f
             if hasattr(bp, "ffn"):
                 x, _ = _ffn_apply(cfg, bp, x)
     x = L.norm_apply(cfg, model.final_norm, x)
-    logits = x[:, -1] @ model.head.T
+    logits = _logits(model, x[:, -1])
     return logits, cache, s_total

@@ -11,7 +11,8 @@ so both see the reference's leaves.
 
 ``flatten`` orders leaves as ``jax.tree_util`` does: a dict by its sorted
 keys, a list or tuple by index, a NamedTuple by its fields in declaration
-order; ``None`` is an empty subtree.  An object with a ``tree()`` method
+order; ``None`` is an empty subtree; a ``Leaf`` (a ``Stack``, a
+partition spec) is one leaf.  An object with a ``tree()`` method
 (the LM) flattens as the tree it returns.  Paths are tuples of str.
 """
 from __future__ import annotations
@@ -19,7 +20,11 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-class Stack(tuple):
+class Leaf(tuple):
+    """A tuple that trees hold as one leaf (not a node)."""
+
+
+class Stack(Leaf):
     """One stacked leaf of the reference: its per-group tensors, in order.
     ``shape`` is the stacked shape (groups first)."""
 
@@ -38,7 +43,7 @@ def flatten(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
         return []
     if hasattr(tree, "tree") and callable(tree.tree):
         return flatten(tree.tree(), prefix)
-    if isinstance(tree, Stack):
+    if isinstance(tree, Leaf):
         return [(prefix, tree)]
     if isinstance(tree, dict):
         return [item for key in sorted(tree) for item in flatten(tree[key], prefix + (str(key),))]
@@ -61,7 +66,7 @@ def unflatten_like(tree, new_leaves: list):
             return None
         if hasattr(node, "tree") and callable(node.tree):
             return build(node.tree())
-        if isinstance(node, Stack):
+        if isinstance(node, Leaf):
             return next(it)
         if isinstance(node, dict):
             out = {key: build(node[key]) for key in sorted(node)}

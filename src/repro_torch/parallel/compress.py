@@ -8,9 +8,13 @@ scale a tensor), ``compress_decompress`` (the wire format's numerics
 around each gradient leaf) and ``ef_compress`` (the error-feedback form,
 carrying the quantisation residual into the next step) are the
 reference's, bit for bit.  Without a mesh the train step applies none of
-them, as the reference's does not.  ``int8_all_to_all`` (the MoE
-dispatch's int8 wire) and ``shard_map_all_reduce`` (the explicit int8
-all-reduce) move data between cards and wait for ROADMAP A10 item 6.
+them, as the reference's does not.
+
+Between the ranks of a ``launch.mesh.Mesh``: ``int8_all_to_all`` (the MoE
+a2a dispatch's int8 wire, int8 rows and float32 row scales in both
+directions, ``_quant_rows``' numerics) and ``shard_map_all_reduce`` (the
+explicit int8 all-reduce over the DP axes: int32 sum of the int8 values,
+max of the scales, then the mean), bit for bit the reference's.
 """
 from __future__ import annotations
 
@@ -18,6 +22,10 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.tree import Leaf, Stack
+from repro_torch.parallel import collectives as coll
 
 
 def _leaves(tree):
@@ -66,10 +74,11 @@ def pytree_wire_bytes_int8(tree) -> int:
     return total
 
 
-def quantize_int8(x: torch.Tensor):
+def quantize_int8(x: torch.Tensor, absmax: torch.Tensor | None = None):
     """(q int8, scale float32 0-d): scale = (max|x| + 1e-12) / 127 and q =
-    clip(round(x / scale), −127, 127), halves to even."""
-    absmax = torch.max(torch.abs(x)) + 1e-12
+    clip(round(x / scale), −127, 127), halves to even.  ``absmax``: max|x|
+    when x is a shard of the leaf (the whole leaf's)."""
+    absmax = (torch.max(torch.abs(x)) if absmax is None else absmax) + 1e-12
     # Tensor divisors: on the card a division by a Python scalar multiplies
     # by its reciprocal, which is not the reference's true division.
     scale = absmax / torch.full_like(absmax, 127.0)
@@ -77,12 +86,22 @@ def quantize_int8(x: torch.Tensor):
     return q, scale
 
 
+def quantize_dequantize(g: torch.Tensor, absmax: torch.Tensor | None = None) -> torch.Tensor:
+    """One leaf's wire-format round trip (``compress_decompress``'s),
+    with the whole leaf's ``absmax`` when g is a shard of it."""
+    q, s = quantize_int8(g.to(torch.float32), absmax)
+    return dequantize_int8(q, s).to(g.dtype)
+
+
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
 def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts / lists / tuples of tensors."""
+    """``fn`` over the leaves of nested dicts / lists / tuples of tensors (a
+    ``Stack``, the port's stacked leaf, is one leaf)."""
+    if isinstance(tree, Leaf):
+        return fn(tree, *rest)
     if isinstance(tree, Mapping):
         return {key: _tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
     if isinstance(tree, (tuple, list)):
@@ -91,10 +110,13 @@ def _tree_map(fn, tree, *rest):
 
 
 def compress_decompress(grads):
-    """Quantise/dequantise each leaf (wire-format numerics)."""
+    """Quantise/dequantise each leaf (wire-format numerics); a ``Stack``
+    whole, with its groups' absmax, as the reference's stacked leaf."""
     def one(g):
-        q, s = quantize_int8(g.to(torch.float32))
-        return dequantize_int8(q, s).to(g.dtype)
+        if isinstance(g, Stack):
+            absmax = torch.stack([t.float().abs().amax() for t in g]).amax()
+            return Stack(quantize_dequantize(t, absmax) for t in g)
+        return quantize_dequantize(g)
     return _tree_map(one, grads)
 
 
@@ -114,3 +136,74 @@ def ef_compress(grads, errors):
     wire = _tree_map(one, grads, errors)
     it = iter(residuals)
     return wire, _tree_map(lambda _: next(it), grads)
+
+
+_INV_127 = float(np.float32(1) / np.float32(127))
+
+
+def _quant_rows(x: torch.Tensor):
+    """(q int8, scale (..., 1) float32) a row (the last axis): scale =
+    max(absmax · float32(1/127), 1e-12), q = clip(round(x / scale), −127,
+    127), halves to even.  The reference writes absmax / 127, and XLA
+    compiles that row-wise division by a constant into a multiply by its
+    float32 reciprocal (in 5 % of rows it differs from the true quotient
+    by an ulp): the port computes what the compiled reference does.  (B9's
+    int8 mode divides truly, as the Pallas body does.)"""
+    x32 = x.to(torch.float32)
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(absmax * _INV_127, 1e-12)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def a2a_rows_int8(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``x`` (D·C, d) or (D, C, d) quantised by rows, the int8 rows and
+    their scales exchanged by all-to-all over ``axis`` (block i to the
+    i-th rank), and dequantised to x's dtype (no autograd)."""
+    n = mesh.axis_size(axis)
+    shape = x.shape
+    q, scale = _quant_rows(x.reshape(n, -1, shape[-1]))
+    q = coll.all_to_all_raw(q, mesh, axis)
+    scale = coll.all_to_all_raw(scale, mesh, axis)
+    return (q.to(torch.float32) * scale).to(x.dtype).reshape(shape)
+
+
+class _Int8AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return a2a_rows_int8(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return a2a_rows_int8(g, *ctx.args), None, None
+
+
+def int8_all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """all_to_all over the mesh ``axis`` with int8 wire format in BOTH
+    directions (per-row absmax scales ride along in float32): the
+    reference's custom-VJP ``int8_all_to_all``.  x: (D, C, d) -> (D, C,
+    d); the backward quantises the incoming cotangent the same way and
+    sends it back."""
+    return _Int8AllToAll.apply(x, mesh, axis)
+
+
+def shard_map_all_reduce(grads, mesh, axes=("pod", "data")):
+    """Explicit int8 all-reduce over the DP axes: each leaf quantised
+    (``quantize_int8``), its int8 values summed as int32 over ``axes``,
+    the scales' max taken, then qsum · s / n (n the ranks summed) in the
+    leaf's dtype.  Collective bytes drop 4x vs float32 (the int32 sum is
+    the gloo/NCCL wire; the reference's psum moves int32 too)."""
+    axes = tuple(a for a in axes if a in mesh.shape)
+    if not axes:
+        return grads
+    n = mesh.axis_size(axes)
+
+    def one(g):
+        q, s = quantize_int8(g.to(torch.float32))
+        qsum = coll.all_reduce_raw(q.to(torch.int32), mesh, axes)
+        s = coll.all_reduce_raw(s, mesh, axes, op=dist.ReduceOp.MAX)
+        out = qsum.to(torch.float32) * s
+        return (out / torch.full_like(out, float(n))).to(g.dtype)
+
+    return _tree_map(one, grads)

@@ -1,10 +1,10 @@
 """Serving substrate: prefill + decode step builders and the greedy
 generation loop (the port of ``repro/serve/engine.py``).
 
-One card: the reference's ``ParallelCtx`` (sharding constraints, the
-mesh) has no counterpart here yet and the builders take none.  Decode
-updates the cache in place, as the reference's donated cache does on its
-device.
+The builders take no ``ParallelCtx``: the caller runs them under
+``parallel.api.use(pctx)`` (``launch/serve.py --mesh-devices N`` does so
+with each rank's part of the requests).  Decode updates the cache in
+place, as the reference's donated cache does on its device.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,5 +90,16 @@ def _sample(logits: torch.Tensor, temperature: float, generator: torch.Generator
     logits = logits[..., :vocab]
     if temperature <= 0.0 or generator is None:
         return torch.argmax(logits, dim=-1)
+    c = par.ctx()
+    lanes = c.mesh is not None and c.batch_sharded and c.dp > 1
+    b = logits.shape[0]
+    if lanes:
+        # Every DP lane holds the same generator state: each draws for the
+        # whole batch and keeps its own rows, as one process would draw.
+        logits = coll.gather_raw(logits.contiguous(), c.mesh, c.dp_axes, 0)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    tok = torch.multinomial(probs, 1, generator=generator)[..., 0]
+    if lanes:
+        i = c.mesh.index(c.dp_axes)
+        tok = tok[i * b:(i + 1) * b]
+    return tok

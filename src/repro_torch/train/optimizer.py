@@ -25,6 +25,14 @@ copy of a model sits on the card; it returns the same objects.
 ``_stochastic_round_to`` takes its uniforms from a ``torch.Generator`` (or
 as a tensor): the reference's ``jax.random`` draws cannot be reproduced, so
 given the same uniforms the two round alike, bit for bit.
+
+Over a mesh (``parallel.api.ctx().mesh``) each rank holds its shard of
+every leaf (a parameter's ``spec``; the moments take their parameter's,
+Adafactor's ``vr`` / ``vc`` its spec less the reduced axis) and the
+reductions that cross shards are summed over the axes that shard the
+leaf: ``global_norm`` (a replicated leaf counted once), Adafactor's row
+and column means, the mean of ``vr`` and the update RMS.  AdamW and SGD
+are elementwise on the shards.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ import math
 import torch
 
 from repro_torch.models.tree import Stack, flatten, tree_map
+from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shard_rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +87,44 @@ def _tensors(leaf) -> tuple:
     return tuple(leaf) if isinstance(leaf, Stack) else (leaf,)
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for _, leaf in flatten(tree):
+def leaf_spec(leaf) -> tuple:
+    """The spec of a leaf in the reference's (stacked) layout: a tensor's
+    ``spec``, a ``Stack``'s with None for its group axis; () when the leaf
+    carries none (replicated)."""
+    spec = getattr(_tensors(leaf)[0], "spec", None)
+    if not spec:
+        return ()
+    return ((None,) + tuple(spec)) if isinstance(leaf, Stack) else tuple(spec)
+
+
+def _with_spec(t: torch.Tensor, spec) -> torch.Tensor:
+    if spec:
+        t.spec = tuple(spec)
+    return t
+
+
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """√(Σ g²) over every leaf.  Over a mesh each leaf's shard sum is
+    summed over the axes its spec (from ``specs``, one a leaf in flatten
+    order, else the leaf's own) shards it on, so a replicated leaf counts
+    once."""
+    mesh = par.ctx().mesh
+    flat = [leaf for _, leaf in flatten(tree)]
+    if mesh is None:
+        total = 0
+        for leaf in flat:
+            for t in _tensors(leaf):
+                total = total + torch.sum(t.float() ** 2)
+        return torch.sqrt(total)
+    specs = specs if specs is not None else [leaf_spec(leaf) for leaf in flat]
+    parts: dict = {}
+    for leaf, spec in zip(flat, specs):
+        axes = shard_rules.spec_axes(spec)
         for t in _tensors(leaf):
-            total = total + torch.sum(t.float() ** 2)
+            parts[axes] = parts.get(axes, 0) + torch.sum(t.float() ** 2)
+    total = 0
+    for axes in sorted(parts):
+        total = total + coll.all_reduce_raw(parts[axes], mesh, axes)
     return torch.sqrt(total)
 
 
@@ -100,9 +144,12 @@ def clip_by_norm(tree, max_norm):
 
 
 def _zeros(leaf):
+    def one(t):
+        return _with_spec(torch.zeros(t.shape, dtype=torch.float32, device=t.device),
+                          getattr(t, "spec", None))
     if isinstance(leaf, Stack):
-        return Stack(torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaf)
-    return torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+        return Stack(one(t) for t in leaf)
+    return one(leaf)
 
 
 def init_state(cfg: OptConfig, params) -> dict:
@@ -111,11 +158,15 @@ def init_state(cfg: OptConfig, params) -> dict:
     if cfg.name == "adafactor":
         def fact(p):
             shape, dev = tuple(p.shape), _tensors(p)[0].device
+            spec = leaf_spec(p)
+            spec = spec + (None,) * (len(shape) - len(spec)) if spec else ()
             if len(shape) >= cfg.factored_threshold and len(shape) >= 2:
-                return {"vr": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-                        "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
-                                          device=dev)}
-            return {"v": torch.zeros(shape, dtype=torch.float32, device=dev)}
+                return {"vr": _with_spec(torch.zeros(shape[:-1], dtype=torch.float32,
+                                                     device=dev), spec[:-1]),
+                        "vc": _with_spec(torch.zeros(shape[:-2] + shape[-1:],
+                                                     dtype=torch.float32, device=dev),
+                                         spec[:-2] + spec[-1:])}
+            return {"v": _with_spec(torch.zeros(shape, dtype=torch.float32, device=dev), spec)}
         return {"f": tree_map(fact, params)}
     if cfg.name == "sgdm":
         return {"m": tree_map(_zeros, params)}
@@ -178,11 +229,12 @@ def apply_updates(cfg: OptConfig, grads, state, params, step, key=None):
     {"gnorm", "lr"} (float32 tensors); ``key``: the Adafactor stochastic
     rounding's ``torch.Generator`` (seeded 0 on the parameters' device by
     default) or a list of uniforms, one a leaf in flatten order."""
-    gnorm = global_norm(grads)
+    flat_p = [leaf for _, leaf in flatten(params)]
+    specs = [leaf_spec(leaf) for leaf in flat_p]
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = lr_at(cfg, step)
     t = _f32(step, lr.device) + 1.0
-    flat_p = [leaf for _, leaf in flatten(params)]
     flat_g = [leaf for _, leaf in flatten(grads)]
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} gradient leaves for {len(flat_p)} parameters")
@@ -213,14 +265,16 @@ def apply_updates(cfg: OptConfig, grads, state, params, step, key=None):
         f_dicts = [_at(state["f"], path) for path, _ in flatten(params)]
         if cfg.stochastic_rounding and key is None:
             key = torch.Generator(device=_tensors(flat_p[0])[0].device).manual_seed(0)
-        for i, (pl, gl, f) in enumerate(zip(flat_p, flat_g, f_dicts)):
+        for i, (pl, gl, f, spec) in enumerate(zip(flat_p, flat_g, f_dicts, specs)):
             g = _stacked(gl) * scale
             g2 = g * g + 1e-30
+            spec = spec + (None,) * (g.dim() - len(spec)) if spec else (None,) * g.dim()
             if "vr" in f:
-                vr = d2 * f["vr"] + (1 - d2) * g2.mean(-1)
-                vc = d2 * f["vc"] + (1 - d2) * g2.mean(-2)
+                vr = d2 * f["vr"] + (1 - d2) * _mean(g2, -1, spec[-1])
+                vc = d2 * f["vc"] + (1 - d2) * _mean(g2, -2, spec[-2])
                 del g2
-                denom = ((vr / torch.clamp_min(vr.mean(-1, keepdim=True), 1e-30))[..., None]
+                vr_mean = _mean(vr, -1, spec[-2], keepdim=True)
+                denom = ((vr / torch.clamp_min(vr_mean, 1e-30))[..., None]
                          * vc[..., None, :])
                 u = g / torch.sqrt(denom + 1e-30)
                 del denom
@@ -233,7 +287,7 @@ def apply_updates(cfg: OptConfig, grads, state, params, step, key=None):
                 _write(f["v"], v)
             del g
             # Update clipping (Adafactor RMS rule).
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = torch.sqrt(_mean_all(u * u, spec) + 1e-30)
             u = u / torch.clamp_min(rms, 1.0)
             p32 = _stacked(pl)
             u = u + cfg.weight_decay * p32
@@ -262,6 +316,28 @@ def apply_updates(cfg: OptConfig, grads, state, params, step, key=None):
         return params, state, {"gnorm": gnorm, "lr": lr}
 
     raise ValueError(cfg.name)
+
+
+def _mean(x: torch.Tensor, dim: int, entry, keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole leaf: over a mesh axis that splits
+    ``dim`` (the spec ``entry``), the shards' sums summed, then divided by
+    the whole length."""
+    axes = shard_rules.spec_axes((entry,))
+    mesh = par.ctx().mesh
+    if not axes or mesh is None:
+        return x.mean(dim, keepdim=keepdim)
+    total = coll.all_reduce_raw(x.sum(dim, keepdim=keepdim), mesh, axes)
+    return total / (x.shape[dim] * mesh.axis_size(axes))
+
+
+def _mean_all(x: torch.Tensor, spec) -> torch.Tensor:
+    """The mean of every element of the whole leaf (its shards' sums summed
+    over the axes of ``spec``)."""
+    axes = shard_rules.spec_axes(spec)
+    mesh = par.ctx().mesh
+    if not axes or mesh is None:
+        return torch.mean(x)
+    return coll.all_reduce_raw(x.sum(), mesh, axes) / (x.numel() * mesh.axis_size(axes))
 
 
 def _at(tree, path: tuple):

@@ -1,5 +1,5 @@
 """The training step: the port of the reference package's
-``train/step.py`` for one card.
+``train/step.py``, on one card or over a mesh of ranks.
 
 ``build_train_step`` returns ``step_fn(state, batch) -> (state,
 metrics)``: the loss and the parameters' gradients (``torch.autograd``,
@@ -9,7 +9,19 @@ jits the step with the state donated; the port runs eagerly and updates
 the parameters and the optimizer state in place (see
 ``optimizer.apply_updates``), so the returned state holds the same
 tensors with the step counter advanced.  ``compress_grads`` without a mesh
-is a no-op, as in the reference (a mesh raises in ``ParallelCtx``).
+is a no-op, as in the reference.
+
+Over a mesh (``pctx.mesh``; the state built with ``make_train_state(...,
+pctx=)``, each leaf this rank's shard) every rank is given the global
+batch and takes its part (``ParallelCtx.shard_batch``: split over the DP
+axes, replicated when it does not divide).  Each rank seeds its backward
+with loss / (ranks in the mesh): the collectives' backward passes are
+exact transposes, so the gradient of a leaf is the sum of the ranks'
+gradients over the axes that do not shard it (an FSDP leaf's sum over
+``data`` already came from its all-gather's reduce-scatter).  With
+``compress_grads`` the reduced gradients go through the reference's
+``compress_decompress``, each leaf's absmax taken over the whole leaf (a
+max over its shards).
 """
 from __future__ import annotations
 
@@ -17,11 +29,15 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.tree import Stack, flatten, unflatten_like
 from repro_torch.parallel import api as par
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import compress
+from repro_torch.parallel import sharding as shard_rules
 from repro_torch.train import optimizer as opt_mod
 
 
@@ -40,14 +56,14 @@ class TrainConfig:
 
 
 def make_train_state(cfg: ModelConfig, tcfg: TrainConfig, gen=None, *,
-                     device="cuda") -> TrainState:
+                     device="cuda", pctx=None) -> TrainState:
     """Seeded parameters (``transformer.init_params`` from ``gen``, a
     ``torch.Generator`` or a seed; ``tcfg.seed`` by default) in
     ``tcfg.param_dtype`` on ``device``, trainable, with a fresh optimizer
-    state and step 0."""
+    state and step 0; with ``pctx`` holding a mesh, this rank's shards."""
     dtype = getattr(torch, tcfg.param_dtype)
     model = T.init_params(cfg, tcfg.seed if gen is None else gen, device=device, dtype=dtype,
-                          trainable=True)
+                          trainable=True, pctx=pctx)
     return state_for(model, tcfg)
 
 
@@ -72,15 +88,22 @@ def _params(model) -> list:
             for t in (leaf if isinstance(leaf, Stack) else (leaf,))]
 
 
-def _loss_and_grads(cfg, tcfg, model, batch):
+def _loss_and_grads(cfg, tcfg, model, batch, seed: float = 1.0):
     """(loss, gradients in the model tree's layout).  One microbatch: the
     gradients in the parameters' dtype; n > 1: the batch split into n
     along its first axis, losses and float32 gradients summed in order,
-    then scaled by 1/n."""
+    then scaled by 1/n.  ``seed``: the backward's seed (the cotangent of
+    each loss)."""
     params = _params(model)
+
+    def grads_of(loss):
+        if seed == 1.0:
+            return torch.autograd.grad(loss, params)
+        return torch.autograd.grad(loss, params, torch.full_like(loss, seed))
+
     if tcfg.microbatches <= 1:
         loss = T.loss_fn(cfg, model, batch)
-        return loss.detach(), _grad_tree(model, list(torch.autograd.grad(loss, params)))
+        return loss.detach(), _grad_tree(model, list(grads_of(loss)))
 
     n = tcfg.microbatches
     micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:])) for k, v in batch.items()}
@@ -88,7 +111,7 @@ def _loss_and_grads(cfg, tcfg, model, batch):
     g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
     for i in range(n):
         loss = T.loss_fn(cfg, model, {k: v[i] for k, v in micro.items()})
-        for acc, g in zip(g_acc, torch.autograd.grad(loss, params)):
+        for acc, g in zip(g_acc, grads_of(loss)):
             acc += g.float()
         loss_acc = loss_acc + loss.detach()
     inv = 1.0 / n
@@ -100,10 +123,23 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, pctx: par.ParallelCtx)
     of tensors on the parameters' device, metrics {"gnorm", "lr", "loss"}
     (float32 tensors).  The step runs under ``pctx`` (its ``remat``)."""
 
+    mesh = pctx.mesh
+
     def step_fn(state: TrainState, batch):
+        if mesh is None:
+            with par.use(pctx):
+                return _update(state, *_loss_and_grads(cfg, tcfg, state.params, batch))
+        local, split = pctx.shard_batch(batch)
+        with par.use(dataclasses.replace(pctx, batch_sharded=split)):
+            loss, grads = _loss_and_grads(cfg, tcfg, state.params, local, 1.0 / mesh.size)
+            specs = [opt_mod.leaf_spec(leaf) for _, leaf in flatten(state.params)]
+            grads = _reduce_grads(grads, specs, mesh)
+            if pctx.compress_grads:
+                grads = _compress_whole(grads, specs, mesh)
+            return _update(state, loss, grads)
+
+    def _update(state, loss, grads):
         with par.use(pctx):
-            loss, grads = _loss_and_grads(cfg, tcfg, state.params, batch)
-            # compress_grads needs a mesh, which ParallelCtx refuses on one card.
             _, new_opt, metrics = opt_mod.apply_updates(
                 tcfg.opt, grads, state.opt, state.params, state.step)
             del grads
@@ -111,3 +147,42 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, pctx: par.ParallelCtx)
             return TrainState(state.params, new_opt, state.step + 1), metrics
 
     return step_fn
+
+
+def _map_leaves(fn, grads, specs):
+    """``fn(tensor, spec)`` over each tensor of each leaf (a ``Stack``'s
+    groups with its per-group spec), in the tree's structure."""
+    flat = [leaf for _, leaf in flatten(grads)]
+    out = []
+    for leaf, spec in zip(flat, specs):
+        if isinstance(leaf, Stack):
+            out.append(Stack(fn(t, spec[1:] if spec else ()) for t in leaf))
+        else:
+            out.append(fn(leaf, spec))
+    return unflatten_like(grads, out)
+
+
+def _reduce_grads(grads, specs, mesh):
+    """Each gradient summed over the mesh axes its spec does not shard it
+    on (the ranks that hold the same shard)."""
+    def one(g, spec):
+        used = shard_rules.spec_axes(spec)
+        return coll.all_reduce_raw(g, mesh, tuple(a for a in mesh.axis_names if a not in used))
+    return _map_leaves(one, grads, specs)
+
+
+def _compress_whole(grads, specs, mesh):
+    """The reference's ``compress_decompress`` of each whole leaf: absmax
+    over every shard (and group) of the leaf, then the int8 round trip
+    (``mesh`` None: one process, every leaf whole)."""
+    flat = [leaf for _, leaf in flatten(grads)]
+    out = []
+    for leaf, spec in zip(flat, specs):
+        ts = tuple(leaf) if isinstance(leaf, Stack) else (leaf,)
+        absmax = torch.stack([t.float().abs().amax() for t in ts]).amax()
+        if mesh is not None:
+            absmax = coll.all_reduce_raw(absmax, mesh, shard_rules.spec_axes(spec),
+                                         op=dist.ReduceOp.MAX)
+        new = [compress.quantize_dequantize(t, absmax) for t in ts]
+        out.append(Stack(new) if isinstance(leaf, Stack) else new[0])
+    return unflatten_like(grads, out)

@@ -13,7 +13,13 @@ Modes:
   examples/data_curation.py's corpus (``OUT`` an .npz);
 * ``dryrun_meters`` — the reference's ``CommMeter`` for each schedule of
   its dry run's config at 8 lanes on ``DRYRUN_POINTS`` points, filled by
-  tracing its ``make_ddc_fn`` (no compile; ``OUT`` a .json).
+  tracing its ``make_ddc_fn`` (no compile; ``OUT`` a .json);
+* ``mesh`` — the LM stack's collectives and MoE islands on 8 devices
+  (``OUT`` an .npz): ``int8_all_to_all`` over (data 8) forward and
+  backward on ``a2a_inputs()``, ``shard_map_all_reduce`` of one leaf,
+  and ``moe_apply`` of tiny llama4-scout on (data 2, model 4) for each
+  of ``MOE_VARIANTS`` (its capacity factor) with the gradients of Σ y·w + aux
+  (``moe_inputs``).
 """
 import dataclasses
 import json
@@ -29,6 +35,33 @@ DRYRUN_CONFIG = dict(eps=0.01, min_pts=4, grid=256, max_clusters=64, max_verts=1
                      backend="jit")
 DRYRUN_SCHEDULES = ("sync", "tree", "async")
 DRYRUN_POINTS = 1024
+# name -> (moe_impl, a2a_int8, batch, capacity_factor) of the mesh mode's
+# MoE runs: None keeps the tiny config's drop-free E; at 1.25 (the
+# published configs') the routes drop token-copies.
+MOE_VARIANTS = {"epsum": ("epsum", False, 4, None), "a2a": ("a2a", False, 4, None),
+                "a2a_int8": ("a2a", True, 4, None), "a2a_rep": ("a2a", False, 1, None),
+                "a2a_rep_int8": ("a2a", True, 1, None),
+                "epsum_cf125": ("epsum", False, 4, 1.25), "a2a_cf125": ("a2a", False, 4, 1.25),
+                "a2a_int8_cf125": ("a2a", True, 4, 1.25)}
+
+
+def a2a_inputs():
+    """(x, dy) (8·8, 3, 16) float32: 8 lanes' (D 8, C 3, d 16) blocks, and
+    one leaf (64, 64) for the all-reduce."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((64, 3, 16)) * rng.uniform(0.01, 10, (64, 3, 1))).astype(np.float32)
+    dy = rng.standard_normal((64, 3, 16)).astype(np.float32)
+    leaf = rng.standard_normal((64, 64)).astype(np.float32)
+    return x, dy, leaf
+
+
+def moe_inputs(cfg, d_model):
+    """(x (4, 16, d), w (4, 16, d)): the reference check's x
+    (``normal(PRNGKey(1))``, tests/_dist_script.py) and a seeded weight."""
+    import jax
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (4, 16, d_model)))
+    w = np.random.default_rng(3).standard_normal((4, 16, d_model)).astype(np.float32)
+    return x, w
 
 
 def example_corpus(pipe):
@@ -76,6 +109,52 @@ def dryrun_meters(out: str) -> None:
         json.dump(meters, f)
 
 
+def mesh(out: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat, configs
+    from repro.launch import mesh as mesh_mod
+    from repro.models import layers as L
+    from repro.parallel import api as par
+    from repro.parallel import compress
+
+    arrays = {}
+    x, dy, leaf = a2a_inputs()
+    m8 = mesh_mod.make_host_mesh(8)
+    fn = compat.shard_map(lambda t: compress.int8_all_to_all(t, "data"), mesh=m8,
+                          in_specs=P("data"), out_specs=P("data"), check_vma=False)
+    y, vjp = jax.vjp(jax.jit(fn), jnp.asarray(x))
+    arrays["a2a/y"], arrays["a2a/dx"] = np.asarray(y), np.asarray(vjp(jnp.asarray(dy))[0])
+    arrays["allreduce/same"] = np.asarray(
+        compress.shard_map_all_reduce({"w": jnp.asarray(leaf)}, m8, axes=("data",))["w"])
+
+    cfg = configs.get_config("llama4-scout-17b-a16e").tiny()
+    p = L.moe_init(cfg, jax.random.PRNGKey(0))
+    xm, wm = moe_inputs(cfg, cfg.d_model)
+    m24 = mesh_mod.make_mesh((2, 4), ("data", "model"))
+    for name, (impl, int8, b, cf) in MOE_VARIANTS.items():
+        pctx = par.ParallelCtx(mesh=m24, moe_impl=impl, a2a_int8=int8)
+        cfg_v = cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+
+        def loss(p, x, w, cfg_v=cfg_v, pctx=pctx):
+            with par.use(pctx):
+                y, aux = L.moe_apply(cfg_v, p, x)
+            return jnp.sum(y * w) + aux, (y, aux)
+
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1),
+                                                             has_aux=True))(
+            p, jnp.asarray(xm[:b]), jnp.asarray(wm[:b]))
+        arrays[f"moe/{name}/y"], arrays[f"moe/{name}/aux"] = np.asarray(y), np.asarray(aux)
+        arrays[f"moe/{name}/dx"] = np.asarray(gx)
+        for k, v in jax.tree_util.tree_flatten_with_path(gp)[0]:
+            arrays[f"moe/{name}/d/" + ".".join(str(getattr(q, "key", q)) for q in k)] = \
+                np.asarray(v)
+    np.savez(out, **arrays)
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    {"curation": curation, "dryrun_meters": dryrun_meters}[sys.argv[1]](sys.argv[2])
+    {"curation": curation, "dryrun_meters": dryrun_meters, "mesh": mesh}[sys.argv[1]](
+        sys.argv[2])

@@ -683,6 +683,40 @@ def test_flash_attention(cuda, b, h, hkv, sq, skv, d, causal, window, dtype, rou
                                                             window=window))
 
 
+# B7 on the heads a rank computes under tensor parallelism
+# (``layers.attn_heads``): qwen3-8b's 32/8 heads over model 2 and 4,
+# llama4-scout's 40/8 over model 2 (kv heads not the rank's shard at 8:
+# 5 query heads, each its own kv head), MQA's one kv head shared.
+FLASH_LOCAL_CASES = [
+    # b, h_local, kv_local, s, d, dtype
+    (1, 16, 4, 2048, 128, torch.float32),
+    (1, 8, 2, 2048, 128, torch.bfloat16),
+    (2, 20, 4, 1024, 128, torch.bfloat16),
+    (1, 5, 5, 512, 128, torch.float32),
+    (1, 4, 1, 700, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dtype", FLASH_LOCAL_CASES)
+def test_flash_attention_local_heads(cuda, b, h, hkv, s, d, dtype):
+    """One launch on the rank's heads, held to the plain attention (one
+    bf16 ulp in bf16), on the projections' (b, s, heads, d) views as the
+    layer hands them over."""
+    rng = np.random.default_rng(h * s + hkv)
+    q = _randn(rng, (b, s, h, d), cuda, dtype).transpose(1, 2)
+    k = _randn(rng, (b, s, hkv, d), cuda, dtype).transpose(1, 2)
+    v = _randn(rng, (b, s, hkv, d), cuda, dtype).transpose(1, 2)
+    before = flash_attention.launches["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=True)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _bf16_one_ulp(got, want)
+
+
 def test_flash_attention_strided_inputs(cuda):
     """The model hands over transposed (b, s, h, d) views: no copy needed."""
     rng = np.random.default_rng(5)
@@ -998,6 +1032,40 @@ def test_dispatch_gather(cuda, t, d, s, dtype, layout, quant):
         assert torch.equal(got, want)
     again = moe_gather.dispatch_gather(x, idx, quant=quant)
     assert torch.equal(again[0], buf) and torch.equal(again[1], scales)
+
+
+# The a2a island's send buffer: D lanes of cap slots, whole lanes of −1
+# (no copy routed there), at tiny and at llama4-scout's full-width shape
+# on (data 2, model 2) (4,096 local tokens, top-1: cap 2,560 a lane).
+A2A_SEND_CASES = [
+    # t, d, lanes, cap, empty lanes, dtype
+    (64, 16, 4, 24, (1, 3), torch.float32),
+    (64, 16, 2, 40, (0,), torch.bfloat16),
+    (4096, 5120, 2, 2560, (1,), torch.float32),
+    (4096, 5120, 2, 2560, (1,), torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("t,d,lanes,cap,empty,dtype", A2A_SEND_CASES)
+def test_dispatch_gather_int8_whole_empty_lanes(cuda, t, d, lanes, cap, empty, dtype):
+    """B9's int8 mode on an a2a send buffer whose lanes are wholly −1: one
+    launch, rows and scales bit-equal to the plain version; every slot of
+    an empty lane int8 0 with scale 0 (it dequantises to 0)."""
+    g = torch.Generator(device=cuda).manual_seed(t + cap)
+    x = torch.randn((t, d), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(-1, t, (lanes, cap), generator=g, device=cuda, dtype=torch.int32)
+    for lane in empty:
+        idx[lane] = -1
+    idx = idx.reshape(-1)
+    before = moe_gather.launches["dispatch_gather"]
+    q, scales = moe_gather.dispatch_gather(x, idx, quant=True)
+    torch.cuda.synchronize()
+    assert moe_gather.launches["dispatch_gather"] == before + 1
+    want_q, want_s = ref.dispatch_gather(x, idx, quant=True)
+    assert torch.equal(q, want_q) and torch.equal(scales, want_s)
+    for lane in empty:
+        assert (q.view(lanes, cap, d)[lane] == 0).all()
+        assert (scales.view(lanes, cap)[lane] == 0).all()
 
 
 def test_dispatch_gather_rejects_bad_inputs(cuda):

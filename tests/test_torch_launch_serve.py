@@ -9,7 +9,8 @@ rounded tracks.  ``--mode lm`` (the default mode) on every architecture's
 tiny configuration: the reference's JSON keys (and the device), tokens in
 the vocabulary, and, given the reference's own seeded parameters, prompts
 and frames (carried across with ``params_from_jax``), the reference's
-greedy tokens; ``--mesh-devices`` above 1 raises."""
+greedy tokens; ``--mesh-devices`` above 1 serves over that many gloo
+ranks, with the one-process tokens."""
 import argparse
 import json
 import os
@@ -143,6 +144,19 @@ def test_lm_mode_sampling_follows_the_seed(capsys):
     assert int(runs[0].max()) < tconfigs.get_config("qwen3-8b").vocab
 
 
-def test_lm_mode_refuses_several_cards():
-    with pytest.raises(NotImplementedError, match="A10 item 6"):
-        tserve.main(["--arch", "qwen3-8b", "--tiny", "--mesh-devices", "2", "--device", "cpu"])
+def test_lm_mode_refuses_several_cards(capsys):
+    """``--mesh-devices 2`` serves over 2 gloo ranks (the reference's host
+    mesh of ``data`` lanes, parameters unsharded): each rank generates for
+    its 2 of the 4 requests (llama4-scout: its MoE layers route the whole
+    batch, gathered over ``data``, as one card does) and the tokens gathered
+    to rank 0 equal the one-process run's exactly; the line names the
+    ranks and the backend."""
+    argv = ["--arch", "llama4-scout-17b-a16e", "--tiny", "--requests", "4", "--prompt-len",
+            "8", "--gen", "4", "--device", "cpu"]
+    want = tserve.main(argv)
+    capsys.readouterr()
+    got = tserve.main(argv + ["--mesh-devices", "2"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert torch.equal(got, want) and got.shape == (4, 4)
+    assert line["ranks"] == 2 and line["backend"] == "gloo" and not line["staged"]
+    assert set(line) == LM_KEYS | {"device", "ranks", "backend", "staged"}

@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
@@ -159,14 +160,30 @@ def test_remat_gives_the_same_loss_and_gradients(reference, arch, remat):
 
 
 def test_parallel_ctx_refuses_several_cards():
-    for kw in ({"mesh": object()}, {"fsdp": True}, {"mesh": object(), "compress_grads": True}):
-        with pytest.raises(ValueError, match="A10 item 6"):
-            par.ParallelCtx(**kw)
+    """``ParallelCtx`` takes a mesh, ``fsdp`` and ``compress_grads`` (the
+    mesh path, tests/test_torch_mesh.py): on the production meshes (abstract
+    here) ``axis_size`` and ``spec`` follow the reference's, ``dp`` counts
+    the DP lanes, ``shard_batch`` refuses nothing and ``constrain`` is the
+    identity; an unknown ``remat`` still raises."""
+    from repro import compat
+    from repro.parallel import api as jpar
+    from repro_torch.launch import mesh as tmesh
+
+    for multi_pod in (False, True):
+        mesh = tmesh.make_production_mesh(multi_pod=multi_pod)
+        c = par.ParallelCtx(mesh=mesh, fsdp=True, compress_grads=True)
+        jc = jpar.ParallelCtx(mesh=compat.abstract_mesh(*tmesh.production_shape(multi_pod)),
+                              fsdp=True)
+        for logical in ("batch", "heads", "experts", "vocab", "embed"):
+            assert c.axis_size(logical) == jc.axis_size(logical)
+            assert P(*c.spec(logical, None)) == jc.spec(logical, None)
+        assert c.dp == (32 if multi_pod else 16) and c.fsdp and c.compress_grads
     with pytest.raises(ValueError, match="remat"):
         par.ParallelCtx(remat="some")
     x = torch.ones(2)
     assert par.constrain(x, "batch") is x
-    assert par.ctx().remat == "none"
+    assert par.ctx().remat == "none" and par.ctx().mesh is None
+    assert par.ctx().shard_batch({"tokens": x}) == ({"tokens": x}, True)
 
 
 def test_moe_training_branch_equals_the_serving_branch(reference):

@@ -511,9 +511,34 @@ def test_launch_train_resumes_at_the_saved_step(tiny_qwen, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "production"], ["--multi-pod"],
                                   ["--mesh-devices", "2"], ["--fsdp"], ["--compress-grads"]])
-def test_multi_card_flags_raise(flag):
-    with pytest.raises(ValueError, match="A10 item 6"):
-        tlaunch.main(_args("--device", "cpu", *flag))
+def test_multi_card_flags_raise(flag, capfd):
+    """The mesh flags.  ``--mesh production`` / ``--multi-pod`` lay the
+    state over (16, 16) / (2, 16, 16) and raise naming the 256 / 512 ranks
+    they need (one runs here).  ``--mesh-devices 2`` trains on 2 gloo ranks
+    over the host mesh (2 ``data`` lanes): the one-process losses (rtol
+    1e-5; the batch's two halves' means averaged); ``--fsdp`` and
+    ``--compress-grads`` on those ranks: FSDP shards every leaf and gives
+    the same losses, the int8 gradients losses within 1e-2 of them and not
+    equal.  Rank 0 logs, with the backend."""
+    if flag[0] in ("--mesh", "--multi-pod"):
+        with pytest.raises(ValueError, match="needs 256 ranks" if flag[0] == "--mesh"
+                           else "needs 512 ranks"):
+            tlaunch.main(_args("--device", "cpu", *flag))
+        return
+    base = tlaunch.main(_args("--device", "cpu"))
+    capfd.readouterr()
+    extra = flag if flag[0] == "--mesh-devices" else [*flag, "--mesh-devices", "2"]
+    got = tlaunch.main(_args("--device", "cpu", *extra))
+    lines = [json.loads(line) for line in capfd.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 3 and lines[-1]["ranks"] == 2 and lines[-1]["backend"] == "gloo"
+    assert lines[-1]["mesh"] == {"data": 2} and not lines[-1]["staged"]
+    assert [line["loss"] for line in lines] == [round(v, 4) for v in got]
+    if flag[0] == "--compress-grads":
+        np.testing.assert_allclose(got, base, rtol=1e-2)
+        assert got != base
+    else:
+        np.testing.assert_allclose(got, base, rtol=1e-5)
 
 
 def test_launch_train_defaults_to_the_card(monkeypatch):
