@@ -4486,6 +4486,7 @@ def _scatter_rows(torch, mesh, x, ref, split: bool):
 def _mesh_stats(torch, dev, coll, t0) -> dict:
     return {"collectives": coll.STATS["collectives"], "bytes": coll.STATS["bytes"],
             "staged_bytes": coll.STATS["staged_bytes"],
+            "kinds": {k: dict(v) for k, v in coll.STATS["kinds"].items()},
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "s": time.perf_counter() - t0}
 
@@ -4567,6 +4568,8 @@ def mesh_qwen_rank(rank, group, dev, tokens, ckpt_dir, control):
     state = state._replace(step=torch.ones_like(state.step))
     before = _sketches(torch, state.params, mesh)
     _mark(out, "mesh state")
+    # Step 1's peak is the step's (the state resident): lm_dryrun predicts it.
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     coll.reset_stats()
     ops.reset_launch_counts()
@@ -4824,6 +4827,150 @@ def mesh_b9_int8(torch, ops, ref, dev) -> dict:
             "bytes": nbytes, "operations": ops_count}
 
 
+# -- the LM kernels at the training shapes (PR 28's entries) -------------------
+
+# B7 and B8 at the float32 training forward of lm_train (qwen3-8b's and
+# mamba2-1.3b's layer at 2 × 2,048 tokens), B9 at llama4-scout's (4,096
+# tokens, top-1 over 16 experts at capacity factor 1.25).
+TRAIN_SHAPE_FA = (2, 32, 8, 2048, 128)          # b, h, hkv, s, d
+TRAIN_SHAPE_SSD = (2, 2048, 64, 64, 128)        # b, l, h, dh, ds
+TRAIN_SHAPE_GATHER = (4096, 5120, 16, 1.25)     # tokens, d, experts, capacity factor
+
+
+def train_shape_entries(torch, ops, ref, dev) -> dict:
+    """B7, B8 and B9 on seeded float32 inputs at the training forward's
+    shapes: each held to its plain version (B7/B8 at LM_KERNEL_F32_TOL, B9
+    bit for bit) and timed beside it, with its bound and the library call
+    where there is one (SDPA in float32; ``index_select`` of the same
+    rows).  Returns {kernel name: its ``at_training_shape`` entry}."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    out = {}
+    b, h, hkv, s, d = TRAIN_SHAPE_FA
+    q = torch.randn((b, h, s, d), generator=g, device=dev)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device=dev) for _ in range(2))
+    ops_fa = b * h * _flash_pairs(s, s, True) * 4 * d
+    bytes_fa = tensor_bytes(q) * 2 + tensor_bytes(k) + tensor_bytes(v)
+    out["flash_attention"] = kernel_entry(
+        torch, "flash_attention", "flash_attention.cu", LM_KERNEL_REPLACES["flash_attention"],
+        [b, h, hkv, s, d, "float32"], lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_chunked(q, k, v, causal=True), *bound(ops_fa, bytes_fa),
+        None, "the float32 training forward (lm_train)",
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        tol=LM_KERNEL_F32_TOL["flash_attention"],
+        extra={"operations": ops_fa, "bytes": bytes_fa})
+    del q, k, v
+    bsz, l, hs, dh, ds = TRAIN_SHAPE_SSD
+    x = torch.randn((bsz, l, hs, dh), generator=g, device=dev)
+    a = -0.7 * torch.rand((bsz, l, hs), generator=g, device=dev)
+    bb = torch.randn((bsz, l, hs, ds), generator=g, device=dev)
+    c = torch.randn((bsz, l, 1, ds), generator=g, device=dev).expand(bsz, l, hs, ds)
+    lc = 32     # the CUDA-core route's chunk (ssd_scan.CHUNK["simt"])
+    ops_ssd = bsz * l * hs * ((lc + 1) * (ds + dh) + 4 * ds * dh)
+    bytes_ssd = tensor_bytes(x) * 2 + tensor_bytes(a) + tensor_bytes(bb) + tensor_bytes(c)
+    out["ssd_scan"] = kernel_entry(
+        torch, "ssd_scan", "ssd_scan.cu", LM_KERNEL_REPLACES["ssd_scan"],
+        [bsz, l, hs, dh, ds, "float32"], lambda: ops.ssd_scan(x, a, bb, c),
+        lambda: ref.ssd_scan_chunked(x, a, bb, c, chunk=ops.PLAIN_SSD_CHUNK),
+        *bound(ops_ssd, bytes_ssd), None, "the float32 training forward (lm_train)",
+        tol=LM_KERNEL_F32_TOL["ssd_scan"],
+        extra={"operations": ops_ssd, "bytes": bytes_ssd, "chunk": lc})
+    del x, a, bb, c
+    t, dm, e, cf = TRAIN_SHAPE_GATHER
+    cap = math.ceil(t / e * cf)
+    xg = torch.randn((t, dm), generator=g, device=dev)
+    dest = torch.randint(0, e, (t,), generator=g, device=dev)
+    idx = torch.full((e, cap), -1, dtype=torch.int32, device=dev)
+    for ex in range(e):
+        tok = torch.nonzero(dest == ex)[:cap, 0].to(torch.int32)
+        idx[ex, :tok.numel()] = tok
+    idx = idx.reshape(-1)
+    kept = int((idx >= 0).sum())
+    bytes_g = kept * dm * 4 + idx.numel() * 4 + idx.numel() * dm * 4 + idx.numel() * 4
+    out["dispatch_gather"] = kernel_entry(
+        torch, "dispatch_gather", "moe_gather.cu", LM_KERNEL_REPLACES["dispatch_gather"],
+        [t, dm, idx.numel(), "float32"], lambda: ops.dispatch_gather(xg, idx, quant=False)[0],
+        lambda: ref.dispatch_gather(xg, idx, quant=False)[0], *bound(0, bytes_g), None,
+        "the float32 training forward (lm_train)",
+        library=lambda: xg.index_select(0, idx.clamp_min(0)),
+        extra={"bytes": bytes_g, "kept_rows": kept,
+               "library": "index_select (no mask, no quantisation)"})
+    keep = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "exact", "operations", "bytes", "kept_rows", "library", "chunk")
+    return {name: {k: e_[k] for k in keep if k in e_} for name, e_ in out.items()}
+
+
+# -- the LM dry run (lm_dryrun) ------------------------------------------------
+
+# The predicted peak of lm_mesh's qwen3-8b mesh step against the measured
+# one (each rank's ``max_memory_allocated`` over step 1), relative.
+DRYRUN_PEAK_RTOL = 0.15
+# Two production cells on (data 16, model 16), each traced as one rank.
+DRYRUN_LM_CELLS = (("qwen3-8b", "train_4k"), ("llama4-scout-17b-a16e", "prefill_32k"))
+
+
+def lm_dryrun_phase(torch, ops, mesh_line: dict, card: str) -> dict:
+    """The port's LM dry run (launch/dryrun.py) in this process, on meta
+    tensors in a fake world: lm_mesh's qwen3-8b step (2 of 36 layers,
+    (data 2, model 2), FSDP, AdamW, 2 × 2,048 tokens, float32) held to what
+    lm_mesh measured on its ranks (collectives by kind exactly; the peak
+    within DRYRUN_PEAK_RTOL of the ranks that ran only the mesh step), then
+    DRYRUN_LM_CELLS and kimi-k2's scale-out on 2,048 ranks, each with its
+    trace time.  Launches no kernel."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun, dryrun_scaleout
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    t_phase = time.perf_counter()
+    launches0 = ops.launch_counts()
+    failures = []
+    arch, layers, (b, s) = MESH_QWEN
+    rec = dryrun.run_cell(arch, "lm_mesh", False, pctx_overrides=dict(fsdp=True, remat="none"),
+                          tcfg=step_mod.TrainConfig(opt=opt_mod.OptConfig(**MESH_OPT)),
+                          cfg=mesh_cfg(arch, layers), shape=ShapeConfig("lm_mesh", s, b, "train"),
+                          mesh=(MESH_SHAPE, MESH_AXES))
+    if rec["status"] != "ok":
+        raise RuntimeError(f"lm_dryrun: the lm_mesh cell failed: {rec.get('trace')}")
+    measured = mesh_line["qwen3"]["step1_ranks"]
+    for i, st in enumerate(measured):
+        counts = {k: v["calls"] for k, v in st["kinds"].items()}
+        nbytes = {k: v["bytes"] for k, v in st["kinds"].items()}
+        if counts != rec["coll_counts"] or nbytes != rec["coll_detail"]:
+            failures.append(f"rank {i}: collectives {counts} / {nbytes}, predicted "
+                            f"{rec['coll_counts']} / {rec['coll_detail']}")
+    predicted_gb = rec["memory"]["total_hbm_bytes"] / 1e9
+    peaks = [st["peak_gb"] for st in measured[1:]]    # the ranks that ran only the mesh step
+    ratios = [predicted_gb / p for p in peaks]
+    if any(abs(r - 1) > DRYRUN_PEAK_RTOL for r in ratios):
+        failures.append(f"predicted peak {predicted_gb} GB against measured {peaks}")
+    cross = {"arch": arch, "layers": layers, "tokens": [b, s], "mesh": dict(zip(MESH_AXES,
+                                                                               MESH_SHAPE)),
+             "coll_counts": rec["coll_counts"], "coll_detail": rec["coll_detail"],
+             "measured_collectives": [st["kinds"] for st in measured],
+             "predicted_peak_gb": predicted_gb, "measured_peak_gb": peaks,
+             "peak_ratio": ratios, "memory": rec["memory"], "trace_s": rec["trace_s"]}
+    cells = []
+    for arch_c, shape_c in DRYRUN_LM_CELLS:
+        r = dryrun.run_cell(arch_c, shape_c, False)
+        if r["status"] != "ok":
+            failures.append(f"{arch_c} {shape_c}: {r.get('error')}")
+        cells.append({k: r.get(k) for k in dryrun.SHORT_KEYS + (
+            "flops_per_dev", "bytes_per_dev", "coll_bytes_per_dev", "memory", "kernels",
+            "traced")})
+    scale = dryrun_scaleout.run()
+    if not scale["fits_h100_80gb"]:
+        failures.append(f"kimi-k2's scale-out does not fit: {scale['hbm_per_device_gb']} GiB")
+    if ops.launch_counts() != launches0:
+        failures.append("the dry run launched a kernel")
+    line = {"card": card, "lm_mesh_cross_check": cross, "cells": cells, "scaleout": scale,
+            "failures": failures, "lm_dryrun_phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"lm_dryrun": line}), flush=True)
+    if failures:
+        raise RuntimeError(f"lm_dryrun: {failures}")
+    return line
+
+
 def mesh_nccl_rank(rank, group, dev, tokens):
     """One rank on NCCL (each rank its own card: here one rank, one card): a
     (data 1, model 1) mesh and one AdamW step of qwen3-8b at full width
@@ -4984,6 +5131,8 @@ def lm_mesh_phase(torch, np, ops, ref, dev, card: str, control: bool = False
                       "control_half_batch": q0.get("control_half_batch"),
                       "timeline": q0["timeline"],
                       "launches": [r["launches"] for r in qwen],
+                      "step1_ranks": [{k: r["step1"][k] for k in (
+                          "collectives", "bytes", "kinds", "peak_gb")} for r in qwen],
                       "peak_gb": [r["peak_gb"] for r in qwen],
                       "staged_bytes": [r["step1"]["staged_bytes"] for r in qwen]},
             "llama4": {"arch": MESH_LLAMA[0], "layers": MESH_LLAMA[1],
@@ -5073,11 +5222,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- LM over a mesh of 4 ranks on this card, the serve CLI over 2, NCCL --
-    _, b9_int8 = lm_mesh_phase(torch, np, ops, ref, dev, card.splitlines()[0])
+    mesh_line, b9_int8 = lm_mesh_phase(torch, np, ops, ref, dev, card.splitlines()[0])
     lm_kernels.append(b9_int8)
     dg = next(e for e in lm_kernels if e["name"] == "dispatch_gather")
     dg["int8"]["launches"] = b9_int8["launches"]
     dg["int8"]["launched_in"] = b9_int8["launched_in"]
+    torch.cuda.empty_cache()
+    # The LM dry run: lm_mesh's step predicted, production cells, the scale-out.
+    lm_dryrun_phase(torch, ops, mesh_line, card.splitlines()[0])
+    # B7, B8 and B9 at the float32 training forward's shapes.
+    for name, sub in train_shape_entries(torch, ops, ref, dev).items():
+        next(e for e in lm_kernels if e["name"] == name)["at_training_shape"] = sub
     torch.cuda.empty_cache()
 
     # -- 2. full width: eps search on the default configuration ----------

@@ -29,9 +29,24 @@ module's size rule (``CHUNKED_ATTENTION_MIN``, ``PLAIN_SSD_CHUNK``), so
 its memory stays bounded at long sequences.  A call without a gradient
 (serving, ``torch.no_grad``) takes the plain kernel path and launches
 exactly what it did before.
+
+The dry run (``launch/dryrun.py``) traces the LM on fake tensors: tensors
+on torch's ``meta`` device, which carry shapes, dtypes and strides and no
+data.  While its count (``launch/cost.py``, in ``COUNT``) takes the
+card's routes (``card``), a meta tensor routes as a card tensor does
+(``_on_card``).  No kernel can launch on it: where a kernel would
+launch, a meta tensor gets an output of the kernel's shape and dtype, and
+the count gets the plain route's FLOPs in closed form
+(``attention_flops``, ``ssd_flops``; the gather has none) and the
+kernel's bytes (each input read once, each output written once: what the
+reference's cost count charges a Pallas kernel, whose intermediates stay
+on chip).  The backward pass runs ``_plain_vjp`` as
+it does on the card, so the count sees its recompute op by op
+(``COUNT.vjp`` traces it once a shape).  Launch counts do not move.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +61,15 @@ from . import ssd_scan as _ssd
 from .ref import PAIR_FIRST, PAIR_VALID
 
 FORCE: str | None = None
+# The dry run's active count (``launch.cost.Count``), while one runs.
+COUNT = None
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Does an LM op on ``t`` take the card's route: a card tensor, or a
+    meta tensor under a count of the card's routes?"""
+    kind = t.device.type
+    return kind == "cuda" or (kind == "meta" and COUNT is not None and COUNT.card)
 
 
 def use_gpu_kernels(t: torch.Tensor) -> bool:
@@ -216,10 +240,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or ``FORCE == "ref"``) is the reference's off the TPU: the chunked
     online softmax when sq·skv > 2**21 and the dims are equal, the exact
     version otherwise."""
-    if FORCE == "ref" or q.device.type == "cpu":
+    if FORCE == "ref" or not _on_card(q):
         return _plain_attention(q, k, v, causal, scale, window)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, scale, window)
+    return _attention_kernel(q, k, v, causal, scale, window)
+
+
+def _attention_kernel(q, k, v, causal, scale, window):
+    """B7 on card tensors; on meta ones, its output's shape and cost."""
+    if q.device.type == "meta":
+        _charge("flash_attention", attention_flops(q.shape, k.shape, v.shape),
+                sum(map(distinct_bytes, (q, k, v))), (q.shape[:3] + v.shape[3:], q.dtype))
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
 
 
@@ -237,10 +270,19 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor)
     the result depends on the chunk only through rounding).  The plain route (CPU tensors, or ``FORCE == "ref"``) is the
     reference's off the TPU: chunked at ``PLAIN_SSD_CHUNK`` when l >=
     2·PLAIN_SSD_CHUNK, the sequential recurrence otherwise."""
-    if FORCE == "ref" or x.device.type == "cpu":
+    if FORCE == "ref" or not _on_card(x):
         return _plain_ssd(x, a, b, c)
     if _needs_grad(x, a, b, c):
         return _SSDScan.apply(x, a, b, c)
+    return _ssd_kernel(x, a, b, c)
+
+
+def _ssd_kernel(x, a, b, c):
+    """B8 on card tensors; on meta ones, its output's shape and cost."""
+    if x.device.type == "meta":
+        _charge("ssd_scan", ssd_flops(x.shape, b.shape[-1]), sum(map(distinct_bytes, (x, a, b, c))),
+                (x.shape, x.dtype))
+        return x.new_empty(x.shape)
     return _ssd.ssd_scan(x, a, b, c)
 
 
@@ -258,9 +300,69 @@ def dispatch_gather(x: torch.Tensor, idx: torch.Tensor, *, quant: bool):
     ``quant`` (the int8 form is a wire format, with no gradient)."""
     if FORCE == "ref":
         return ref.dispatch_gather(x, idx, quant=quant)
-    if not quant and x.device.type == "cuda" and _needs_grad(x):
+    if not quant and _on_card(x) and _needs_grad(x):
         return _DispatchGather.apply(x, idx)
+    return _gather_kernel(x, idx, quant)
+
+
+def _gather_kernel(x, idx, quant):
+    """B9 on card tensors; on meta ones, its outputs' shapes and cost (the
+    plain version where the count takes the plain routes)."""
+    if x.device.type == "meta" and not _on_card(x):
+        return ref.dispatch_gather(x, idx, quant=quant)
+    if x.device.type == "meta":
+        s, d = idx.shape[0], x.shape[1]
+        dtype = torch.int8 if quant else x.dtype
+        _charge("dispatch_gather", 0, s * d * x.element_size() + distinct_bytes(idx),
+                ((s, d), dtype), ((s,), torch.float32))
+        return x.new_empty((s, d), dtype=dtype), x.new_empty((s,), dtype=torch.float32)
     return _mg.dispatch_gather(x, idx, quant=quant)
+
+
+# -- the dry run: closed forms of the plain routes' FLOPs ------------------------
+
+
+def attention_flops(q_shape, k_shape, v_shape) -> int:
+    """The matmul FLOPs of ``_plain_attention`` on these shapes, as
+    ``torch.utils.flop_counter`` counts them: q·kᵀ and p·v over every
+    (query, key) pair (neither plain route skips a masked block; the
+    chunked one runs over the sequences padded to its blocks)."""
+    b, h, sq, d = q_shape
+    skv, dv = k_shape[2], v_shape[3]
+    if sq * skv > CHUNKED_ATTENTION_MIN and dv == d:
+        bq, bk = min(512, sq), min(512, skv)
+        sq, skv = math.ceil(sq / bq) * bq, math.ceil(skv / bk) * bk
+    return 2 * b * h * sq * skv * (d + dv)
+
+
+def ssd_flops(x_shape, ds: int) -> int:
+    """The matmul FLOPs of ``_plain_ssd`` on x (bsz, l, h, dh) and b, c of
+    state size ``ds``: the chunked route's c·bᵀ and its product with x
+    within each chunk, and the state's read and update (``bihs,bhsd`` and
+    ``bihs,bihd,bih``), over the sequence padded to the chunk; the
+    sequential route's c·S a step."""
+    bsz, l, h, dh = x_shape
+    if l < 2 * PLAIN_SSD_CHUNK:
+        return 2 * bsz * l * h * ds * dh
+    ch = PLAIN_SSD_CHUNK
+    n = math.ceil(l / ch)
+    return n * (2 * bsz * h * ch * ch * (ds + dh) + 4 * bsz * h * ch * ds * dh)
+
+
+def distinct_bytes(t: torch.Tensor) -> int:
+    """The bytes of the distinct elements of ``t`` (a stride-0 axis, as the
+    Mamba layer's broadcast c, is read once; the dry run's count reads
+    every tensor so)."""
+    return t.element_size() * math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+
+
+def _charge(name: str, flops: int, read: int, *outputs) -> None:
+    """Add a kernel call on meta tensors to the active count: ``flops``,
+    ``read`` bytes and the bytes of ``outputs`` ((shape, dtype) each)
+    written."""
+    if COUNT is not None:
+        COUNT.kernel(name, flops, read + sum(math.prod(shape) * dtype.itemsize
+                                             for shape, dtype in outputs))
 
 
 # -- gradients: the kernel forward, the plain version's VJP backward ----------
@@ -271,11 +373,19 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
                                            for t in tensors)
 
 
-def _plain_vjp(name: str, plain, inputs, needs, cotangent):
+def _plain_vjp(name: str, plain, inputs, needs, cotangent, opts=()):
     """``torch.autograd.grad`` of ``plain`` (the op ``name``'s plain version)
     recomputed on detached ``inputs`` (the tensors a kernel read) against
     ``cotangent``, for the inputs whose ``needs`` flag is set (None for the
-    others)."""
+    others).  ``opts``: the options ``plain`` closes over (the dry run's
+    count keys its trace of a meta call by them and the shapes)."""
+    if COUNT is not None and cotangent.device.type == "meta":
+        return COUNT.vjp((name, opts), inputs, needs, cotangent,
+                         lambda: _vjp(plain, inputs, needs, cotangent))
+    return _vjp(plain, inputs, needs, cotangent)
+
+
+def _vjp(plain, inputs, needs, cotangent):
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         wanted = [t for t in leaves if t.requires_grad]
@@ -293,14 +403,14 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, window):
         ctx.save_for_backward(q, k, v)
         ctx.opts = (causal, scale, window)
-        return _fa.flash_attention(q, k, v, causal=causal, scale=scale, window=window)
+        return _attention_kernel(q, k, v, causal, scale, window)
 
     @staticmethod
     def backward(ctx, g):
         causal, scale, window = ctx.opts
         dq, dk, dv = _plain_vjp(
             "flash_attention", lambda q, k, v: _plain_attention(q, k, v, causal, scale, window),
-            ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+            ctx.saved_tensors, ctx.needs_input_grad[:3], g, ctx.opts)
         return dq, dk, dv, None, None, None
 
 
@@ -313,7 +423,7 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, b, c):
         ctx.save_for_backward(x, a, b, c)
-        return _ssd.ssd_scan(x, a, b, c)
+        return _ssd_kernel(x, a, b, c)
 
     @staticmethod
     def backward(ctx, g):
@@ -328,7 +438,7 @@ class _DispatchGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx):
         ctx.save_for_backward(x, idx)
-        buf, scales = _mg.dispatch_gather(x, idx, quant=False)
+        buf, scales = _gather_kernel(x, idx, False)
         ctx.mark_non_differentiable(scales)
         return buf, scales
 

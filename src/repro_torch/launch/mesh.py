@@ -23,6 +23,12 @@ one card).  On gloo a collective on card tensors stages through pinned
 host memory (``parallel/collectives.py``); ``Mesh.staged`` says so, and
 the callers report it.  Nothing falls back silently.
 
+**A fake world** (``fake_world``): one process playing rank 0 of N through
+torch's ``fake`` process-group backend, whose collectives return at once
+and move nothing.  The dry run (``launch/dryrun.py``) makes the production
+mesh concrete so, and traces a rank's step on fake tensors; its
+``Mesh.backend`` is ``"fake"`` and nothing is staged.
+
 **Lanes.** The reference lays K DDC shards over a K-device mesh axis, one
 shard a device.  The port lays K lanes on one torch device: on a card each
 lane owns a ``torch.cuda.Stream``, so one lane's work is ordered only
@@ -173,6 +179,28 @@ class Mesh:
                 if self.ranks[self.rank] in ranks:
                     mine = g
             self._groups[axes] = mine
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """This process as rank 0 of ``world`` ranks on torch's ``fake``
+    backend (no other process, no data moved), for the dry run; the
+    default group and every group made inside are destroyed on exit."""
+    try:   # an internal module of torch's: imported only here
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("the dry run needs torch's fake process group "
+                           "(torch.testing._internal.distributed.fake_pg), which this "
+                           f"torch {torch.__version__} does not have") from e
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised: a fake world needs "
+                           "a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _GROUPS.clear()
 
 
 def make_mesh(shape, axes, group=None, *, device=None) -> Mesh:

@@ -695,7 +695,9 @@ def _combine(rows: torch.Tensor, slot: torch.Tensor, gate_s: torch.Tensor,
 def _aux_parts(e: int, topi: torch.Tensor, probs: torch.Tensor):
     """(top-1 counts (E,), prob sums (E,), t): the load-balance loss's
     parts, as sums, so that shards combine linearly."""
-    counts = torch.bincount(topi[:, 0], minlength=e).to(torch.float32)
+    # A scatter-add of ones (the dry run's fake tensors cannot run bincount,
+    # whose output's length depends on the data); exact below 2**24.
+    counts = probs.new_zeros((e,)).scatter_add_(0, topi[:, 0], probs.new_ones(topi.shape[:1]))
     return (counts, probs.sum(dim=0),
             torch.full((), float(probs.shape[0]), dtype=torch.float32, device=probs.device))
 

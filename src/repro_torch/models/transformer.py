@@ -15,8 +15,10 @@ stacks each leaf over a leading group or encoder-layer axis instead;
 ``cache["l{i}"]`` holds each leaf stacked over groups.
 
 Entry points: ``init_params`` (seeded random weights, on the card unless
-``device="cpu"``), ``forward`` (the teacher-forced oracle), ``loss_fn``
-(training), ``encode``, ``init_cache``, ``prefill`` and ``decode_step``.
+``device="cpu"``), ``abstract_params`` (uninitialised shards: the dry
+run's counterpart of the reference's ``eval_shape``), ``forward`` (the
+teacher-forced oracle), ``loss_fn`` (training), ``encode``,
+``init_cache``, ``prefill`` and ``decode_step``.
 ``decode_step`` updates the cache in place.  ``LM.tree()`` is the
 parameter tree in the reference's layout (a block leaf is a
 ``tree.Stack`` of its per-group tensors), which the optimizer and the
@@ -226,6 +228,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | int = 0, *, device="cud
     return _build(cfg, gen, dev, dtype, pctx).requires_grad_(trainable)
 
 
+def abstract_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
+                    trainable: bool = False, pctx=None) -> LM:
+    """The LM with every parameter an uninitialised tensor of this rank's
+    shard (its spec as ``init_params`` gives it), drawn from nothing and
+    never whole: the dry run builds its model so on fake tensors, where
+    the reference takes ``eval_shape`` of ``init_params``."""
+    dev = _device(device)
+    mesh = None if pctx is None else pctx.mesh
+    model = LM(cfg, None, device="meta", dtype=dtype)
+    specs = leaf_specs(cfg, pctx) if mesh is not None else \
+        [(name, None) for name, _ in model.named_parameters()]
+    for name, spec in specs:
+        shape = tuple(model.get_parameter(name).shape)
+        if spec is not None:
+            shape = tuple(sl.stop - sl.start for sl in shard_rules.local_slice(shape, spec, mesh))
+        param = nn.Parameter(torch.empty(shape, device=dev, dtype=dtype), requires_grad=trainable)
+        if spec is not None:
+            param.spec = spec
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, param)
+    return model
+
+
 def params_from_jax(cfg: ModelConfig, tree, *, device="cuda", trainable: bool = False,
                     pctx=None) -> LM:
     """The port's model holding the reference's parameter pytree ``tree``
@@ -369,12 +394,15 @@ def encode(cfg: ModelConfig, model: LM, frames: torch.Tensor) -> torch.Tensor:
     x = frames + L.sinusoid_pos(frames.shape[1], cfg.d_model,
                                 device=frames.device).to(frames.dtype)
 
-    def layer(bp, x):
-        o, _ = L.attn_apply(cfg, bp.mixer, L.norm_apply(cfg, bp.norm1, x), causal=False)
-        x = x + o
-        return x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+    c = par.ctx()
 
-    remat = par.ctx().remat != "none"
+    def layer(bp, x):
+        with par.use(c):    # a recompute in the backward pass runs on its thread
+            o, _ = L.attn_apply(cfg, bp.mixer, L.norm_apply(cfg, bp.norm1, x), causal=False)
+            x = x + o
+            return x + L.mlp_apply(cfg, bp.ffn, L.norm_apply(cfg, bp.norm2, x))
+
+    remat = c.remat != "none"
     for bp in model.encoder:
         x = _ckpt.checkpoint(layer, bp, x, use_reentrant=False) if remat else layer(bp, x)
     return L.norm_apply(cfg, model.enc_final_norm, x)
@@ -413,15 +441,20 @@ def _hidden(cfg, model: LM, tokens, prefix, frames, window):
     positions = torch.arange(x.shape[1], device=x.device)
     enc_out = encode(cfg, model, frames) if frames is not None else None
     kinds = cfg.layer_kinds()
+    c = par.ctx()
 
     def group_apply(group, x, aux):
-        for i, (kind, _) in enumerate(kinds):
-            x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win, enc_out)
-            if a is not None:
-                aux = aux + a
+        # Under the caller's context also where a checkpoint recomputes the
+        # group: the backward pass of card tensors runs on the autograd
+        # engine's device thread, which does not see this thread's context.
+        with par.use(c):
+            for i, (kind, _) in enumerate(kinds):
+                x, a = _block_apply(cfg, kind, group[f"l{i}"], x, positions, win, enc_out)
+                if a is not None:
+                    aux = aux + a
         return x, aux
 
-    remat = par.ctx().remat
+    remat = c.remat
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in model.blocks:
         if remat == "none":

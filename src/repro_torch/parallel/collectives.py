@@ -28,16 +28,24 @@ Megatron's f/g pair (identity / all-reduce) would leave partial.
 and friends, no autograd) serve the optimizer, the checkpoint and the
 int8 wire.  Every function works on NCCL, and on gloo, where a tensor on
 a card is staged through pinned host memory (gloo's all-to-all takes CPU
-tensors only).  ``STATS`` counts the collectives a rank made, the bytes it
-put in, and the bytes it staged between the card and the host.  An axis
-of size 1 makes no call.
+tensors only), and in a fake world (``launch.mesh.fake_world``: the
+dry run's one process standing for rank 0, where nothing moves and
+nothing is staged).  ``STATS`` counts the collectives a rank made, the
+bytes it put in, and the bytes it staged between the card and the host;
+``STATS["kinds"]`` splits the calls and the bytes put in by kind
+(``KINDS``), as the reference's ``launch/hlo_cost.py`` splits
+``collective_counts`` / ``collectives`` (which count the result's bytes:
+an all-gather's result is n times what a rank puts in, a
+reduce-scatter's 1/n).  An axis of size 1 makes no call.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-STATS = {"collectives": 0, "bytes": 0, "staged_bytes": 0}
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+STATS = {"collectives": 0, "bytes": 0, "staged_bytes": 0,
+         "kinds": {k: {"calls": 0, "bytes": 0} for k in KINDS}}
 
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
@@ -45,20 +53,25 @@ _reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
 
 
 def reset_stats() -> None:
-    for k in STATS:
+    for k in ("collectives", "bytes", "staged_bytes"):
         STATS[k] = 0
+    for kind in STATS["kinds"].values():
+        kind.update(calls=0, bytes=0)
 
 
-def _to_wire(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The tensor the backend moves: a pinned host copy of a card tensor
-    on gloo, else ``t`` itself (contiguous)."""
+def _to_wire(t: torch.Tensor, mesh, kind: str) -> torch.Tensor:
+    """The tensor the backend moves for a collective of ``kind``: a pinned
+    host copy of a card tensor on gloo, else ``t`` itself (contiguous)."""
     t = t.contiguous()
+    nbytes = t.numel() * t.element_size()
     STATS["collectives"] += 1
-    STATS["bytes"] += t.numel() * t.element_size()
+    STATS["bytes"] += nbytes
+    STATS["kinds"][kind]["calls"] += 1
+    STATS["kinds"][kind]["bytes"] += nbytes
     if t.is_cuda and mesh.staged:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t)
-        STATS["staged_bytes"] += t.numel() * t.element_size()
+        STATS["staged_bytes"] += nbytes
         return h
     return t
 
@@ -83,7 +96,7 @@ def gather_raw(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
         return x
     dim = dim % x.dim()
     xt = x.movedim(dim, 0)
-    w = _to_wire(xt, mesh)
+    w = _to_wire(xt, mesh, "all-gather")
     out = _empty_wire((n * w.shape[0],) + tuple(w.shape[1:]), x, w)
     _all_gather_single(out, w, group=mesh.group(axes))
     return _from_wire(out, x).movedim(0, dim)
@@ -99,7 +112,7 @@ def reduce_scatter_raw(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tenso
         raise ValueError(f"reduce_scatter: dimension {x.shape[dim]} does not split "
                          f"into {n} parts")
     xt = x.movedim(dim, 0)
-    w = _to_wire(xt, mesh)
+    w = _to_wire(xt, mesh, "reduce-scatter")
     out = _empty_wire((w.shape[0] // n,) + tuple(w.shape[1:]), x, w)
     _reduce_scatter_single(out, w, group=mesh.group(axes))
     return _from_wire(out, x).movedim(0, dim)
@@ -110,7 +123,7 @@ def all_reduce_raw(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.T
     tensor."""
     if mesh.axis_size(axes) == 1:
         return x.clone()
-    w = _to_wire(x, mesh)
+    w = _to_wire(x, mesh, "all-reduce")
     if w is x:
         w = x.clone()
     dist.all_reduce(w, op=op, group=mesh.group(axes))
@@ -125,7 +138,7 @@ def all_to_all_raw(x: torch.Tensor, mesh, axis) -> torch.Tensor:
         return x
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: leading axis {x.shape[0]} does not split into {n}")
-    w = _to_wire(x, mesh)
+    w = _to_wire(x, mesh, "all-to-all")
     out = _empty_wire(tuple(w.shape), x, w)
     dist.all_to_all_single(out, w, group=mesh.group(axis))
     return _from_wire(out, x)

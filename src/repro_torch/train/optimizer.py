@@ -264,7 +264,9 @@ def apply_updates(cfg: OptConfig, grads, state, params, step, key=None):
         d2 = 0.999  # v decay
         f_dicts = [_at(state["f"], path) for path, _ in flatten(params)]
         if cfg.stochastic_rounding and key is None:
-            key = torch.Generator(device=_tensors(flat_p[0])[0].device).manual_seed(0)
+            dev = _tensors(flat_p[0])[0].device
+            # (The dry run's meta tensors draw nothing: no generator there.)
+            key = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(0)
         for i, (pl, gl, f, spec) in enumerate(zip(flat_p, flat_g, f_dicts, specs)):
             g = _stacked(gl) * scale
             g2 = g * g + 1e-30

@@ -238,3 +238,23 @@ def serve_one_rank(arch, prompts, steps):
     out = engine.greedy_generate(cfg, model, torch.tensor(prompts), steps,
                                  engine.ServeConfig(max_len=prompts.shape[1] + steps), trace=trace)
     return out.numpy(), trace["logits"][0].numpy()
+
+
+def dryrun_step_rank(rank, group, dev, shape, axes, arch, tokens_shape):
+    """One train step of tiny ``arch`` as the LM dry run lowers it
+    (``launch/dryrun.py``'s ``train_recipe``, FSDP, remat "full") on a
+    mesh, from seed 0 on zero tokens: this rank's ``collectives.STATS``
+    over the step."""
+    import copy
+
+    from repro_torch.launch import dryrun as dr
+
+    mesh = _mesh(group, dev, shape, axes)
+    cfg = configs.get_config(arch).tiny()
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=True, remat="full")
+    tcfg = dr.train_recipe(arch)
+    state = step_mod.make_train_state(cfg, tcfg, gen=0, device=dev, pctx=pctx)
+    batch = {"tokens": torch.zeros(tokens_shape, dtype=torch.int32)}
+    coll.reset_stats()
+    step_mod.build_train_step(cfg, tcfg, pctx)(state, batch)
+    return copy.deepcopy(coll.STATS)

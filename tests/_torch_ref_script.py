@@ -19,7 +19,14 @@ Modes:
   backward on ``a2a_inputs()``, ``shard_map_all_reduce`` of one leaf,
   and ``moe_apply`` of tiny llama4-scout on (data 2, model 4) for each
   of ``MOE_VARIANTS`` (its capacity factor) with the gradients of Σ y·w + aux
-  (``moe_inputs``).
+  (``moe_inputs``);
+* ``dryrun_lm`` — the LM dry run's pure functions for every arch × shape
+  (``model_flops``, ``applicable``, ``shape_cell_cfg``, ``batch_specs``,
+  ``train_recipe``) and ``lower_cell``'s records of ``DRYRUN_TINY_CELLS``:
+  tiny configurations at ``DRYRUN_TINY_SHAPES`` on a (data 2, model 4)
+  mesh, patched into the module at run time (``OUT`` a .json).  JAX's
+  backend starts on 8 devices before ``repro.launch.dryrun`` is imported
+  (its import asks for 512).
 """
 import dataclasses
 import json
@@ -35,6 +42,13 @@ DRYRUN_CONFIG = dict(eps=0.01, min_pts=4, grid=256, max_clusters=64, max_verts=1
                      backend="jit")
 DRYRUN_SCHEDULES = ("sync", "tree", "async")
 DRYRUN_POINTS = 1024
+# The LM dry run's tiny cells: shape name -> (seq_len, global_batch, kind),
+# and the (arch, shape) cells lowered on (data 2, model 4).
+DRYRUN_TINY_SHAPES = {"train_4k": (32, 16, "train"), "prefill_32k": (64, 4, "prefill"),
+                      "decode_32k": (64, 4, "decode"), "long_500k": (128, 1, "decode")}
+DRYRUN_TINY_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                     ("qwen3-8b", "decode_32k"), ("llama4-scout-17b-a16e", "train_4k"))
+DRYRUN_TINY_MESH = ((2, 4), ("data", "model"))
 # name -> (moe_impl, a2a_int8, batch, capacity_factor) of the mesh mode's
 # MoE runs: None keeps the tiny config's drop-free E; at 1.25 (the
 # published configs') the routes drop token-copies.
@@ -154,7 +168,46 @@ def mesh(out: str) -> None:
     np.savez(out, **arrays)
 
 
+def dryrun_lm(out: str) -> None:
+    import jax
+
+    jax.devices()   # the backend starts on 8 devices: the import below asks for 512
+    from repro import configs
+    from repro.configs.shapes import SHAPES, ShapeConfig, applicable
+    from repro.launch import dryrun as dr
+    from repro.launch import mesh as mesh_mod
+
+    cells, recipes = {}, {}
+    for arch in configs.all_archs():
+        cfg = configs.get_config(arch)
+        tc = dr.train_recipe(arch)
+        recipes[arch] = {"opt": dataclasses.asdict(tc.opt), "param_dtype": tc.param_dtype,
+                         "microbatches": tc.microbatches, "seed": tc.seed}
+        for name, shape in SHAPES.items():
+            ok, why = applicable(cfg, shape)
+            specs = dr.batch_specs(cfg, shape, shape.global_batch, shape.seq_len)
+            cells[f"{arch}/{name}"] = {
+                "applicable": ok, "reason": why, "model_flops": dr.model_flops(cfg, shape),
+                "window": dr.shape_cell_cfg(cfg, shape),
+                "specs": {k: [list(v.shape), str(v.dtype)] for k, v in specs.items()}}
+    get = configs.get_config
+    dr.configs.get_config = lambda a: get(a).tiny()
+    dr.SHAPES = {k: ShapeConfig(k, *v) for k, v in DRYRUN_TINY_SHAPES.items()}
+    dr.mesh_mod.make_production_mesh = lambda multi_pod=False: mesh_mod.make_mesh(
+        *DRYRUN_TINY_MESH)
+    tiny = {}
+    for arch, name in DRYRUN_TINY_CELLS:
+        rec = dr.lower_cell(arch, name, False)
+        if rec["status"] != "ok":
+            raise RuntimeError(f"{arch} {name}: {rec}")
+        tiny[f"{arch}/{name}"] = {k: rec[k] for k in (
+            "flops_per_dev", "bytes_per_dev", "coll_counts", "coll_detail", "xla_flops",
+            "hbm_per_device_gb")}
+    with open(out, "w") as f:
+        json.dump({"cells": cells, "recipes": recipes, "tiny": tiny}, f)
+
+
 if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    {"curation": curation, "dryrun_meters": dryrun_meters, "mesh": mesh}[sys.argv[1]](
-        sys.argv[2])
+    {"curation": curation, "dryrun_meters": dryrun_meters, "mesh": mesh,
+     "dryrun_lm": dryrun_lm}[sys.argv[1]](sys.argv[2])

@@ -56,7 +56,9 @@ def test_every_submodule_listed():
             "repro_torch.serve.dist_service", "repro_torch.launch", "repro_torch.launch.mesh",
             "repro_torch.launch.serve", "repro_torch.parallel.compress",
             "repro_torch.launch.ranks", "repro_torch.launch.dryrun_ddc",
-            "repro_torch.data.pipeline", "repro_torch.data.curation"} <= names
+            "repro_torch.data.pipeline", "repro_torch.data.curation",
+            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_scaleout",
+            "repro_torch.launch.cost", "repro_torch.launch.roofline"} <= names
     for name in names:
         importlib.import_module(name)
 

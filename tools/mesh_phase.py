@@ -3,14 +3,17 @@
 llama4-scout at full width over 4 rank processes, the serve CLI over 2,
 NCCL at world size 1, and B9's int8 mode at the a2a send shape.
 
-    python3 tools/mesh_phase.py [--control]
+    python3 tools/mesh_phase.py [--control] [--dryrun]
 
 ``--control`` adds the controls of the update gates: rank 0 also reads
 the one-rank update of data lane 0's half of the batch against the whole
-batch's (qwen3-8b's AdamW step, llama4-scout's Adafactor step).  Prints the phase's ``lm_mesh`` line and the int8 kernel entry after the
-card's name and power limit and the kernels' build time, and exits
-non-zero on a failed gate.  Needs a CUDA card and nvcc; imports nothing of
-JAX.
+batch's (qwen3-8b's AdamW step, llama4-scout's Adafactor step).
+``--dryrun`` then runs the ``lm_dryrun`` phase on the phase's readings
+and times B7, B8 and B9 at the float32 training shapes (their kernels-line
+``at_training_shape`` entries).  Prints the phase's ``lm_mesh`` line and
+the int8 kernel entry after the card's name and power limit and the
+kernels' build time, and exits non-zero on a failed gate.  Needs a CUDA
+card and nvcc; imports nothing of JAX.
 """
 import json
 import os
@@ -43,9 +46,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
-    _, entry = cs.lm_mesh_phase(torch, np, ops, ref, torch.device("cuda"), card,
+    line, entry = cs.lm_mesh_phase(torch, np, ops, ref, torch.device("cuda"), card,
                                 control="--control" in sys.argv[1:])
     print(json.dumps({"kernel": entry}), flush=True)
+    if "--dryrun" in sys.argv[1:]:
+        cs.lm_dryrun_phase(torch, ops, line, card)
+        print(json.dumps({"at_training_shape": cs.train_shape_entries(
+            torch, ops, ref, torch.device("cuda"))}), flush=True)
     return 0
 
 
