@@ -4277,6 +4277,13 @@ MESH_UPDATE_RTOL = {"exact": 5e-3, "compress": 2e-2, "int8": 0.3}
 MESH_HIDDEN_TOL = (1e-4, 1e-4)
 MESH_INT8_RMS = 3e-2
 MESH_SERVE = ("qwen3-8b", 2, 2)                   # arch, layers, --mesh-devices
+# The layers computed on their shards (Mamba-2, MLA) at full width, cut to
+# MESH_TP_LAYERS layers, on (data 1, model 4): mamba2-1.3b's 64 SSM heads
+# and minicpm3-4b's 40 MLA heads split 16 and 10 a rank.
+MESH_TP = ("mamba2-1.3b", "minicpm3-4b")
+MESH_TP_LAYERS = 2
+MESH_TP_SHAPE = (1, 4)
+MESH_TP_TOKENS = (2, 1024)                        # (batch, seq)
 
 
 def mesh_tokens(np, cfg, shape, seed: int):
@@ -4627,6 +4634,108 @@ def mesh_qwen_rank(rank, group, dev, tokens, ckpt_dir, control):
     if rank == 0:
         log(f"lm_mesh qwen3 rank 0: {json.dumps(out)}")
     return out
+
+
+def mesh_tp_rank(rank, group, dev, arch, tokens):
+    """``arch`` at full width (MESH_TP_LAYERS layers) on MESH_TP_SHAPE, FSDP,
+    its Mamba-2 or MLA layers computed on their shards: one AdamW step held
+    to the one-rank step from the same seed on the same batch (rank 0
+    computes it first): loss, gradient norm and each leaf's update; and
+    every B7 / B8 call of the mesh step with the heads, head dim and dtype
+    it got, and the route each launch took."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import api as par
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    _rank_setup(torch)
+    cfg = mesh_cfg(arch, MESH_TP_LAYERS)
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(**MESH_OPT))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    out = {"rank": rank}
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, MESH_SEED, device=dev, trainable=True)
+        s0 = _sketches(torch, model)
+        state = step_mod.state_for(model, tcfg)
+        state = state._replace(step=torch.ones_like(state.step))   # lr > 0 at once
+        state, m1 = step_mod.build_train_step(cfg, tcfg, par.ParallelCtx())(state, batch)
+        ref = _minus(_sketches(torch, model), s0)
+        out["one_rank"] = {"loss": float(m1["loss"]), "gnorm": float(m1["gnorm"]),
+                           "s": time.perf_counter() - t0,
+                           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del model, state, m1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    mesh = mesh_mod.make_mesh(MESH_TP_SHAPE, MESH_AXES, group, device=dev)
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=True)
+    state = step_mod.make_train_state(cfg, tcfg, gen=MESH_SEED, device=dev, pctx=pctx)
+    state = state._replace(step=torch.ones_like(state.step))
+    before = _sketches(torch, state.params, mesh)
+    calls: dict = {}
+    real = ops.flash_attention, ops.ssd_scan
+
+    def seen(name, t, heads_dim):
+        key = f"{name} heads={t.shape[heads_dim]} d={t.shape[-1]} {str(t.dtype)[6:]}"
+        calls[key] = calls.get(key, 0) + 1
+
+    def attention(q, k, v, **kw):
+        seen("flash_attention", q, 1)
+        return real[0](q, k, v, **kw)
+
+    def scan(x, a, b, c):
+        seen("ssd_scan", x, 2)
+        return real[1](x, a, b, c)
+
+    ops.reset_launch_counts()
+    coll.reset_stats()
+    t0 = time.perf_counter()
+    ops.flash_attention, ops.ssd_scan = attention, scan
+    try:
+        state, m = step_mod.build_train_step(cfg, tcfg, pctx)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention, ops.ssd_scan = real
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["routes"] = {"flash_attention": dict(fa.route_launches),
+                     "ssd_scan": dict(ssd.route_launches)}
+    out["calls"] = calls
+    out["step"] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                   **_mesh_stats(torch, dev, coll, t0)}
+    out["step"]["update"] = _compare_update(torch, mesh, state.params, before, ref)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if rank == 0:
+        log(f"lm_mesh {arch} rank 0: {json.dumps(out)}")
+    return out
+
+
+def _tp_gates(arch: str, recs: list, cfg) -> list:
+    """A MESH_TP step against its one-rank step, and its kernels: one B8
+    (Mamba-2) or B7 (MLA) launch a layer on every rank, each on the rank's
+    heads."""
+    r0 = recs[0]
+    fails = _step_gates(f"{arch} mesh step", r0["step"], r0["one_rank"]["loss"],
+                        r0["one_rank"]["gnorm"], "exact")
+    m = MESH_TP_SHAPE[1]
+    kernel, heads = (("ssd_scan", cfg.ssm_heads // m) if cfg.ssm_state
+                     else ("flash_attention", cfg.n_heads // m))
+    for r in recs:
+        if r["launches"] != {kernel: cfg.n_layers}:
+            fails.append(f"{arch} rank {r['rank']}: launches {r['launches']}")
+        if sum(r["calls"].values()) != cfg.n_layers or any(
+                f"heads={heads} " not in key for key in r["calls"]):
+            fails.append(f"{arch} rank {r['rank']}: calls {r['calls']}")
+    return fails
 
 
 # name -> (moe_impl, a2a_int8, batch key, the route whose drops its
@@ -5016,10 +5125,11 @@ def _step_gates(tag: str, got: dict, loss_one: float, gnorm_one: float, kind: st
 def lm_mesh_phase(torch, np, ops, ref, dev, card: str, control: bool = False
                   ) -> tuple[dict, dict]:
     """The lm_mesh phase: qwen3-8b and llama4-scout at full width over 4
-    ranks on this card, the serve CLI over 2, NCCL at world size 1, and B9's
-    int8 mode at the a2a send shape.  ``control`` adds the half-batch
-    update controls (tools/mesh_phase.py --control).  Returns (its line,
-    the int8 kernel entry)."""
+    ranks on this card, mamba2-1.3b's and minicpm3-4b's layers computed on
+    their shards over 4 ranks (MESH_TP), the serve CLI over 2, NCCL at
+    world size 1, and B9's int8 mode at the a2a send shape.  ``control``
+    adds the half-batch update controls (tools/mesh_phase.py --control).
+    Returns (its line, the int8 kernel entry)."""
     import argparse
     import tempfile
 
@@ -5034,15 +5144,21 @@ def lm_mesh_phase(torch, np, ops, ref, dev, card: str, control: bool = False
     tokens_q = mesh_tokens(np, qcfg, MESH_QWEN[2], 1)
     tokens_l = mesh_tokens(np, lcfg, MESH_LLAMA[2], 2)
     tokens_s = mesh_tokens(np, lcfg, MESH_LLAMA[3], 3)
+    tp_cfgs = {a: mesh_cfg(a, MESH_TP_LAYERS) for a in MESH_TP}
     timing: dict = {}
     with tempfile.TemporaryDirectory(prefix="lm-mesh-") as tmp:
         t0 = time.perf_counter()
-        qwen, llama = ranks.run_cases(
+        qwen, llama, *tp = ranks.run_cases(
             [ranks.Case(mesh_qwen_rank, 4, (tokens_q, tmp + "/ckpt", control)),
-             ranks.Case(mesh_llama_rank, 4, (tokens_l, tokens_l[:1], tokens_s, control))],
+             ranks.Case(mesh_llama_rank, 4, (tokens_l, tokens_l[:1], tokens_s, control))]
+            + [ranks.Case(mesh_tp_rank, 4, (a, mesh_tokens(np, c, MESH_TP_TOKENS, 4)))
+               for a, c in tp_cfgs.items()],
             4, device=dev.type, timing=timing, timeout=900)
         spawn_s = time.perf_counter() - t0
     q0, l0 = qwen[0], llama[0]
+    tp = dict(zip(MESH_TP, tp))
+    for arch, recs in tp.items():
+        failures += _tp_gates(arch, recs, tp_cfgs[arch])
     # qwen3-8b: both steps against the one-rank steps.
     for i, key in enumerate(("step1", "step2")):
         failures += _step_gates(f"qwen3 {key}", q0[key], q0["one_rank"]["loss"][i],
@@ -5141,6 +5257,14 @@ def lm_mesh_phase(torch, np, ops, ref, dev, card: str, control: bool = False
                        "control_half_batch": l0.get("control_half_batch"),
                        "timeline": l0["timeline"],
                        "peak_gb": [r["peak_gb"] for r in llama]},
+            "shards": {arch: {"layers": MESH_TP_LAYERS, "tokens": MESH_TP_TOKENS,
+                              "mesh": dict(zip(MESH_AXES, MESH_TP_SHAPE)), "opt": MESH_OPT,
+                              "one_rank": recs[0]["one_rank"], "step": recs[0]["step"],
+                              "launches": [r["launches"] for r in recs],
+                              "calls": [r["calls"] for r in recs],
+                              "routes": [r["routes"] for r in recs],
+                              "peak_gb": [r["peak_gb"] for r in recs]}
+                       for arch, recs in tp.items()},
             "serve": serve_line, "nccl_world_1": nccl, "b9_int8": b9,
             "failures": failures, "lm_mesh_phase_s": time.perf_counter() - t_phase}
     print(json.dumps({"lm_mesh": line}), flush=True)

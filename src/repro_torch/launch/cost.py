@@ -10,8 +10,11 @@ cell) in a fake world (``launch.mesh.fake_world``), under a
 ``TorchDispatchMode`` that sees every aten op the rank would run:
 
 * **FLOPs**: the matmul family, by ``torch.utils.flop_counter``'s
-  formulas (``hlo_cost`` also counts only ``dot``); B7/B8/B9 on fake
-  tensors add their plain route's FLOPs in closed form
+  formulas (``hlo_cost`` also counts only ``dot``), but for a product
+  whose contraction has length 1 (an outer product: the plain SSD's and
+  a one-row attention's VJP make them), which XLA's simplifier rewrites
+  into an elementwise multiply that ``hlo_cost`` does not count;
+  B7/B8/B9 on fake tensors add their plain route's FLOPs in closed form
   (``kernels/ops.py``).
 * **Bytes**: each aten op that is not a view reads its tensor inputs and
   writes its outputs, every distinct element once (a stride-0 axis read
@@ -56,6 +59,9 @@ from repro_torch.parallel import collectives as coll
 BLOCK = 512   # the caching allocator's rounding of a block, bytes
 
 _aten = torch.ops.aten
+# The matmul family: the position of the left operand, whose last
+# dimension is the contraction.
+_PRODUCTS = {_aten.mm: 0, _aten.bmm: 0, _aten.addmm: 1, _aten.baddbmm: 1}
 # Ops that allocate without writing: no traffic.
 _NO_TRAFFIC = {_aten.empty, _aten.empty_strided, _aten.empty_like, _aten.new_empty,
                _aten.new_empty_strided}
@@ -69,6 +75,12 @@ def _meta(t):
     if not isinstance(t, torch.Tensor):
         return None
     return (tuple(t.shape), tuple(t.stride()), t.dtype, t.device.type)
+
+
+def _outer_product(packet, args) -> bool:
+    """A product of the matmul family whose contraction has length 1."""
+    i = _PRODUCTS.get(packet)
+    return i is not None and args[i].shape[-1] == 1
 
 
 class _Mode(TorchDispatchMode):
@@ -165,7 +177,7 @@ class Count:
         self.ops += 1
         packet = func._overloadpacket
         flops = flop_registry.get(packet)
-        if flops is not None:
+        if flops is not None and not _outer_product(packet, args):
             self.flops += int(flops(*args, **kwargs, out_val=out))
         if not outs or func.is_view or packet in _NO_TRAFFIC:
             return   # metadata (no tensor out), an alias, or an allocation

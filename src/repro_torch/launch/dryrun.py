@@ -18,6 +18,8 @@ the dry run runs anywhere.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --single-pod-only
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --table results/dryrun.json \
+      [--parent OTHER.json]
 
 Each cell's record keeps the reference's keys (``hbm_per_device_gb``,
 ``memory``, ``flops_per_dev``, ``bytes_per_dev``, ``coll_bytes_per_dev``,
@@ -287,6 +289,46 @@ SHORT_KEYS = ("arch", "shape", "mesh", "status", "hbm_per_device_gb", "fits_h100
               "trace_s", "reason", "error")
 
 
+TABLE_HEAD = ("| Arch | Shape | GiB a rank | FLOPs a rank | Bytes a rank | Coll. bytes | "
+              "t_compute s | t_memory s | t_coll. s | Bound | Fits 80 GB | trace s | "
+              "FLOPs·chips / model | ÷ qwen3's |")
+
+
+def table(records: list, parent: list | None = None) -> list[str]:
+    """The markdown rows of the ``ok`` records: the record's numbers, its
+    replication (a rank's FLOPs × the mesh's chips / ``model_flops``:
+    how many times the model's FLOPs the mesh computes) and that over
+    qwen3-8b's at the same shape; with ``parent`` (another run's records)
+    the FLOPs a rank read "new [parent]" where they differ."""
+    ok = [r for r in records if r.get("status") == "ok"]
+    old = {(r["arch"], r["shape"], r["mesh"]): r for r in parent or ()}
+
+    def chips(r):
+        n = 1
+        for d in r["mesh"].split("x"):
+            n *= int(d)
+        return n
+
+    rep = {(r["arch"], r["shape"]): r["flops_per_dev"] * chips(r) / r["model_flops"]
+           for r in ok if r.get("model_flops")}
+    rows = [TABLE_HEAD, "|" + " --- |" * (TABLE_HEAD.count("|") - 1)]
+    for r in ok:
+        flops = f"{r['flops_per_dev']:.4g}"
+        was = old.get((r["arch"], r["shape"], r["mesh"]))
+        if was is not None and was.get("flops_per_dev") != r["flops_per_dev"]:
+            flops += f" [{was['flops_per_dev']:.4g}]"
+        x = rep.get((r["arch"], r["shape"]))
+        q = rep.get(("qwen3-8b", r["shape"]))
+        rows.append("| " + " | ".join([
+            r["arch"], r["shape"], f"{r['hbm_per_device_gb']:.3f}", flops,
+            f"{r['bytes_per_dev']:.4g}", f"{r['coll_bytes_per_dev']:.4g}",
+            f"{r['t_compute']:.4g}", f"{r['t_memory']:.4g}", f"{r['t_collective']:.4g}",
+            r["bottleneck"], "yes" if r["fits_h100_80gb"] else "no", f"{r['trace_s']:.2f}",
+            "—" if x is None else f"{x:.2f}",
+            "—" if x is None or not q else f"{x / q:.2f}"]) + " |")
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -303,7 +345,19 @@ def main(argv=None):
                     help="whose routes the count takes: cuda (the card's) or cpu (the "
                          "plain versions'); no card is touched")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--table", default=None,
+                    help="print the markdown table of a run's records (an --out .json) "
+                         "and run nothing")
+    ap.add_argument("--parent", default=None,
+                    help="with --table: another run's records, whose FLOPs a rank are "
+                         "shown where they differ")
     args = ap.parse_args(argv)
+    if args.table:
+        def load(path):
+            with open(path) as f:
+                return json.load(f)
+        print("\n".join(table(load(args.table), load(args.parent) if args.parent else None)))
+        return []
 
     archs = configs.all_archs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]

@@ -28,21 +28,47 @@ Parameters are built with ``requires_grad=False`` (serving);
 
 **Over a mesh** (``parallel.api.ctx().mesh``, explicit SPMD, one rank a
 mesh position): each parameter holds this rank's shard and its ``spec``
-(``parallel/sharding.py``; ``sharded_build`` makes them so).  One rule
-for every leaf: where the local shard holds whole heads, or whole ``ff``
-/ expert-FFN columns, the layer computes on the shard; anywhere else it
-all-gathers the leaf over its sharded axes just before use
-(``_whole``) and drops it after.  So GQA attention runs head-parallel
-when the heads divide the ``model`` axis (column-parallel ``wq``/``wk``/
-``wv``, B7 on the local heads, row-parallel ``wo``, then the sum over
-``model``), the dense and shared MLPs column/row-parallel over ``ff``,
-and the MoE layer the reference's islands: ``epsum`` (each ``model``
-lane routes to its experts; the sum over ``model``) and ``a2a`` (experts
-over ``data``, expert-FFN over ``model``; routed tokens cross between
-``data`` lanes by all-to-all, through B9's int8 rows under
-``a2a_int8``).  Mamba, MLA, cross-attention and the encoder gather their
-leaves and compute replicated.  The collectives are exact transposes in
-the backward pass (``parallel/collectives.py``).
+(``parallel/sharding.py``; ``sharded_build`` makes them so).  Every layer
+computes on the shards the reference's ``spec_for`` gives it, as XLA's
+partitioner does, and all-gathers a leaf over its other sharded axes
+(``data`` under FSDP) just before use:
+
+* attention (GQA, the encoder's, cross-attention) and MLA run
+  head-parallel (``head_plan``): the column-parallel projections (``wq``/
+  ``wk``/``wv``; ``w_uq``/``w_uk``/``w_uv``) on the rank's shard, B7 on
+  its heads, the row-parallel ``wo`` on its rows, then the sum over
+  ``model``.  Where the query heads do not divide the m lanes they run in
+  g = gcd(H, m) groups of H/g heads on m/g lanes each, the reference's
+  split (6 heads over 4 lanes: 2 groups of 3): each rank computes its
+  shard of the projection, the products are all-gathered over ``model``
+  and the rank takes its group's heads (kv heads likewise where they do
+  not divide); B7 runs on whole heads, where the reference splits a GQA
+  group's P·V over the head dim (the dry run names the difference).  The
+  caches hold the kv heads the rank reads; MLA keeps its latent cache
+  whole, and its replicated down-projections ``w_dq``/``w_dkv`` run split
+  over ``model`` in training and decode (each rank 1/m of the columns,
+  all-gathered), whole in prefill, as the reference's partitioner runs
+  them.
+* Mamba-2 (``mamba_lanes``) runs on the rank's ssm_heads / m heads: its
+  columns of ``w_in`` (z, x and dt of its heads, its 1/m of the B and C
+  columns, which every head reads), the conv on those channels, B and C
+  all-gathered over ``model``, B8, the skip, the gate and the final state
+  on its heads, the norm's sum of squares summed over ``model``, the
+  row-parallel ``w_out``, then the sum over ``model``; the cache holds its
+  conv channels and SSM heads.  ``w_in`` is gathered over ``model`` and
+  cut head-aligned at use (``_mamba_local``): its ``spec_for`` shard is a
+  contiguous 1/m of z | x | B | C | dt, not the rank's heads, and keeping
+  that layout leaves checkpoints, ``params_from_jax``, ``unshard`` and
+  elastic restores as they are.
+* the dense and shared MLPs column/row-parallel over ``ff``, and the MoE
+  layer the reference's islands: ``epsum`` (each ``model`` lane routes to
+  its experts; the sum over ``model``) and ``a2a`` (experts over
+  ``data``, expert-FFN over ``model``; routed tokens cross between
+  ``data`` lanes by all-to-all, through B9's int8 rows under
+  ``a2a_int8``).
+
+The collectives are exact transposes in the backward pass
+(``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -147,14 +173,19 @@ def gather_param(t: torch.Tensor, keep=()) -> torch.Tensor:
     mesh = _mesh()
     if mesh is None:
         return t
-    for dim, entry in enumerate(_spec(t)):
+    spec = list(_spec(t))
+    out = t
+    for dim, entry in enumerate(spec):
         axes = shard_rules.spec_axes((entry,))
         if not axes or all(a in keep for a in axes):
             continue
         if any(a in keep for a in axes):
             raise ValueError(f"spec entry {entry} is kept only in part: {keep}")
-        t = coll.all_gather(t, mesh, axes, dim)
-    return t
+        out = coll.all_gather(out, mesh, axes, dim)
+        spec[dim] = None
+    if out is not t:
+        out.spec = tuple(spec)    # what stays sharded (``keep``)
+    return out
 
 
 def _whole(p, keep=()):
@@ -312,61 +343,121 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:  # (B,n,S,hd) -> (B,S,n*hd)
 
 
 class Heads(NamedTuple):
-    """The attention heads a rank computes: ``n_q`` query heads from
-    ``q0`` on, and the kv heads they read (``kv``: ids into the layer's
-    kv heads, one a local kv head, in order).  ``local_kv``: the rank's
-    ``wk``/``wv`` shard holds exactly those heads."""
+    """The attention heads a rank computes over a ``model`` axis of m > 1
+    lanes.  The H query heads split into g = gcd(H, m) groups of H/g, group
+    i on the m/g lanes from i·m/g on (the reference's partitioner does the
+    same with heads that do not divide m: 6 heads over 4 lanes run as 2
+    groups of 3, each on 2 lanes): the rank computes the ``n_q`` heads
+    from ``q0`` on, and the kv heads they read (``kv``: ids into the
+    layer's kv heads, one a kv head of the rank's cache, in order).
+    ``local_q`` / ``local_kv``: the rank's column shard of the query /
+    kv projection holds exactly those heads.  ``out``: the rank's rows of
+    the row-parallel output projection, as columns of its heads' merged
+    output (all of it when ``local_q``)."""
 
     q0: int
     n_q: int
     kv: tuple
+    local_q: bool
     local_kv: bool
+    out: slice
 
 
-def attn_heads(cfg) -> Heads | None:
-    """The heads this rank computes under the context's mesh: head-parallel
-    when the ``model`` axis (m > 1) divides the query heads; None (every
-    head, replicated) otherwise.  The kv heads are the rank's shard when
-    m divides them too; else the ones its query heads use (each local
-    query head its own kv head when the local heads do not split evenly
-    over them)."""
-    m, lane = _model_lanes()
-    if m <= 1 or cfg.n_heads % m:
+def head_plan(n_heads: int, n_kv: int, out_dim: int) -> Heads | None:
+    """This rank's ``Heads`` (``heads_at``) of an attention layer under the
+    context's mesh."""
+    return heads_at(n_heads, n_kv, out_dim, *_model_lanes())
+
+
+def heads_at(n_heads: int, n_kv: int, out_dim: int, m: int, lane: int) -> Heads | None:
+    """The ``Heads`` of lane ``lane`` of m ``model`` lanes in an attention
+    layer with ``n_heads`` query and ``n_kv`` kv heads whose output
+    projection has ``out_dim`` rows; None (every head, replicated) when
+    m is 1, or when m does not divide ``out_dim`` (the output projection
+    is then whole).  The kv heads are the lane's shard when m divides
+    them; else the ones its query heads read (each query head its own kv
+    head when they do not split evenly over them)."""
+    if m <= 1 or out_dim % m:
         return None
-    n_q = cfg.n_heads // m
-    rep = cfg.n_heads // cfg.n_kv_heads
-    q0 = lane * n_q
-    if cfg.n_kv_heads % m == 0:
-        kv_l = cfg.n_kv_heads // m
-        return Heads(q0, n_q, tuple(range(lane * kv_l, (lane + 1) * kv_l)), True)
+    g = math.gcd(n_heads, m)
+    per = m // g
+    n_q = n_heads // g
+    q0 = (lane // per) * n_q
+    rows = out_dim // m
+    out = slice((lane % per) * rows, (lane % per + 1) * rows)
+    rep = n_heads // n_kv
+    if n_kv % m == 0:
+        kv_l = n_kv // m
+        return Heads(q0, n_q, tuple(range(lane * kv_l, (lane + 1) * kv_l)), True, True, out)
     used = [(q0 + j) // rep for j in range(n_q)]
     uniq = sorted(set(used))
     if n_q % len(uniq) == 0 and used == [u for u in uniq for _ in range(n_q // len(uniq))]:
-        return Heads(q0, n_q, tuple(uniq), False)
-    return Heads(q0, n_q, tuple(used), False)
+        used = uniq
+    return Heads(q0, n_q, tuple(used), g == m, False, out)
 
 
-def _kv_weight(cfg, w: torch.Tensor, heads: Heads) -> torch.Tensor:
-    """The columns of a whole ``wk``/``wv`` for the kv heads in ``heads``."""
-    d = w.shape[0]
-    idx = torch.as_tensor(heads.kv, device=w.device)
-    return w.reshape(d, cfg.n_kv_heads, cfg.head_dim)[:, idx].reshape(d, -1)
+def attn_heads(cfg) -> Heads | None:
+    """``head_plan`` of the configuration's (GQA or cross) attention."""
+    return head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads * cfg.head_dim)
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor, n_total: int, ids, local: bool):
+    """(B, len(ids), S, ·): x @ the columns of heads ``ids`` of a
+    projection of ``n_total`` heads.  ``local``: ``w`` is the rank's
+    column shard, which holds exactly those heads.  Else, when ``w`` is
+    sharded over ``model``, the product of the rank's shard is gathered
+    over ``model`` and the heads picked from it (each rank computes its
+    own 1/m of the projection, as the reference's partitioner does); a
+    whole ``w`` gives its heads' columns first."""
+    if local:
+        return _split_heads(x @ w, len(ids))
+    ids = list(ids)
+    if not _sharded_on(w, 1, "model"):
+        idx = torch.as_tensor(ids, device=w.device)
+        w = w.reshape(w.shape[0], n_total, -1)[:, idx].reshape(w.shape[0], -1)
+        return _split_heads(x @ w, len(ids))
+    # Contiguous: the kernels read each head's row with unit stride.
+    y = coll.all_gather(x @ w, _mesh(), "model", -1).contiguous()
+    y = y.reshape(*y.shape[:-1], n_total, -1)
+    if ids == list(range(ids[0], ids[0] + len(ids))):
+        y = y[..., ids[0]:ids[0] + len(ids), :]
+    else:
+        y = y[..., torch.as_tensor(ids, device=y.device), :]
+    return y.transpose(1, 2)
+
+
+def _proj_q(x: torch.Tensor, w: torch.Tensor, n_total: int, heads: Heads | None):
+    """``_proj_heads`` of the query heads of ``heads`` (every head without
+    a plan)."""
+    if heads is None:
+        return _split_heads(x @ w, n_total)
+    return _proj_heads(x, w, n_total, range(heads.q0, heads.q0 + heads.n_q), heads.local_q)
+
+
+def _proj_kv(x: torch.Tensor, w: torch.Tensor, n_total: int, heads: Heads | None):
+    """``_proj_heads`` of the kv heads of ``heads`` (every head without a
+    plan)."""
+    if heads is None:
+        return _split_heads(x @ w, n_total)
+    return _proj_heads(x, w, n_total, heads.kv, heads.local_kv)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, heads: Heads | None) -> torch.Tensor:
+    """The output projection of the merged heads ``o`` (B, S, ·): whole,
+    or over this rank's rows of the row-parallel ``wo`` and summed over
+    ``model``."""
+    if heads is None:
+        return o @ wo
+    return _sum_model(o[..., heads.out] @ wo)
 
 
 def gqa_qkv(cfg, p: Attention, x: torch.Tensor, positions: torch.Tensor,
             heads: Heads | None = None):
-    """q, k, v of every head, or of ``heads`` (p then holds ``wq``'s local
-    columns, and ``wk``/``wv``'s when ``heads.local_kv``, else whole)."""
-    if heads is None:
-        n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
-        wk, wv = p.wk, p.wv
-    else:
-        n_q, n_kv = heads.n_q, len(heads.kv)
-        wk, wv = ((p.wk, p.wv) if heads.local_kv
-                  else (_kv_weight(cfg, p.wk, heads), _kv_weight(cfg, p.wv, heads)))
-    q = _split_heads(x @ p.wq, n_q)
-    k = _split_heads(x @ wk, n_kv)
-    v = _split_heads(x @ wv, n_kv)
+    """q, k, v of every head, or of ``heads`` (p then holds the rank's
+    column shards of ``wq``/``wk``/``wv``; ``_proj_heads``)."""
+    q = _proj_q(x, p.wq, cfg.n_heads, heads)
+    k = _proj_kv(x, p.wk, cfg.n_kv_heads, heads)
+    v = _proj_kv(x, p.wv, cfg.n_kv_heads, heads)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -384,27 +475,27 @@ def attn_apply(cfg, p: Attention, x: torch.Tensor, *, causal: bool = True, windo
     if positions is None:
         positions = torch.arange(s, device=x.device)
     heads = attn_heads(cfg)
-    p = _tp_attention(p, heads)
+    p = _head_params(p, heads)
     q, k, v = gqa_qkv(cfg, p, x, positions, heads)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    o = _merge_heads(o) @ p.wo
-    return (o if heads is None else _sum_model(o)), (k, v)
+    return _out_proj(_merge_heads(o), p.wo, heads), (k, v)
 
 
-def _tp_attention(p: Attention, heads: Heads | None):
-    """The layer's parameters as its heads need them: sharded over
-    ``model`` where the rank computes its heads (``wk``/``wv`` whole when
-    their shard is not the rank's kv heads), whole otherwise."""
-    if heads is None:
-        return _whole(p)
-    if not _sharded_on(p.wq, 1, "model"):
-        raise ValueError("the mesh has a model axis but the attention parameters are not "
+def _model_shards(p, out: torch.Tensor):
+    """``p``'s parameters with each leaf gathered over every axis but
+    ``model`` (a leaf sharded over ``model`` stays the rank's shard);
+    ``out``, its row-parallel output projection, must be sharded."""
+    if not _sharded_on(out, 0, "model"):
+        raise ValueError("the mesh has a model axis but the layer's parameters are not "
                          "sharded over it: build the model under the mesh "
                          "(transformer.init_params(..., pctx=))")
-    whole = () if heads.local_kv else ("wk", "wv")
-    return types.SimpleNamespace(**{
-        name: gather_param(t, () if name in whole else ("model",))
-        for name, t in p.named_parameters(recurse=False)})
+    return _whole(p, keep=("model",))
+
+
+def _head_params(p, heads: Heads | None):
+    """An attention or MLA layer's parameters as its heads need them
+    (``_model_shards``); whole without a plan."""
+    return _whole(p) if heads is None else _model_shards(p, p.wo)
 
 
 def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, window=None,
@@ -423,7 +514,7 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     s_max = k_cache.shape[2]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     heads = attn_heads(cfg)
-    p = _tp_attention(p, heads)
+    p = _head_params(p, heads)
     n_q = cfg.n_heads if heads is None else heads.n_q
     q, k_new, v_new = gqa_qkv(cfg, p, x, positions, heads)
     slot = pos % s_max if ring else pos
@@ -448,8 +539,8 @@ def attn_decode(cfg, p: Attention, x: torch.Tensor, cache: dict, pos: int, windo
     logits = torch.where(mask, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkrs,bksd->bkrd", w, v_cache.float())
-    o = o.reshape(b, 1, n_q * cfg.head_dim).to(x.dtype) @ p.wo
-    return (o if heads is None else _sum_model(o)), cache
+    o = o.reshape(b, 1, n_q * cfg.head_dim).to(x.dtype)
+    return _out_proj(o, p.wo, heads), cache
 
 
 def attn_init(cfg, gen=None, *, cross: bool = False, device=None, dtype=torch.float32):
@@ -466,21 +557,23 @@ def attn_init(cfg, gen=None, *, cross: bool = False, device=None, dtype=torch.fl
 
 def cross_kv(cfg, p: Attention, enc_out: torch.Tensor):
     """Cross-attention K/V of the encoder output (once per sequence; the
-    cache keeps them for decode): (B, kv, Fs, hd) views of the products."""
-    p = _whole(p)
-    k = _split_heads(enc_out @ p.wk, cfg.n_kv_heads)
-    v = _split_heads(enc_out @ p.wv, cfg.n_kv_heads)
-    return k, v
+    cache keeps them for decode): (B, kv, Fs, hd), of the rank's kv heads
+    under a ``model`` axis (``attn_heads``)."""
+    heads = attn_heads(cfg)
+    p = _head_params(p, heads)
+    return (_proj_kv(enc_out, p.wk, cfg.n_kv_heads, heads),
+            _proj_kv(enc_out, p.wv, cfg.n_kv_heads, heads))
 
 
 def cross_apply(cfg, p: Attention, x: torch.Tensor, kv) -> torch.Tensor:
     """Decoder cross-attention through the flash kernel: no mask, no rope.
-    In decode x holds one token, a query row against every encoder key."""
+    In decode x holds one token, a query row against every encoder key.
+    ``kv``: ``cross_kv``'s, of the rank's kv heads."""
     k, v = kv
-    p = _whole(p)
-    q = _split_heads(x @ p.wq, cfg.n_heads)
-    o = ops.flash_attention(q, k, v, causal=False)
-    return _merge_heads(o) @ p.wo
+    heads = attn_heads(cfg)
+    p = _head_params(p, heads)
+    o = ops.flash_attention(_proj_q(x, p.wq, cfg.n_heads, heads), k, v, causal=False)
+    return _out_proj(_merge_heads(o), p.wo, heads)
 
 
 # --- MLA (multi-head latent attention, DeepSeek / MiniCPM3 style) ------------
@@ -510,40 +603,68 @@ class MLA(nn.Module):
         self.wo = _init(gen, (h * vd, d), 1.0 / math.sqrt(h * vd), **kw)
 
 
-def _mla_q(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+def mla_heads(cfg) -> Heads | None:
+    """The rank's ``Heads`` of an MLA layer (each head its own k and v)."""
+    return head_plan(cfg.n_heads, cfg.n_heads, cfg.n_heads * cfg.v_dim_per_head)
+
+
+def _split_cols(x: torch.Tensor, w: torch.Tensor, split: bool) -> torch.Tensor:
+    """x @ w for a ``w`` whole on every rank; with ``split`` (and a
+    ``model`` axis of m lanes that divides w's columns) each rank computes
+    its 1/m of the columns and the parts are gathered over ``model``."""
+    m, lane = _model_lanes()
+    n = w.shape[1]
+    if not split or m <= 1 or n % m:
+        return x @ w
+    c = n // m
+    return coll.all_gather(x @ w[:, lane * c:(lane + 1) * c], _mesh(), "model", -1)
+
+
+def _mla_q(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor, heads: Heads | None = None,
+           split: bool = False):
     nope = cfg.qk_nope_dim
     cq = x
     if cfg.q_lora_rank:
-        cq = rmsnorm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
-    q = _split_heads(cq @ p.w_uq, cfg.n_heads)                   # (B,H,S,nope+rope)
+        cq = rmsnorm(_split_cols(x, p.w_dq, split), p.q_norm, cfg.norm_eps)
+    q = _proj_q(cq, p.w_uq, cfg.n_heads, heads)                 # (B,h,S,nope+rope)
     return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
 
 
-def _mla_ckv(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor):
+def _mla_ckv(cfg, p: MLA, x: torch.Tensor, positions: torch.Tensor, split: bool = False):
     r = cfg.kv_lora_rank
-    dkv = x @ p.w_dkv                                            # (B,S,kv_lora+rope)
+    dkv = _split_cols(x, p.w_dkv, split)                         # (B,S,kv_lora+rope)
     c_kv = rmsnorm(dkv[..., :r], p.kv_norm, cfg.norm_eps)
     k_rope = rope(dkv[..., r:][:, None], positions, cfg.rope_theta)  # (B,1,S,rope)
     return c_kv, k_rope
 
 
 def mla_apply(cfg, p: MLA, x: torch.Tensor, *, causal: bool = True, window=None,
-              positions: torch.Tensor | None = None, pad_v: bool = True):
+              positions: torch.Tensor | None = None, pad_v: bool = True,
+              split_latent: bool = True):
     """Full-sequence MLA through the flash kernel at the qk head dim
     (nope + rope), scale 1/√(nope + rope).  With ``pad_v`` (the default,
     as the reference) v is padded with zeros to the qk dim and the output
     cut back to v's, so the kernel sees equal dims; without it the dims
     differ, which only the plain route takes.  Returns (out, (c_kv,
-    k_rope)) so prefill can seed the latent cache."""
+    k_rope)) so prefill can seed the latent cache.  Under a ``model``
+    axis the rank computes its heads (``mla_heads``): ``w_uq``/``w_uk``/
+    ``w_uv`` column-parallel, ``wo`` row-parallel, the latent c_kv and
+    k_rope whole.  ``split_latent``: the replicated down-projections
+    ``w_dq`` and ``w_dkv`` run split over ``model`` (``_split_cols``), as
+    the reference's partitioner runs them in training and decode; prefill
+    passes False, where it runs them whole on every rank."""
     b, s, _ = x.shape
-    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
-    p = _whole(p)
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
+    heads = mla_heads(cfg)
+    p = _head_params(p, heads)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
-    c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
-    k_nope = _split_heads(c_kv @ p.w_uk, h)                      # (B,H,S,nope)
-    v = _split_heads(c_kv @ p.w_uv, h)                           # (B,H,S,vd)
+    split = split_latent and heads is not None
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, heads, split)
+    c_kv, k_rope = _mla_ckv(cfg, p, x, positions, split)
+    k_nope = _proj_q(c_kv, p.w_uk, cfg.n_heads, heads)          # (B,h,S,nope)
+    v = _proj_q(c_kv, p.w_uv, cfg.n_heads, heads)               # (B,h,S,vd)
+    h = k_nope.shape[1]
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope.expand(b, h, s, rope_d)], -1)
     dq = nope + rope_d
@@ -553,7 +674,19 @@ def mla_apply(cfg, p: MLA, x: torch.Tensor, *, causal: bool = True, window=None,
         o = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)[..., :vd]
     else:
         o = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
-    return _merge_heads(o) @ p.wo, (c_kv, k_rope)
+    return _out_proj(_merge_heads(o), p.wo, heads), (c_kv, k_rope)
+
+
+def _head_cols(w: torch.Tensor, n_total: int, heads: Heads | None) -> torch.Tensor:
+    """(rows, n, ·): the columns of a projection of ``n_total`` heads that
+    belong to the rank's heads (all of them without a plan); a whole
+    ``w`` when it is not the rank's shard."""
+    if heads is None:
+        return w.reshape(w.shape[0], n_total, -1)
+    if heads.local_q:
+        return w.reshape(w.shape[0], heads.n_q, -1)
+    w = gather_param(w)
+    return w.reshape(w.shape[0], n_total, -1)[:, heads.q0:heads.q0 + heads.n_q]
 
 
 def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, pos: int):
@@ -561,30 +694,34 @@ def mla_decode(cfg, p: MLA, x: torch.Tensor, cache: dict, pos: int):
     "kr": (B, S, rope)}, updated IN PLACE at slot ``pos`` (clamped to [0,
     S − 1], as ``dynamic_update_slice_in_dim`` clamps it).  W_uk is
     absorbed into the query and W_uv applied after the weighted sum, all
-    in float32 einsums, as the reference computes it."""
+    in float32 einsums, as the reference computes it; under a ``model``
+    axis on the rank's heads, against the whole latent cache."""
     b = x.shape[0]
-    h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
-    r = cfg.kv_lora_rank
-    p = _whole(p)
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim_per_head
+    heads = mla_heads(cfg)
+    h = cfg.n_heads if heads is None else heads.n_q
+    p = _head_params(p, heads)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)                # (B,H,1,·)
-    c_new, kr_new = _mla_ckv(cfg, p, x, positions)               # (B,1,r) / (B,1,1,rope)
+    split = heads is not None
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, heads, split)  # (B,h,1,·)
+    c_new, kr_new = _mla_ckv(cfg, p, x, positions, split)        # (B,1,r) / (B,1,1,rope)
     ckv, krope = cache["ckv"], cache["kr"]
     s_max = ckv.shape[1]
     slot = min(max(pos, 0), s_max - 1)
     ckv[:, slot] = c_new[:, 0]
     krope[:, slot] = kr_new[:, 0, 0]
     q_lat = torch.einsum("bhqn,rhn->bhqr", q_nope.float(),
-                         p.w_uk.reshape(r, h, nope).float())     # (B,H,1,r)
+                         _head_cols(p.w_uk, cfg.n_heads, heads).float())   # (B,h,1,r)
     logits = (torch.einsum("bhqr,bsr->bhqs", q_lat, ckv.float())
               + torch.einsum("bhqd,bsd->bhqs", q_rope.float(), krope.float())) \
         / math.sqrt(nope + rope_d)
     mask = torch.arange(s_max, device=x.device) <= pos
     wts = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
-    o_lat = torch.einsum("bhqs,bsr->bhqr", wts, ckv.float())    # (B,H,1,r)
-    o = torch.einsum("bhqr,rhv->bhqv", o_lat, p.w_uv.reshape(r, h, vd).float())
+    o_lat = torch.einsum("bhqs,bsr->bhqr", wts, ckv.float())    # (B,h,1,r)
+    o = torch.einsum("bhqr,rhv->bhqv", o_lat,
+                     _head_cols(p.w_uv, cfg.n_heads, heads).float())
     o = o.transpose(1, 2).reshape(b, 1, h * vd).to(x.dtype)
-    return o @ p.wo, cache
+    return _out_proj(o, p.wo, heads), cache
 
 
 # ---------------------------------------------------------------------------
@@ -1008,21 +1145,77 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
     return F.silu(y), xp[:, -(k - 1):]
 
 
-def _mamba_project(cfg, p: Mamba, x: torch.Tensor):
+def mamba_lanes(cfg) -> tuple[int, int] | None:
+    """(m, lane) when the rank computes its ssm_heads / m heads over a
+    ``model`` axis of m > 1 lanes (m must divide the heads and 2·state),
+    else None (the block whole)."""
+    m, lane = _model_lanes()
+    if m <= 1 or cfg.ssm_heads % m or (2 * cfg.ssm_state) % m:
+        return None
+    return m, lane
+
+
+def _mamba_cols(cfg, m: int, lane: int, device):
+    """The rank's columns of ``w_in`` (z and x of its heads, its 1/m of the
+    B and C columns, dt of its heads) and its channels of the conv (x of
+    its heads, its B/C part): index tensors."""
     di, st, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    dl, bl, hl = di // m, 2 * st // m, h // m
+
+    def span(start, n):
+        return torch.arange(start + lane * n, start + (lane + 1) * n, device=device)
+
+    conv = torch.cat([span(0, dl), span(di, bl)])
+    return torch.cat([span(0, dl), conv + di, span(2 * di + 2 * st, hl)]), conv
+
+
+def _mamba_local(cfg, p: Mamba, lanes):
+    """The block's parameters as the rank uses them: ``w_in``'s columns
+    and the conv's channels of ``_mamba_cols``, the per-head vectors and
+    ``out_norm`` sliced to its heads, ``w_out`` its row shard (``w_in``
+    gathered over ``model`` and cut head-aligned: its ``spec_for`` shard
+    is a contiguous 1/m of z | x | B | C | dt, not the rank's heads)."""
+    m, lane = lanes
+    hl, dl = cfg.ssm_heads // m, cfg.d_inner // m
+    pw = _model_shards(p, p.w_out)
+    cols, conv = _mamba_cols(cfg, m, lane, p.w_in.device)
+    heads = slice(lane * hl, (lane + 1) * hl)
+    return types.SimpleNamespace(
+        w_in=gather_param(pw.w_in)[:, cols], conv=pw.conv[:, conv],
+        a_log=pw.a_log[heads], dt_bias=pw.dt_bias[heads], d_skip=pw.d_skip[heads],
+        out_norm=pw.out_norm[lane * dl:(lane + 1) * dl], w_out=pw.w_out)
+
+
+def _mamba_project(cfg, p: Mamba, x: torch.Tensor, lanes=None):
+    """z, the conv's input (x | B | C, or on ``lanes`` the rank's x | B/C
+    part) and dt (B, S, heads)."""
+    m = 1 if lanes is None else lanes[0]
+    dl, bl, hl = cfg.d_inner // m, 2 * cfg.ssm_state // m, cfg.ssm_heads // m
     zxbcdt = x @ p.w_in
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * st]
-    dt = softplus(zxbcdt[..., -h:] + p.dt_bias)                 # (B,S,h)
+    z = zxbcdt[..., :dl]
+    xbc = zxbcdt[..., dl:2 * dl + bl]
+    dt = softplus(zxbcdt[..., -hl:] + p.dt_bias)                # (B,S,h)
     return z, xbc, dt
 
 
-def _mamba_ssd_inputs(cfg, p: Mamba, xbc: torch.Tensor, dt: torch.Tensor):
-    b_, s_ = xbc.shape[0], xbc.shape[1]
-    di, st, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    xs = xbc[..., :di].reshape(b_, s_, h, hd)
-    bmat = xbc[..., di:di + st][:, :, None, :]                  # (B,S,1,st)
-    cmat = xbc[..., di + st:][:, :, None, :]
+def _mamba_bc(cfg, xbc: torch.Tensor, lanes):
+    """(x, B | C) of the conv's output: on ``lanes`` the rank's x and the
+    B/C parts of every lane gathered over ``model``."""
+    dl = cfg.d_inner if lanes is None else cfg.d_inner // lanes[0]
+    bc = xbc[..., dl:]
+    if lanes is not None:
+        # Contiguous: B8 reads C's last axis with unit stride.
+        bc = coll.all_gather(bc, _mesh(), "model", -1).contiguous()
+    return xbc[..., :dl], bc
+
+
+def _mamba_ssd_inputs(cfg, p: Mamba, xv: torch.Tensor, bc: torch.Tensor, dt: torch.Tensor):
+    b_, s_ = xv.shape[0], xv.shape[1]
+    st, hd = cfg.ssm_state, cfg.ssm_head_dim
+    h = dt.shape[-1]
+    xs = xv.reshape(b_, s_, h, hd)
+    bmat = bc[..., :st][:, :, None, :]                          # (B,S,1,st)
+    cmat = bc[..., st:][:, :, None, :]
     a = -torch.exp(p.a_log.float())                             # (h,) < 0
     a_dt = a[None, None, :] * dt                                # (B,S,h) f32 log-decay
     b_eff = bmat.expand(b_, s_, h, st) * dt[..., None]
@@ -1030,19 +1223,40 @@ def _mamba_ssd_inputs(cfg, p: Mamba, xbc: torch.Tensor, dt: torch.Tensor):
     return xs, a_dt, b_eff, c_eff
 
 
+def _gated_norm(cfg, y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, lanes) -> torch.Tensor:
+    """rmsnorm(y · silu(z)) over d_inner; on ``lanes`` the rank's channels,
+    their float32 sum of squares summed over ``model`` before the scale."""
+    g = y * F.silu(z)
+    if lanes is None:
+        return rmsnorm(g, w, cfg.norm_eps)
+    g32 = g.float()
+    ss = _sum_model((g32 * g32).sum(-1, keepdim=True))
+    return (g32 * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)).to(g.dtype) * w
+
+
+def _mamba_out(y: torch.Tensor, w_out: torch.Tensor, lanes) -> torch.Tensor:
+    out = y @ w_out
+    return out if lanes is None else _sum_model(out)
+
+
 def mamba_apply(cfg, p: Mamba, x: torch.Tensor, conv_state=None, return_state: bool = False):
     """Full-sequence Mamba-2 block through the SSD kernel.  Returns (out,
     cache|None); with ``return_state`` the cache {"conv", "ssm"} seeds
-    decode."""
-    p = _whole(p)
-    z, xbc, dt = _mamba_project(cfg, p, x)
+    decode.  Under a ``model`` axis (``mamba_lanes``) the rank computes
+    its heads: its columns of the input projection, the conv on its
+    channels, B and C gathered over ``model``, the SSD, skip, gate and
+    final state on its heads, the norm's sum of squares over ``model``,
+    and the row-parallel output projection summed over ``model``."""
+    lanes = mamba_lanes(cfg)
+    p = _whole(p) if lanes is None else _mamba_local(cfg, p, lanes)
+    z, xbc, dt = _mamba_project(cfg, p, x, lanes)
     xbc, conv_tail = _causal_conv(xbc, p.conv, conv_state)
-    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)
+    xv, bc = _mamba_bc(cfg, xbc, lanes)
+    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xv, bc, dt)
     y = ops.ssd_scan(xs, a_dt, b_eff, c_eff)                    # (B,S,h,hd)
     y = y + xs * p.d_skip[None, None, :, None]
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
-    y = rmsnorm(y * F.silu(z), p.out_norm, cfg.norm_eps)
-    out = y @ p.w_out
+    y = y.reshape(x.shape[0], x.shape[1], -1)
+    out = _mamba_out(_gated_norm(cfg, y, z, p.out_norm, lanes), p.w_out, lanes)
     cache = None
     if return_state:
         # Final SSM state: S = sum_j exp(cum_last - cum_j) b_j^T x_j
@@ -1057,19 +1271,21 @@ def mamba_apply(cfg, p: Mamba, x: torch.Tensor, conv_state=None, return_state: b
 
 def mamba_decode(cfg, p: Mamba, x: torch.Tensor, cache: dict, pos: int):
     """One-step Mamba-2 recurrence.  cache: {"conv": (B,K-1,C), "ssm":
-    (B,h,st,hd) float32}, updated IN PLACE (the reference returns a new
-    one)."""
-    p = _whole(p)
-    z, xbc, dt = _mamba_project(cfg, p, x)                      # S = 1
+    (B,h,st,hd) float32} — on ``mamba_lanes`` the rank's conv channels
+    and heads — updated IN PLACE (the reference returns a new one)."""
+    lanes = mamba_lanes(cfg)
+    p = _whole(p) if lanes is None else _mamba_local(cfg, p, lanes)
+    z, xbc, dt = _mamba_project(cfg, p, x, lanes)               # S = 1
     xbc, conv_tail = _causal_conv(xbc, p.conv, cache["conv"])
-    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xbc, dt)
+    xv, bc = _mamba_bc(cfg, xbc, lanes)
+    xs, a_dt, b_eff, c_eff = _mamba_ssd_inputs(cfg, p, xv, bc, dt)
     s_prev = cache["ssm"]                                       # (B,h,st,hd)
     decay = torch.exp(a_dt[:, 0])[..., None, None]              # (B,h,1,1)
     s_new = s_prev * decay + b_eff[:, 0][..., :, None] * xs[:, 0][..., None, :]
     y = torch.einsum("bhs,bhsd->bhd", c_eff[:, 0].float(), s_new)[:, None]  # (B,1,h,hd)
     y = y + xs * p.d_skip[None, None, :, None]
-    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p.out_norm, cfg.norm_eps)
+    y = y.reshape(x.shape[0], 1, -1).to(x.dtype)
+    y = _gated_norm(cfg, y, z, p.out_norm, lanes)
     cache["conv"].copy_(conv_tail)
     cache["ssm"].copy_(s_new)
-    return y @ p.w_out, cache
+    return _mamba_out(y, p.w_out, lanes), cache

@@ -357,11 +357,12 @@ def _ffn_apply(cfg, bp: Block, x):
 def _mixer_apply(cfg, kind: str, bp: Block, h, positions, window, return_state: bool = False):
     """The block's mixer over the full sequence: (out, what prefill caches:
     (k, v), (c_kv, k_rope) for MLA, or the Mamba cache, which is None
-    unless ``return_state``)."""
+    unless ``return_state``, which prefill sets)."""
     if kind != "attn":
         return L.mamba_apply(cfg, bp.mixer, h, return_state=return_state)
     if cfg.attn_kind == "mla":
-        return L.mla_apply(cfg, bp.mixer, h, positions=positions, window=window)
+        return L.mla_apply(cfg, bp.mixer, h, positions=positions, window=window,
+                           split_latent=not return_state)
     return L.attn_apply(cfg, bp.mixer, h, positions=positions, window=window)
 
 
@@ -554,12 +555,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     encoder-decoder {"xk", "xv"} (g, batch, kv, Fs, hd), the
     cross-attention's keys and values over ``frontend_seq`` frames (the
     config's by default).  The SSM state is float32 whatever ``dtype``.
-    Under a mesh whose ``model`` axis splits the heads, "k"/"v" hold the
-    rank's kv heads (``layers.attn_heads``)."""
+    Under a mesh with a ``model`` axis, "k"/"v" and "xk"/"xv" hold the
+    kv heads the rank reads (``layers.attn_heads``), "conv" and "ssm" its
+    channels and heads (``layers.mamba_lanes``: (K−1, C/m) and (h/m, st,
+    hd)); MLA's latent cache stays whole (every local head reads all of
+    it)."""
     dev = _device(device)
     g = cfg.n_groups
     heads = L.attn_heads(cfg)
     n_kv = cfg.n_kv_heads if heads is None else len(heads.kv)
+    lanes = L.mamba_lanes(cfg) if cfg.ssm_state else None
+    m = 1 if lanes is None else lanes[0]
     s = _cache_len(cfg, max_len, window)
     fs = frontend_seq or cfg.frontend_seq
 
@@ -575,12 +581,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
             c = {"k": zeros(g, batch, n_kv, s, cfg.head_dim),
                  "v": zeros(g, batch, n_kv, s, cfg.head_dim)}
         else:
-            c = {"conv": zeros(g, batch, cfg.conv_kernel - 1, cfg.d_inner + 2 * cfg.ssm_state),
-                 "ssm": zeros(g, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+            c = {"conv": zeros(g, batch, cfg.conv_kernel - 1,
+                               (cfg.d_inner + 2 * cfg.ssm_state) // m),
+                 "ssm": zeros(g, batch, cfg.ssm_heads // m, cfg.ssm_state, cfg.ssm_head_dim,
                               dt=torch.float32)}
         if cfg.encoder_layers:
-            c["xk"] = zeros(g, batch, cfg.n_kv_heads, fs, cfg.head_dim)
-            c["xv"] = zeros(g, batch, cfg.n_kv_heads, fs, cfg.head_dim)
+            c["xk"] = zeros(g, batch, n_kv, fs, cfg.head_dim)
+            c["xv"] = zeros(g, batch, n_kv, fs, cfg.head_dim)
         cache[f"l{i}"] = c
     return cache
 

@@ -240,6 +240,82 @@ def serve_one_rank(arch, prompts, steps):
     return out.numpy(), trace["logits"][0].numpy()
 
 
+def tp_cfg(arch, overrides):
+    """Tiny ``arch`` with ``overrides`` (``ModelConfig.tiny``'s)."""
+    return configs.get_config(arch).tiny(**(overrides or {}))
+
+
+def tp_train_rank(rank, group, dev, shape, axes, arch, overrides, tree, batch, steps, opt_kw):
+    """``steps`` train steps (FSDP) of tiny ``arch`` on a mesh, its
+    parameters the reference's ``tree`` carried in by ``params_from_jax(...,
+    pctx=)``: (losses, gnorms, whole parameters after)."""
+    mesh = _mesh(group, dev, shape, axes)
+    cfg = tp_cfg(arch, overrides)
+    pctx = par.ParallelCtx(mesh=mesh, fsdp=True)
+    tcfg = step_mod.TrainConfig(opt=opt_mod.OptConfig(**opt_kw))
+    state = step_mod.state_for(T.params_from_jax(cfg, tree, device=dev, pctx=pctx), tcfg)
+    step_fn = step_mod.build_train_step(cfg, tcfg, pctx)
+    batch = {k: torch.tensor(v) for k, v in batch.items()}
+    losses, gnorms = [], []
+    for _ in range(steps):
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+    return losses, gnorms, _whole_params(state.params, mesh)
+
+
+def _generate(cfg, model, prompts, steps, frames):
+    """Greedy tokens, every step's logits and the prefill cache's first
+    layer (group 0) of ``prompts`` under the current context."""
+    from repro_torch.serve import engine
+
+    p = torch.tensor(prompts)
+    f = None if frames is None else torch.tensor(frames)
+    trace: dict = {}
+    out = engine.greedy_generate(cfg, model, p, steps,
+                                 engine.ServeConfig(max_len=p.shape[1] + steps),
+                                 frames=f, trace=trace)
+    _, cache, _ = T.prefill(cfg, model, p, frames=f)
+    return (out.numpy(), [t.numpy() for t in trace["logits"]],
+            {k: v[0].numpy() for k, v in cache["l0"].items()})
+
+
+def tp_serve_rank(rank, group, dev, shape, axes, arch, overrides, tree, prompts, steps,
+                  frames=None):
+    """Greedy generation of tiny ``arch`` with the reference's ``tree``
+    sharded over the mesh (every rank the whole batch): ``_generate``'s
+    tokens, logits and this rank's cache, its ``model`` lane, and the
+    last-axis strides of every B7 / B8 input (the card's kernels need
+    1)."""
+    from repro_torch.kernels import ops
+
+    mesh = _mesh(group, dev, shape, axes)
+    cfg = tp_cfg(arch, overrides)
+    pctx = par.ParallelCtx(mesh=mesh, batch_sharded=False)
+    model = T.params_from_jax(cfg, tree, device=dev, pctx=pctx)
+    strides = set()
+    real = ops.flash_attention, ops.ssd_scan
+
+    def last_strides(fn):
+        def run(*ts, **kw):
+            strides.update(t.stride(-1) for t in ts)
+            return fn(*ts, **kw)
+        return run
+
+    ops.flash_attention, ops.ssd_scan = map(last_strides, real)
+    try:
+        with par.use(pctx):
+            out = _generate(cfg, model, prompts, steps, frames)
+    finally:
+        ops.flash_attention, ops.ssd_scan = real
+    return out + (mesh.coords["model"], strides)
+
+
+def tp_serve_one_rank(arch, overrides, tree, prompts, steps, frames=None):
+    cfg = tp_cfg(arch, overrides)
+    return _generate(cfg, T.params_from_jax(cfg, tree, device="cpu"), prompts, steps, frames)
+
+
 def dryrun_step_rank(rank, group, dev, shape, axes, arch, tokens_shape):
     """One train step of tiny ``arch`` as the LM dry run lowers it
     (``launch/dryrun.py``'s ``train_recipe``, FSDP, remat "full") on a

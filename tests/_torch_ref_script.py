@@ -23,8 +23,9 @@ Modes:
 * ``dryrun_lm`` — the LM dry run's pure functions for every arch × shape
   (``model_flops``, ``applicable``, ``shape_cell_cfg``, ``batch_specs``,
   ``train_recipe``) and ``lower_cell``'s records of ``DRYRUN_TINY_CELLS``:
-  tiny configurations at ``DRYRUN_TINY_SHAPES`` on a (data 2, model 4)
-  mesh, patched into the module at run time (``OUT`` a .json).  JAX's
+  tiny configurations (``tiny(**overrides)``) at ``DRYRUN_TINY_SHAPES``
+  on a (data 2, model 4) mesh, patched into the module at run time, keyed
+  by ``tiny_key`` (``OUT`` a .json).  JAX's
   backend starts on 8 devices before ``repro.launch.dryrun`` is imported
   (its import asks for 512).
 """
@@ -43,11 +44,22 @@ DRYRUN_CONFIG = dict(eps=0.01, min_pts=4, grid=256, max_clusters=64, max_verts=1
 DRYRUN_SCHEDULES = ("sync", "tree", "async")
 DRYRUN_POINTS = 1024
 # The LM dry run's tiny cells: shape name -> (seq_len, global_batch, kind),
-# and the (arch, shape) cells lowered on (data 2, model 4).
+# and the (arch, shape, tiny() overrides or None) cells lowered on (data 2,
+# model 4): MLA, Mamba-2 and the encoder-decoder at every kind, and GQA whose
+# query or kv heads do not divide the 4 ``model`` lanes.
 DRYRUN_TINY_SHAPES = {"train_4k": (32, 16, "train"), "prefill_32k": (64, 4, "prefill"),
                       "decode_32k": (64, 4, "decode"), "long_500k": (128, 1, "decode")}
-DRYRUN_TINY_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
-                     ("qwen3-8b", "decode_32k"), ("llama4-scout-17b-a16e", "train_4k"))
+DRYRUN_TINY_CELLS = (
+    ("qwen3-8b", "train_4k", None), ("qwen3-8b", "prefill_32k", None),
+    ("qwen3-8b", "decode_32k", None), ("llama4-scout-17b-a16e", "train_4k", None),
+    *((arch, shape, None) for arch in ("minicpm3-4b", "mamba2-1.3b", "whisper-small")
+      for shape in ("train_4k", "prefill_32k", "decode_32k")),
+    ("deepseek-coder-33b", "prefill_32k", {"n_heads": 8, "n_kv_heads": 2}),
+    ("deepseek-coder-33b", "prefill_32k", {"n_heads": 4, "n_kv_heads": 2}),
+    ("deepseek-coder-33b", "prefill_32k", {"n_heads": 6, "n_kv_heads": 2}),
+    ("deepseek-coder-33b", "train_4k", {"n_heads": 6, "n_kv_heads": 2}),
+    ("minicpm3-4b", "prefill_32k", {"n_heads": 6, "n_kv_heads": 6}),
+    ("whisper-small", "prefill_32k", {"n_heads": 6, "n_kv_heads": 6}))
 DRYRUN_TINY_MESH = ((2, 4), ("data", "model"))
 # name -> (moe_impl, a2a_int8, batch, capacity_factor) of the mesh mode's
 # MoE runs: None keeps the tiny config's drop-free E; at 1.25 (the
@@ -57,6 +69,15 @@ MOE_VARIANTS = {"epsum": ("epsum", False, 4, None), "a2a": ("a2a", False, 4, Non
                 "a2a_rep_int8": ("a2a", True, 1, None),
                 "epsum_cf125": ("epsum", False, 4, 1.25), "a2a_cf125": ("a2a", False, 4, 1.25),
                 "a2a_int8_cf125": ("a2a", True, 4, 1.25)}
+
+
+def tiny_key(arch, shape, overrides=None) -> str:
+    """A tiny cell's key: "arch/shape", then ",".join("k=v") of its
+    overrides."""
+    key = f"{arch}/{shape}"
+    if overrides:
+        key += "/" + ",".join(f"{k}={v}" for k, v in sorted(overrides.items()))
+    return key
 
 
 def a2a_inputs():
@@ -191,16 +212,16 @@ def dryrun_lm(out: str) -> None:
                 "window": dr.shape_cell_cfg(cfg, shape),
                 "specs": {k: [list(v.shape), str(v.dtype)] for k, v in specs.items()}}
     get = configs.get_config
-    dr.configs.get_config = lambda a: get(a).tiny()
     dr.SHAPES = {k: ShapeConfig(k, *v) for k, v in DRYRUN_TINY_SHAPES.items()}
     dr.mesh_mod.make_production_mesh = lambda multi_pod=False: mesh_mod.make_mesh(
         *DRYRUN_TINY_MESH)
     tiny = {}
-    for arch, name in DRYRUN_TINY_CELLS:
+    for arch, name, overrides in DRYRUN_TINY_CELLS:
+        dr.configs.get_config = lambda a, o=overrides or {}: get(a).tiny(**o)
         rec = dr.lower_cell(arch, name, False)
         if rec["status"] != "ok":
-            raise RuntimeError(f"{arch} {name}: {rec}")
-        tiny[f"{arch}/{name}"] = {k: rec[k] for k in (
+            raise RuntimeError(f"{arch} {name} {overrides}: {rec}")
+        tiny[tiny_key(arch, name, overrides)] = {k: rec[k] for k in (
             "flops_per_dev", "bytes_per_dev", "coll_counts", "coll_detail", "xla_flops",
             "hbm_per_device_gb")}
     with open(out, "w") as f:

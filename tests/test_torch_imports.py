@@ -67,6 +67,8 @@ def test_no_jax_or_reference_import_lines():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "examples" / "quickstart_torch.py",
                                           ROOT / "examples" / "data_curation_torch.py",
+                                          ROOT / "examples" / "train_lm_torch.py",
+                                          ROOT / "examples" / "serve_lm_torch.py",
                                           ROOT / "tests" / "_torch_ranks_probe.py"]
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"

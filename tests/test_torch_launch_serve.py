@@ -160,3 +160,26 @@ def test_lm_mode_refuses_several_cards(capsys):
     assert torch.equal(got, want) and got.shape == (4, 4)
     assert line["ranks"] == 2 and line["backend"] == "gloo" and not line["staged"]
     assert set(line) == LM_KEYS | {"device", "ranks", "backend", "staged"}
+
+
+def test_serve_lm_torch_example(capsys):
+    """examples/serve_lm_torch.py (serve_lm.py's counterpart) on the CPU:
+    ``serve.main`` with the example's flags, the same tokens; run as a
+    script it exits 0 and prints the serve line."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("serve_lm_torch",
+                                                  ROOT / "examples" / "serve_lm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    flags = ["--requests", "2", "--gen", "4", "--device", "cpu"]
+    got = mod.main(flags)
+    want = tserve.main(["--arch", "qwen3-8b", "--tiny", "--requests", "2", "--prompt-len", "32",
+                        "--gen", "4", "--temperature", "0.0", "--device", "cpu"])
+    assert torch.equal(got, want) and got.shape == (2, 4)
+    capsys.readouterr()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_lm_torch.py"), *flags],
+                          cwd=ROOT, env=env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(line) == LM_KEYS | {"device"} and line["generated_tokens"] == 8

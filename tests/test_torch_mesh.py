@@ -30,7 +30,12 @@ Tolerances:
   rtol 1e-4 / atol 2e-3 — AdamW's first
   updates divide each gradient by its own magnitude, so a gradient near 0
   that rounds otherwise (or, compressed, lands in the next int8 step)
-  moves its parameter by up to lr.
+  moves its parameter by up to lr; the layers computed on their shards
+  (MLA, Mamba-2, whisper's encoder and cross-attention, GQA whose heads do
+  not divide ``model``) on (data 1, model 4), the reference's parameters
+  carried in by ``params_from_jax(..., pctx=)``: the same, and their
+  greedy generation's logits within 1e-5 and tokens exactly, each rank's
+  cache holding its share.
 """
 import concurrent.futures
 import functools
@@ -68,6 +73,33 @@ TRAIN = {"adamw": (dict(fsdp=True), OPT),
          "adamw_compress": (dict(fsdp=True, compress_grads=True), OPT),
          "adafactor": (dict(fsdp=True), dict(OPT, name="adafactor"))}
 TRAIN_STEPS = 3
+# The layers computed on their shards: arch -> tiny() overrides (6 query
+# heads and 2 kv heads on 4 ``model`` lanes: neither divides).
+TP_ARCHS = {"minicpm3-4b": None, "mamba2-1.3b": None, "whisper-small": None,
+            "deepseek-coder-33b": {"n_heads": 6, "n_kv_heads": 2}}
+MESH14 = ((1, 4), ("data", "model"))
+TP_GEN = 4
+
+
+def tp_trees():
+    """The reference's ``init_params(PRNGKey(0))`` of each ``TP_ARCHS``
+    configuration, as numpy."""
+    from repro.models import transformer as JT
+
+    return {a: jax.tree_util.tree_map(np.asarray, JT.init_params(
+        jconfigs.get_config(a).tiny(**(o or {})), jax.random.PRNGKey(0)))
+        for a, o in TP_ARCHS.items()}
+
+
+def tp_inputs(arch):
+    """(train batch, prompts, frames for generation or None)."""
+    batch = train_batch()
+    frames = None
+    if arch == "whisper-small":
+        frames = np.random.default_rng(2).standard_normal((4, 16, 64)).astype(np.float32)
+        batch["frames"] = frames
+    prompts = np.random.default_rng(9).integers(0, 200, (2, 8)).astype(np.int64)
+    return batch, prompts, None if frames is None else frames[:2]
 
 
 def moe_params():
@@ -82,17 +114,23 @@ def train_batch():
     return {"tokens": np.random.default_rng(1).integers(0, 100, (4, 16)).astype(np.int64)}
 
 
-def one_rank_train(pctx_kw, opt_kw):
-    """The port's one-rank train steps from the same seed: (losses, gnorms,
-    parameters).  With ``compress_grads`` the one-rank gradients go through
-    the reference's ``compress_decompress`` before the update, as a mesh
-    step applies it."""
+def one_rank_train(pctx_kw, opt_kw, arch=None, tree=None, batch=None):
+    """The port's one-rank train steps from the same seed (or of tiny
+    ``arch`` holding the reference's ``tree``, on ``batch``): (losses,
+    gnorms, parameters).  With ``compress_grads`` the one-rank gradients
+    go through the reference's ``compress_decompress`` before the update,
+    as a mesh step applies it."""
+    from repro_torch.models import transformer as TT
     from repro_torch.parallel import compress
 
-    cfg = tconfigs.get_config(probe.TRAIN_ARCH).tiny()
     tcfg = tstep.TrainConfig(opt=topt.OptConfig(**opt_kw))
-    state = tstep.make_train_state(cfg, tcfg, gen=0, device="cpu")
-    batch = {k: torch.tensor(v) for k, v in train_batch().items()}
+    if arch is None:
+        cfg = tconfigs.get_config(probe.TRAIN_ARCH).tiny()
+        state = tstep.make_train_state(cfg, tcfg, gen=0, device="cpu")
+    else:
+        cfg = probe.tp_cfg(arch, TP_ARCHS[arch])
+        state = tstep.state_for(TT.params_from_jax(cfg, tree, device="cpu"), tcfg)
+    batch = {k: torch.tensor(v) for k, v in (batch or train_batch()).items()}
     losses, gnorms = [], []
     for _ in range(TRAIN_STEPS):
         loss, grads = tstep._loss_and_grads(cfg, tcfg, state.params, batch)
@@ -173,6 +211,15 @@ def runs(tmp_path_factory):
             for name, (pkw, okw) in TRAIN.items()}
         cases4["restore"] = ranks.Case(probe.restore_rank, 4, ((4, 1), ("data", "model"),
                                                                 TRAIN["adamw"][0], OPT, ck))
+        trees = tp_trees()
+        for arch, over in TP_ARCHS.items():
+            batch, prompts_tp, frames = tp_inputs(arch)
+            cases4[f"tp_train/{arch}"] = ranks.Case(
+                probe.tp_train_rank, 4, (*MESH14, arch, over, trees[arch], batch, TRAIN_STEPS,
+                                         OPT))
+            cases4[f"tp_serve/{arch}"] = ranks.Case(
+                probe.tp_serve_rank, 4, (*MESH14, arch, over, trees[arch], prompts_tp, TP_GEN,
+                                         frames))
         timing: dict = {}
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             fut = pool.submit(ranks.run_cases, list(cases.values()), WORLD, device="cpu",
@@ -184,6 +231,12 @@ def runs(tmp_path_factory):
                    "moe": {name: probe.moe_one_rank(p_np, x[:b], w[:b], mesh_routes(name))
                            for name, (_, _, b, _) in refscript.MOE_VARIANTS.items()},
                    "train": {name: one_rank_train(*kw) for name, kw in TRAIN.items()}}
+            for arch, over in TP_ARCHS.items():
+                batch, prompts_tp, frames = tp_inputs(arch)
+                one[f"tp_train/{arch}"] = one_rank_train(TRAIN["adamw"][0], OPT, arch,
+                                                         trees[arch], batch)
+                one[f"tp_serve/{arch}"] = probe.tp_serve_one_rank(arch, over, trees[arch],
+                                                                  prompts_tp, TP_GEN, frames)
             local = {}
             jcfg = jconfigs.get_config(probe.MOE_ARCH).tiny()
             with jpar.use(jpar.ParallelCtx(mesh=None)):
@@ -481,3 +534,63 @@ def test_greedy_generate_tensor_parallel(runs):
         np.testing.assert_allclose(logits, want_logits, rtol=1e-5, atol=1e-5)
         cfg = tconfigs.get_config(probe.TRAIN_ARCH).tiny()
         assert kv[2] == cfg.n_kv_heads // 2
+
+
+@pytest.mark.parametrize("arch", list(TP_ARCHS))
+def test_tp_train_step(runs, arch):
+    """Tiny MLA, Mamba-2, whisper and (6, 2)-head GQA on (data 1, model 4),
+    FSDP, each layer computed on its shards, the reference's parameters
+    carried in: three AdamW steps held to the one-rank steps (losses,
+    gradient norms, parameters after) as ``test_train_step_fsdp_tp``."""
+    recs = runs["res"][f"tp_train/{arch}"]
+    losses, gnorms, full = recs[0]
+    want_l, want_g, want_p = runs["one"][f"tp_train/{arch}"]
+    np.testing.assert_allclose(losses, want_l, rtol=1e-5)
+    np.testing.assert_allclose(gnorms, want_g, rtol=1e-4)
+    assert losses[-1] < losses[0]
+    assert set(full) == set(want_p)
+    for k in want_p:
+        np.testing.assert_allclose(full[k], want_p[k], rtol=1e-4, atol=2e-3, err_msg=k)
+    for rec in recs[1:]:
+        assert rec[0] == losses
+
+
+@pytest.mark.parametrize("arch", list(TP_ARCHS))
+def test_tp_greedy_generate(runs, arch):
+    """The same configurations generating over (data 1, model 4): every
+    step's logits the one-rank run's within 1e-5 and the greedy tokens
+    exactly; each rank's prefill cache holds its share of the one-rank
+    cache: Mamba's conv its channels (x of its heads, its 1/4 of B and C)
+    and ssm its heads, the cross-attention's xk / xv and the GQA k / v the
+    kv heads its query heads read, MLA's latent cache whole; every B7 /
+    B8 input has a unit-stride last axis, as the card's kernels need."""
+    from repro_torch.models import layers as TL
+
+    cfg = probe.tp_cfg(arch, TP_ARCHS[arch])
+    want_toks, want_logits, want_cache = runs["one"][f"tp_serve/{arch}"]
+    m, lanes = MESH14[0][1], set()
+    for toks, logits, cache, lane, strides in runs["res"][f"tp_serve/{arch}"]:
+        lanes.add(lane)
+        assert strides == {1}, strides
+        np.testing.assert_array_equal(toks, want_toks)
+        for got, want in zip(logits, want_logits, strict=True):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        share = {}
+        if arch == "mamba2-1.3b":
+            _, conv = TL._mamba_cols(cfg, m, lane, "cpu")
+            hl = cfg.ssm_heads // m
+            share = {"conv": want_cache["conv"][..., conv.numpy()],
+                     "ssm": want_cache["ssm"][:, lane * hl:(lane + 1) * hl]}
+        elif cfg.attn_kind == "mla":
+            share = {"ckv": want_cache["ckv"], "kr": want_cache["kr"]}
+        else:
+            kv = TL.heads_at(cfg.n_heads, cfg.n_kv_heads, cfg.n_heads * cfg.head_dim, m,
+                             lane).kv
+            names = ("k", "v", "xk", "xv") if cfg.encoder_layers else ("k", "v")
+            share = {n: want_cache[n][:, list(kv)] for n in names}
+            assert len(kv) < cfg.n_kv_heads
+        assert set(share) == set(cache)
+        for name, want in share.items():
+            assert cache[name].shape == want.shape, name
+            np.testing.assert_allclose(cache[name], want, rtol=1e-5, atol=1e-5, err_msg=name)
+    assert lanes == set(range(m))

@@ -188,3 +188,50 @@ def test_local_slice_and_shard_leaf():
         both = tsr.local_slice((8, 12), (("data", "model"), None), mesh)
         assert both == (slice(r, r + 1), slice(0, 12))
         assert tsr.local_slice((8, 12), ("pod", None), mesh) == (slice(0, 8), slice(0, 12))
+
+
+@pytest.mark.parametrize("arch", tconfigs.all_archs())
+def test_head_plans_tile_the_output_projection(arch):
+    """``layers.heads_at`` at full size on 2, 4 and 16 ``model`` lanes (the
+    attention, cross-attention or MLA heads of every configuration): the
+    lanes of a group compute the same query heads, the groups cover every
+    head once, each lane's ``out`` columns of its heads' merged output are
+    exactly its contiguous row shard of ``wo`` (the layer's
+    ``o[..., out] @ wo_local``), and each local query head reads its own kv
+    head where the flash kernel's grouping puts it.  Mamba-2's
+    ``_mamba_cols``: the lanes' columns of ``w_in`` and channels of the
+    conv each cover them once, a lane's z / x / dt those of its heads."""
+    from repro_torch.models import layers as TL
+
+    cfg = tconfigs.get_config(arch)
+    kinds = {kind for kind, _ in cfg.layer_kinds()}
+    mla = cfg.attn_kind == "mla"
+    h, kv = cfg.n_heads, (cfg.n_heads if mla else cfg.n_kv_heads)
+    hd = cfg.v_dim_per_head if mla else cfg.head_dim
+    for m in (2, 4, 16):
+        if "attn" in kinds:
+            plans = [TL.heads_at(h, kv, h * hd, m, lane) for lane in range(m)]
+            assert None not in plans
+            rows = h * hd // m
+            seen = set()
+            for lane, pl in enumerate(plans):
+                qs = range(pl.q0, pl.q0 + pl.n_q)
+                seen.update(qs)
+                assert pl.q0 * hd + pl.out.start == lane * rows
+                assert pl.out.stop - pl.out.start == rows <= pl.n_q * hd
+                assert pl.local_q == (h % m == 0)
+                rep = pl.n_q // len(pl.kv)
+                assert rep * len(pl.kv) == pl.n_q
+                assert all(pl.kv[i // rep] == q // (h // kv) for i, q in enumerate(qs))
+            assert seen == set(range(h))
+        if "mamba" in kinds:
+            di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+            cols, conv = zip(*(TL._mamba_cols(cfg, m, lane, "cpu") for lane in range(m)))
+            width = 2 * di + 2 * st + nh
+            assert sorted(torch.cat(cols).tolist()) == list(range(width))
+            assert sorted(torch.cat(conv).tolist()) == list(range(di + 2 * st))
+            dl, hl = di // m, nh // m
+            for lane, c in enumerate(cols):
+                assert c[:dl].tolist() == list(range(lane * dl, (lane + 1) * dl))
+                assert c[-hl:].tolist() == list(range(2 * di + 2 * st + lane * hl,
+                                                      2 * di + 2 * st + (lane + 1) * hl))

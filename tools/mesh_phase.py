@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s LM mesh phase alone on one card: qwen3-8b and
-llama4-scout at full width over 4 rank processes, the serve CLI over 2,
-NCCL at world size 1, and B9's int8 mode at the a2a send shape.
+llama4-scout at full width over 4 rank processes, one step each of
+mamba2-1.3b and minicpm3-4b with their layers computed on their shards
+(2 layers, model 4), the serve CLI over 2, NCCL at world size 1, and B9's
+int8 mode at the a2a send shape.
 
     python3 tools/mesh_phase.py [--control] [--dryrun]
 
