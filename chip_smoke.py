@@ -30,9 +30,9 @@ LM. The serving path at full width (``LM_ARCHS``): qwen3-8b (36 layers,
    gather once per MoE layer in prefill and in each decode step; counts
    zeroed just before the run and read just after), and in bf16 every
    attention launch takes the route of the head dim it gets (the tensor
-   cores at 64 and 128, ``flash_attention_tc.cu``; MLA's 96 the CUDA cores,
-   ``flash_attention.cu``) and every SSD launch the tensor cores
-   (``ssd_scan_tc.cu``), while the float32 runs below take the CUDA-core
+   cores, ``flash_attention_tc.cu``, at 64, 128 and MLA's 96; the CUDA
+   cores, ``flash_attention.cu``, at any other) and every SSD launch the
+   tensor cores (``ssd_scan_tc.cu``), the float32 runs below the CUDA-core
    ones, by the route counts; a second kernel run gives bit-identical
    tokens and logits; the same path under ``ops.FORCE = "ref"`` (the plain
    versions, routed as the reference routes off the TPU), teacher-forced on
@@ -55,9 +55,11 @@ LM. The serving path at full width (``LM_ARCHS``): qwen3-8b (36 layers,
    other models' shapes (``at_model_shapes``: MLA's d 96, whisper's encoder,
    cross-attention in prefill (2,048 queries against 1,500 keys) and in
    decode (one query), internvl2's 2,304 positions, jamba's SSD, kimi-k2's
-   and jamba's gathers in prefill and decode), and on ``FLASH_SWEEP`` and
-   ``SSD_SWEEP`` (tests/test_kernels.py's shapes, ragged lengths, windows,
-   bf16, each case on the route its dtype and shape pick), at
+   and jamba's gathers in prefill and decode; attention there also on the
+   CUDA-core kernel, timed beside the tensor cores and SDPA), and on
+   ``FLASH_SWEEP`` and ``SSD_SWEEP`` (tests/test_kernels.py's shapes,
+   ragged lengths, windows, bf16, MLA's padded v, each case on the route
+   its dtype and shape pick), at
    ``LM_KERNEL_F32_TOL`` and ``bf16_tol``, the CUDA-core kernels also timed
    and held on the bf16 first-layer inputs; the MoE gather bit for bit in
    both modes, there and on ``MOE_GATHER_SWEEP``; flash_attention is also
@@ -592,13 +594,16 @@ LM_BF16_NOISE = 2.0
 LM_KERNEL_F32_TOL = {"flash_attention": (3e-4, 3e-4), "ssd_scan": (5e-4, 5e-4)}
 LM_KERNEL_BF16_RTOL = 2.0 ** -7
 LM_KERNEL_BF16_ATOL_FRAC = 2.0 ** -12
+MLA_V_DIM = 64  # minicpm3-4b's v head dim, padded to its qk dim of 96
 # tests/test_kernels.py's TestFlashAttention and TestSSDScan shapes, then
 # ragged lengths, decode (sq = 1), the head-dim buckets' edges and the
-# models' own heads in bf16; then the tensor-core route (bf16 at d 64 and
-# 128) on GQA, MQA, non-causal, windowed, ragged (sq and skv not multiples
-# of its 128-row tiles), sq < 64, a decode query against a cache, and the
-# (b, s, h, d) views that layers.gqa_qkv hands over ("bshd").  Each case held
-# as the LM kernels are above, and on the route flash_attention.route picks.
+# models' own heads in bf16; then the tensor-core route (bf16 at d 64, 96
+# and 128) on GQA, MQA, non-causal, windowed, ragged (sq and skv not
+# multiples of its 128-row tiles), sq < 64, a decode query against a cache,
+# the (b, s, h, d) views that layers.gqa_qkv hands over ("bshd"), and MLA's
+# layout ("mla": h = hkv, v 64 wide padded with zeros to the qk dim of 96,
+# as layers.mla_apply pads it).  Each case held as the LM kernels are above,
+# and on the route flash_attention.route picks.
 FLASH_SWEEP = [
     # b, h, hkv, sq, skv, d, causal, window, bf16, layout
     (1, 4, 4, 128, 128, 32, True, None, False, "bhsd"),     # MHA square
@@ -629,6 +634,11 @@ FLASH_SWEEP = [
     (1, 4, 4, 1, 77, 64, True, None, True, "bhsd"),
     (2, 32, 8, 200, 200, 128, True, None, True, "bshd"),    # gqa_qkv's strided views
     (1, 4, 2, 150, 150, 64, True, 64, True, "bshd"),
+    (1, 8, 2, 256, 256, 96, True, None, True, "bhsd"),      # d 96: causal square
+    (1, 4, 4, 100, 173, 96, True, None, True, "bhsd"),      # ragged sq and skv
+    (1, 2, 2, 300, 300, 96, True, 100, True, "bhsd"),       # window across tiles
+    (2, 8, 8, 1, 300, 96, True, None, True, "bhsd"),        # one query against a cache
+    (2, 8, 8, 200, 333, 96, True, None, True, "mla"),       # MLA's padded v
 ]
 # tests/test_kernels.py's TestSSDScan shapes, ragged lengths, ds 256 and bf16
 # on the CUDA cores; then the tensor-core route (bf16 at dh 64, ds 128) on a
@@ -1073,7 +1083,8 @@ def model_shape_entry(torch, ops, route_mod, kernel: str, label: str, args, kw,
     plain version and the library call (SDPA for attention,
     ``index_select`` for the gather, none for the SSD), with its bound:
     operations at the bf16 rate or bytes, each input read once and the
-    output written once."""
+    output written once.  Attention on the tensor-core route is also held
+    and timed on the CUDA-core kernel (``simt``), the route it replaced."""
     def kern():
         return getattr(ops, kernel)(*args, **kw)
 
@@ -1084,7 +1095,7 @@ def model_shape_entry(torch, ops, route_mod, kernel: str, label: str, args, kw,
         finally:
             ops.FORCE = None
 
-    tol = bf16_tol
+    tol, extra = bf16_tol, {}
     if kernel == "flash_attention":
         q, k, v = args
         causal = kw.get("causal", True)
@@ -1098,6 +1109,19 @@ def model_shape_entry(torch, ops, route_mod, kernel: str, label: str, args, kw,
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, scale=kw.get("scale"), enable_gqa=True)
+
+        if route == "tc":
+            def simt():
+                return route_mod._launch("simt", q, k, v, causal, kw.get("scale"),
+                                         kw.get("window"))
+
+            want = plain()
+            simt_out = held(torch, f"{kernel} at {label} (CUDA cores)", simt(), want,
+                            bf16_tol(want))
+            del want
+            extra["simt"] = {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                             "ms": median_ms(torch, simt, 5, per=2),
+                             "max_abs_err": simt_out["max_abs_err"]}
     elif kernel == "ssd_scan":
         x, a, bb, c = args
         bsz, l, hs, dh = x.shape
@@ -1130,7 +1154,7 @@ def model_shape_entry(torch, ops, route_mod, kernel: str, label: str, args, kw,
         kern, plain, b_ms, b_by, model_launches, label, library=library, tol=tol,
         extra={"label": label, "kernel_route": route, "model_launches": model_launches,
                **two_launches(torch, f"{kernel} at {label}", kern),
-               "operations": ops_n, "bytes": nbytes})
+               "operations": ops_n, "bytes": nbytes, **extra})
 
 
 def lm_kernel_entries(torch, ops, ref, fa, ssd, captured: dict, by_model: dict,
@@ -1436,6 +1460,8 @@ def lm_kernel_sweep(torch, ops, ref, fa, ssd, dev) -> list[dict]:
     for case in FLASH_SWEEP:
         b, h, hkv, sq, skv, d, causal, window, bf16, layout = case
         q, k, v = (heads(b, n, s, d, bf16, layout) for n, s in ((h, sq), (hkv, skv), (hkv, skv)))
+        if layout == "mla":  # v of MLA_V_DIM columns padded with zeros to d
+            v = torch.nn.functional.pad(v[..., :MLA_V_DIM], (0, d - MLA_V_DIM))
         rows.append(hold("flash_attention", case,
                          lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
                          lambda: ref.flash_attention(q, k, v, causal=causal, window=window),
@@ -1802,8 +1828,9 @@ def lm_phase(torch, dev, card: str) -> tuple[dict, dict, dict, dict]:
         if missing:
             raise RuntimeError(f"{arch}: the kernel calls {missing} were not made")
         # bf16 weights: every attention and SSD launch takes the route its
-        # shape gets in bf16 (the tensor cores at attention's d 64 and 128 and
-        # at the SSD's (dh, ds) = (64, 128); MLA's qk dim of 96 the CUDA cores).
+        # shape gets in bf16 (fa.route, ssd.route): the tensor cores at
+        # attention's d 64 and 128, at MLA's qk dim of 96 (minicpm3-4b's 62
+        # prefill launches) and at the SSD's (dh, ds) = (64, 128).
         want_routes = {k: {"tc": 0, "simt": 0} for k in routes}
         want_routes["flash_attention"][fa.route(torch.bfloat16, attention_head_dim(cfg))] += \
             plan["flash_attention"]

@@ -1,10 +1,11 @@
 // Forward attention on Hopper's tensor cores (wgmma), for bfloat16 inputs
-// with head dim 64 or 128 (sm_90a).
+// with head dim 64, 96 or 128 (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 //   flash_attention (_flash_kernel)
-// for bfloat16 q, k, v with d in {64, 128}; float32 inputs and every other
-// head dim take csrc/flash_attention.cu (IEEE float32 on the CUDA cores).
+// for bfloat16 q, k, v with d in {64, 96, 128} (96: MLA's nope 64 + rope 32,
+// v zero-padded to it); float32 inputs and every other head dim take
+// csrc/flash_attention.cu (IEEE float32 on the CUDA cores).
 //
 // What it computes: out[b, h, r] = softmax_k(scale * q[b, h, r] . k[b, h // rep, k])
 // . v[b, h // rep, k] over the visible keys k, as flash_attention.cu does: GQA
@@ -35,15 +36,26 @@
 //   (full) and released by the 256 consumer threads (empty).  TMA writes the
 //   128-byte swizzle that wgmma reads, one 64-column atom at a time, and fills
 //   rows past sq or skv with zeros, so the ragged edge needs no copy.
+// - d 96 (MLA's nope 64 + rope 32) is not a whole number of 64-column
+//   atoms.  q and k tiles take two atoms, the second holding columns 64..95
+//   and, past the tensor map's last column, TMA's zeros; TMA counts a whole
+//   box's bytes, zeros included, toward the mbarrier's transaction count, so
+//   the expected bytes are those of the padded tiles (counting d's would
+//   leave the barrier waiting for ever).  v's tile is stored as three
+//   32-column atoms in the 64-byte swizzle instead, so that P v's N of 96
+//   covers whole atoms of wgmma's MN-major B operand (with the 128-byte
+//   swizzle it would have to run at n128 over zero columns, 1.33x the work).
+//   A (batch, head) then takes about as long at d 96 as at d 128: the
+//   softmax and P's split, not the tensor cores, set the pace (PERF.md).
 // - Each consumer warpgroup computes S = q k^T for its 64 rows as d/16
 //   wgmma m64n128k16 (q and k from shared memory, k's (keys, d) tile the
-//   K-major B operand), float32 accumulators in registers.  The online
-//   softmax runs on those registers in log2 units (scale * log2 e folded
-//   into one FMA before exp2f): each row's max is reduced over the 4 lanes
-//   that hold it with shuffles; its running sum stays per thread and is
-//   reduced once at the end.  The causal, window and ragged masks are
-//   applied only on the tiles that cross a boundary; tiles that hold no
-//   visible key for the block are never loaded.
+//   K-major B operand; none over k's zero columns), float32 accumulators in
+//   registers.  The online softmax runs on those registers in log2 units
+//   (scale * log2 e folded into one FMA before exp2f): each row's max is
+//   reduced over the 4 lanes that hold it with shuffles; its running sum
+//   stays per thread and is reduced once at the end.  The causal, window
+//   and ragged masks are applied only on the tiles that cross a boundary;
+//   tiles that hold no visible key for the block are never loaded.
 // - Each warpgroup keeps the tensor cores busy through its softmax: tile
 //   i's q k^T and tile i-1's P v are issued together, and tile i's softmax
 //   (float32, in place) runs once its S is in, while P v is still in
@@ -81,14 +93,22 @@ constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 128; // and the producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory: q (kBQ rows), then per stage k and v (kBK rows each), each
-// stored as d/64 swizzled atoms of (rows x 128 bytes), then the mbarriers.
+// Shared memory: q (kBQ rows), then per stage k and v (kBK rows each), then
+// the mbarriers.  q and k are stored as kAtoms atoms of (rows x 128 bytes)
+// in the 128-byte swizzle, d rounded up to whole 64-column atoms; v as
+// kVAtoms atoms of kVCols columns, (rows x kVRow bytes) in the kVRow-byte
+// swizzle: 64 columns at d 64 and 128, 32 at d 96.  The byte counts are
+// those TMA delivers.
 template <int D>
 struct Layout {
-  static constexpr int kAtoms = D / 64;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;  // k or v
-  static constexpr int kStageBytes = 2 * kTileBytes;
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  static constexpr int kAtoms = (D + 63) / 64;
+  static constexpr int kVCols = D % 64 == 0 ? 64 : 32;
+  static constexpr int kVRow = kVCols * 2;
+  static constexpr int kVAtoms = D / kVCols;
+  static constexpr int kQBytes = kBQ * kAtoms * 128;
+  static constexpr int kKBytes = kBK * kAtoms * 128;
+  static constexpr int kStageBytes = kKBytes + kBK * D * 2;  // k, then v
   static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
@@ -148,12 +168,34 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n96_tb(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_m64n64_tb(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&o)[48], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n96_tb(o, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -176,14 +218,15 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_wg, ui
 }
 
 // Issue O += P v: step kk takes keys 16 kk .. 16 kk + 15, two 8-row groups
-// (1024 bytes apart) of every atom; the atoms along d lie kBK * 128 bytes
-// apart.  p_hi and p_lo go into the same accumulator.
+// (8 kVRow bytes apart) of every atom; the atoms along d lie kBK * kVRow
+// bytes apart.  p_hi and p_lo go into the same accumulator.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&ph)[kBK / 16][4],
                                          const uint32_t (&pl)[kBK / 16][4], uint32_t v_st) {
+  constexpr uint32_t row = Layout<D>::kVRow;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t dv = desc_sw128(v_st + kk * 16 * 128, kBK * 128, 1024);
+    const uint64_t dv = desc_sw(v_st + kk * 16 * row, kBK * row, 8 * row, row == 128 ? 1 : 2);
     wgmma_pv<D>(o, ph[kk], dv);
     wgmma_pv<D>(o, pl[kk], dv);
   }
@@ -307,7 +350,7 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t q_s, uint32_t 
     for (int i = 1; i < n; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages;
       const uint32_t k_st = kv_s + s * L::kStageBytes;
-      const uint32_t v_prev = kv_s + sp * L::kStageBytes + L::kTileBytes;
+      const uint32_t v_prev = kv_s + sp * L::kStageBytes + L::kKBytes;
       float sc[kBK / 2], alpha[2];
       mbar_wait(full0 + 8 * s, (i / kStages) & 1);
       fence_regs(o);
@@ -335,7 +378,7 @@ __device__ __forceinline__ void consume(const Params& a, uint32_t q_s, uint32_t 
     fence_regs(ph);
     fence_regs(pl);
     wg_fence();
-    issue_pv<D>(o, ph, pl, kv_s + sl * L::kStageBytes + L::kTileBytes);
+    issue_pv<D>(o, ph, pl, kv_s + sl * L::kStageBytes + L::kKBytes);
     wg_wait<0>();
     fence_regs(o);
     mbar_arrive(empty0 + 8 * sl);
@@ -414,11 +457,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t stage = kv_s + s * L::kStageBytes;
         mbar_expect_tx(full0 + 8 * s, L::kStageBytes);
 #pragma unroll
-        for (int j = 0; j < L::kAtoms; ++j) {
+        for (int j = 0; j < L::kAtoms; ++j)
           tma_load_4d(stage + j * kBK * 128, &tk, full0 + 8 * s, 64 * j, t * kBK, kh, bb);
-          tma_load_4d(stage + L::kTileBytes + j * kBK * 128, &tv, full0 + 8 * s, 64 * j, t * kBK,
-                      kh, bb);
-        }
+#pragma unroll
+        for (int j = 0; j < L::kVAtoms; ++j)
+          tma_load_4d(stage + L::kKBytes + j * kBK * L::kVRow, &tv, full0 + 8 * s, L::kVCols * j,
+                      t * kBK, kh, bb);
       }
     }
   } else {
@@ -436,7 +480,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int h,
   CUtensorMap tq, tk, tv;
   int e = encode(&tq, fn, q, D, sq, h, b, st[2], st[1], st[0], kBQ);
   if (e == 0) e = encode(&tk, fn, k, D, skv, hkv, b, st[5], st[4], st[3], kBK);
-  if (e == 0) e = encode(&tv, fn, v, D, skv, hkv, b, st[8], st[7], st[6], kBK);
+  if (e == 0) e = encode(&tv, fn, v, D, skv, hkv, b, st[8], st[7], st[6], kBK, Layout<D>::kVCols);
   if (e != 0) return e;
   const int smem = Layout<D>::kBytes;
   cudaError_t ce = cudaFuncSetAttribute(flash_tc_kernel<D>,
@@ -456,8 +500,8 @@ extern "C" {
 // q: (b, h, sq, d); k, v: (b, hkv, skv, d), bf16, each with the given
 // element strides over its first three axes (multiples of 8, the pointers
 // 16-byte aligned; a stride over an axis of extent 1 may be any such value)
-// and a contiguous last axis; out: (b, h, sq, d) contiguous bf16.  d is 64
-// or 128, h % hkv == 0, window >= 0 (0: none).  Returns 0, a CUDA error
+// and a contiguous last axis; out: (b, h, sq, d) contiguous bf16.  d is 64,
+// 96 or 128, h % hkv == 0, window >= 0 (0: none).  Returns 0, a CUDA error
 // (cudaGetLastError() after the launch), or one of this file's codes above.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out, int b, int h,
                               int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
@@ -468,6 +512,7 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v, void*
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64>(q, k, v, out, b, h, hkv, sq, skv, st, scale, causal, window, s);
+  if (d == 96) return launch<96>(q, k, v, out, b, h, hkv, sq, skv, st, scale, causal, window, s);
   if (d == 128) return launch<128>(q, k, v, out, b, h, hkv, sq, skv, st, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

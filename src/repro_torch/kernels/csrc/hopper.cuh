@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_tc.cu, ssd_scan_tc.cu): mbarriers, TMA tile loads from
-// 4-D tensor maps, wgmma shared-memory descriptors for the 128-byte
-// swizzle, wgmma fences, and the tensor-map encoder reached through the
+// 4-D tensor maps, wgmma shared-memory descriptors for the 128- and 64-byte
+// swizzles, wgmma fences, and the tensor-map encoder reached through the
 // runtime (no -lcuda).  _build.py hashes this header into every kernel's
 // cache key, so an edit rebuilds both.
 
@@ -58,13 +58,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// A wgmma shared-memory descriptor for the 128-byte swizzle (layout type 1):
-// start address, leading and stride byte offsets, all in 16-byte units.
-// Every atom starts on a 1024-byte boundary, so the base offset is 0.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// A wgmma shared-memory descriptor for a swizzled layout: start address,
+// leading and stride byte offsets, all in 16-byte units, and the layout
+// type (1: the 128-byte swizzle, 2: the 64-byte one).  Every atom starts on
+// a boundary of its swizzle's 8-row repeat, so the base offset is 0.
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (layout << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return desc_sw(addr, lbo, sbo, 1);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -136,17 +142,18 @@ EncodeTiled encoder() {
 
 // A 4-D map over (d, seq, head, batch) of bf16 with element strides
 // (1, ss, sh, sb), read as boxes of 64 columns x rows x 1 x 1 in the
-// 128-byte swizzle; out-of-range rows read as zeros.
+// 128-byte swizzle (or of 32 columns in the 64-byte one, ``cols`` 32);
+// out-of-range rows and columns read as zeros.
 int encode(CUtensorMap* map, EncodeTiled fn, const void* ptr, int d, int s, int nh, int nb,
-           long long ss, long long sh, long long sb, int rows) {
+           long long ss, long long sh, long long sb, int rows, int cols = 64) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)nh, (cuuint64_t)nb};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 

@@ -2,10 +2,12 @@
 and head dim (``route``):
 
 - ``"tc"`` (CUDA source ``csrc/flash_attention_tc.cu``): bfloat16 with d
-  in ``TC_HEAD_DIMS``, on Hopper's tensor cores (wgmma, float32
-  accumulation, TMA loads).  q, k and v must sit on 16-byte boundaries
-  (strides over (batch, head, seq) multiples of 8 elements), which every
-  contiguous tensor and ``layers.gqa_qkv``'s transposed views do.
+  in ``TC_HEAD_DIMS`` (64, 96 and 128: GQA's heads, whisper's, and MLA's
+  nope 64 + rope 32 with v padded to it), on Hopper's tensor cores (wgmma,
+  float32 accumulation, TMA loads).  q, k and v must sit on 16-byte
+  boundaries (strides over (batch, head, seq) multiples of 8 elements),
+  which every contiguous tensor and ``layers.gqa_qkv``'s transposed views
+  do.
 - ``"simt"`` (CUDA source ``csrc/flash_attention.cu``): float32, and
   bfloat16 at any other head dim, in IEEE float32 on the CUDA cores (no
   TF32).
@@ -29,7 +31,7 @@ import torch
 from . import _build, ref
 
 MIN_D, MAX_D = 16, 256  # head dims the simt kernel's buckets cover
-TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernel (bfloat16 only)
+TC_HEAD_DIMS = (64, 96, 128)  # head dims of the tensor-core kernel (bfloat16 only)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"flash_attention": 0}

@@ -613,7 +613,7 @@ def _randn(rng, shape, cuda, dtype=torch.float32):
 
 # tests/test_kernels.py's TestFlashAttention shapes, then ragged lengths,
 # decode (sq = 1), odd and extreme head dims, and qwen3-8b's GQA in bf16;
-# then the tensor-core route (bf16 at d 64 and 128): GQA, MQA, non-causal,
+# then the tensor-core route (bf16 at d 64, 96 and 128): GQA, MQA, non-causal,
 # windowed, ragged sq and skv (not multiples of its 128-row tiles), sq < 64,
 # one query against a cache, and layers.gqa_qkv's (b, s, h, d) views.
 FLASH_CASES = [
@@ -642,14 +642,19 @@ FLASH_CASES = [
     (1, 4, 4, 33, 70, 128, True, None, torch.bfloat16, "tc"),        # sq < 64
     (2, 8, 2, 1, 300, 128, True, None, torch.bfloat16, "tc"),        # one query, a cache
     (1, 4, 4, 1, 77, 64, True, None, torch.bfloat16, "tc"),
-    # MLA's qk dim of 96 (nope 64 + rope 32) stays on the CUDA cores in bf16
-    (2, 8, 8, 200, 200, 96, True, None, torch.bfloat16, "simt"),
+    # MLA's qk dim of 96 (nope 64 + rope 32): the tensor cores in bf16 (a
+    # tile of two 64-column atoms, the last 32 columns TMA's zeros), the CUDA
+    # cores in float32
+    (2, 8, 8, 200, 200, 96, True, None, torch.bfloat16, "tc"),
     (1, 4, 4, 130, 130, 96, True, None, torch.float32, "simt"),
     # whisper at d 64: the encoder's 1,500 frames, cross-attention in prefill
     # (2,048 queries against 1,500 keys) and in decode (one query), non-causal
     (1, 4, 4, 1500, 1500, 64, False, None, torch.bfloat16, "tc"),
     (1, 4, 4, 2048, 1500, 64, False, None, torch.bfloat16, "tc"),
     (4, 12, 12, 1, 1500, 64, False, None, torch.bfloat16, "tc"),
+    # MLA's d 96 on the tensor cores: ragged sq and skv; GQA, a window across tiles
+    (1, 4, 4, 100, 173, 96, True, None, torch.bfloat16, "tc"),
+    (1, 8, 2, 300, 300, 96, True, 100, torch.bfloat16, "tc"),
 ]
 
 
@@ -1096,7 +1101,7 @@ GRAD_FLASH_CASES = [
     (1, 4, 2, 200, 64, True, 64, torch.bfloat16, "tc", "bshd"),       # window, gqa_qkv views
     (2, 8, 2, 300, 128, True, None, torch.float32, "simt", "bhsd"),
     (1, 4, 4, 200, 64, False, 50, torch.float32, "simt", "bhsd"),     # non-causal window
-    (2, 4, 4, 256, 96, True, None, torch.bfloat16, "simt", "mla"),    # MLA: v 64 padded to 96
+    (2, 4, 4, 256, 96, True, None, torch.bfloat16, "tc", "mla"),      # MLA: v 64 padded to 96
     (2, 4, 4, 256, 96, True, None, torch.float32, "simt", "mla"),
     (1, 4, 2, 1600, 64, True, None, torch.float32, "simt", "bhsd"),   # chunked recompute
 ]

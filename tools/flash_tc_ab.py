@@ -7,14 +7,17 @@ against other versions of the same source, in turns on one card.
 Needs a CUDA card and nvcc; imports nothing of JAX.  Every source must
 export ``flash_attention_tc_launch`` with the committed signature.  Each is
 built with the package's nvcc flags plus ``-Xptxas -v`` (its registers,
-spills and warnings are printed), held on ten shapes (GQA, MQA,
-non-causal, windowed, ragged, sq = 1, sq < 64, d 64 and 128) and on
-qwen3-8b's prefill shape to chip_smoke.py's ``bf16_tol`` against the plain
-version, with two launches bit-identical; then timed at qwen3-8b's prefill
-shape (b 4, h 32, hkv 8, s 2,048, d 128, bf16, causal, gqa_qkv's strided
-views) in the order A, B, ..., ..., B, A, beside SDPA, and at prefill_32k's
-length (one sequence, one layer).  Times are device time per call (CUDA
-events, 5 calls queued behind a spin kernel, median of 10 batches).
+spills and warnings are printed), held on fourteen shapes (GQA, MQA,
+non-causal, windowed, ragged, sq = 1, sq < 64, d 64, 96 and 128), on
+qwen3-8b's prefill shape and on minicpm3-4b's to chip_smoke.py's
+``bf16_tol`` against the plain version, with two launches bit-identical;
+then timed at qwen3-8b's prefill shape (b 4, h 32, hkv 8, s 2,048, d 128,
+bf16, causal, gqa_qkv's strided views) in the order A, B, ..., ..., B, A,
+beside SDPA; the same at minicpm3-4b's MLA prefill shape (b 4, h = hkv 40,
+s 2,048, d 96 = nope 64 + rope 32, v 64 zero-padded to 96, scale 1/sqrt(96),
+causal); and at prefill_32k's length (one sequence, one qwen3-8b layer).
+Times are device time per call (CUDA events, 5 calls queued behind a spin
+kernel, median of 10 batches).
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ CASES = [  # b, h, hkv, sq, skv, d, causal, window
     (1, 4, 2, 100, 173, 128, True, 50), (1, 4, 2, 200, 333, 64, False, None),
     (2, 4, 4, 1, 77, 128, True, None), (1, 4, 4, 33, 70, 128, True, None),
     (1, 32, 8, 1000, 1000, 128, True, None), (1, 2, 2, 700, 700, 128, True, 100),
+    (1, 4, 4, 256, 256, 96, True, None), (1, 4, 4, 100, 173, 96, True, None),
+    (1, 2, 2, 300, 300, 96, True, 100), (2, 4, 4, 1, 77, 96, True, None),
 ]
 SPIN_CYCLES = 20_000_000
 
@@ -110,6 +115,14 @@ def main() -> int:
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                 enable_gqa=True)
 
+    def turns(q, k, v):
+        """Each source timed in turns A, B, ..., ..., B, A, then SDPA."""
+        times = {n: [] for n in launchers}
+        for n in list(launchers) + list(launchers)[::-1]:
+            times[n].append(median_ms(lambda: run(n, q, k, v)))
+        times["sdpa"] = [median_ms(lambda: sdpa(q, k, v))]
+        return times
+
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape):
@@ -132,11 +145,19 @@ def main() -> int:
     want = ref.flash_attention_chunked(q, k, v, causal=True)
     held = {n: outside_bf16_tol(run(n, q, k, v), want) for n in launchers}
     failed |= any(held.values())
-    times = {n: [] for n in launchers}
-    for n in list(launchers) + list(launchers)[::-1]:
-        times[n].append(median_ms(lambda: run(n, q, k, v)))
-    times["sdpa"] = [median_ms(lambda: sdpa(q, k, v))]
-    print(json.dumps({"qwen3_prefill_outside_tol": held, "qwen3_prefill_ms": times}), flush=True)
+    print(json.dumps({"qwen3_prefill_outside_tol": held, "qwen3_prefill_ms": turns(q, k, v)}),
+          flush=True)
+    # minicpm3-4b's MLA prefill as layers.mla_apply hands it over: q and k
+    # cat(nope 64, rope 32), v 64 wide padded with zeros to 96.
+    q, k = randn((4, 40, 2048, 96)), randn((4, 40, 2048, 96))
+    v = torch.nn.functional.pad(randn((4, 40, 2048, 64)), (0, 32))
+    want = ref.flash_attention_chunked(q, k, v, causal=True)
+    held = {n: {"outside_tol": outside_bf16_tol(run(n, q, k, v), want),
+                "identical": bool(torch.equal(run(n, q, k, v), run(n, q, k, v)))}
+            for n in launchers}
+    failed |= any(r["outside_tol"] or not r["identical"] for r in held.values())
+    print(json.dumps({"minicpm3_prefill_held": held, "minicpm3_prefill_ms": turns(q, k, v)}),
+          flush=True)
     del q, k, v, want
     q = randn((1, 32, 32768, 128))
     k, v = randn((1, 8, 32768, 128)), randn((1, 8, 32768, 128))
